@@ -1,0 +1,159 @@
+"""Conv building blocks (counterpart of ``contrast_gan_3d_tpu/models/blocks.py``),
+3D, NCDHW tensors.
+
+``ConvBlock`` = conv / transpose conv + BatchNorm (or none) + activation,
+with a bias only when unnormalized; ``ResNetBlock`` = two ConvBlocks +
+optional dropout + skip. Weights use torch's layouts: conv ``(O, I, kx, ky,
+kz)``, transpose conv ``(I, O, kx, ky, kz)`` (``utils/weights.py`` maps the
+JAX kernels onto them).
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from contrast_gan_3d_tpu_torch.models.norm import BatchNorm
+from contrast_gan_3d_tpu_torch.ops.block_conv import s2d_conv3d_block
+
+ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
+
+
+class S2DConv(nn.Conv3d):
+    """Stride-1 SAME 3D conv computed via space-to-depth and the block-conv
+    kernel (``ops/block_conv.s2d_conv3d_block``, B3 -> B1). Parameters are
+    those of the ``nn.Conv3d`` it replaces, so checkpoints interchange with
+    the direct path. Inputs whose spatial dims do not divide ``f`` take the
+    direct conv: the JAX ``ConvBlock``'s per-shape choice (``blocks.py``
+    ``use_s2d``), made here once. ``s2d_conv3d_block`` keeps its own check
+    only as the JAX wrapper's dispatch for direct callers."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, padding_mode="zeros", f=4, bias=True):
+        super().__init__(
+            in_channels, out_channels, kernel_size,
+            padding=(kernel_size - 1) // 2, padding_mode=padding_mode, bias=bias,
+        )
+        self.f = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if any(d % self.f for d in x.shape[2:]):
+            return super().forward(x)
+        y = s2d_conv3d_block(
+            x.permute(0, 2, 3, 4, 1),
+            self.weight.permute(2, 3, 4, 1, 0),
+            self.bias,
+            f=self.f,
+            padding_mode=self.padding_mode,
+        )
+        return y.permute(0, 4, 1, 2, 3)
+
+
+def _same_tconv_offset(k: int, s: int) -> int:
+    """Start of flax ``ConvTranspose(padding='SAME')``'s window in the full
+    transpose-conv output (``lax`` pads the dilated input by pad_a in front)."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    return k - 1 - pad_a
+
+
+class ConvBlock(nn.Module):
+    """conv -> norm -> activation (3D)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        features: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        padding_mode: str = "zeros",
+        transpose: bool = False,
+        norm: Optional[str] = "batch",
+        activation: Optional[str] = "relu",
+        negative_slope: float = 0.2,
+        dropout_prob: float = 0.0,
+        s2d: Optional[int] = None,
+        tconv_placement: str = "same",
+    ):
+        super().__init__()
+        if padding_mode not in ("reflect", "zeros"):
+            raise ValueError(f"unknown padding_mode {padding_mode!r}: expected 'zeros' | 'reflect'")
+        if norm not in ("batch", None):
+            raise NotImplementedError(f"norm={norm!r} is {ROADMAP_NOTE}")
+        if activation not in ("relu", "leaky_relu", "tanh", None):
+            raise ValueError(f"Unknown activation {activation!r}")
+        use_bias = norm is None
+        self.transpose = transpose
+        self.activation = activation
+        self.negative_slope = negative_slope
+        if transpose:
+            if tconv_placement == "torch":
+                # torch ConvTranspose(k, s, p=(k-1)//2, op=s-1) = full[p : p + sN]
+                self.tconv_offset = (kernel_size - 1) // 2
+            elif tconv_placement == "same":
+                self.tconv_offset = _same_tconv_offset(kernel_size, stride)
+            else:
+                raise ValueError(f"unknown tconv_placement {tconv_placement!r}")
+            self.conv = nn.ConvTranspose3d(
+                in_channels, features, kernel_size, stride=stride, bias=use_bias
+            )
+        elif s2d is not None and stride == 1 and padding == (kernel_size - 1) // 2:
+            self.conv = S2DConv(
+                in_channels, features, kernel_size, padding_mode=padding_mode,
+                f=s2d, bias=use_bias,
+            )
+        else:
+            self.conv = nn.Conv3d(
+                in_channels, features, kernel_size, stride=stride, padding=padding,
+                padding_mode=padding_mode, bias=use_bias,
+            )
+        self.norm = BatchNorm(features) if norm == "batch" else None
+        self.dropout = nn.Dropout(dropout_prob) if dropout_prob > 0 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.transpose:
+            # full transpose conv, then the size-preserving window
+            n = x.shape[2:]
+            s = self.conv.stride[0]
+            lo = self.tconv_offset
+            x = self.conv(x)[:, :, lo : lo + s * n[0], lo : lo + s * n[1], lo : lo + s * n[2]]
+        else:
+            x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        if self.activation == "relu":
+            x = F.relu(x)
+        elif self.activation == "leaky_relu":
+            x = F.leaky_relu(x, self.negative_slope)
+        elif self.activation == "tanh":
+            x = torch.tanh(x)
+        return x
+
+
+class ResNetBlock(nn.Module):
+    """Two 3^3 ConvBlocks with a residual skip: block0 has no activation,
+    dropout sits between the blocks, the skip wraps both."""
+
+    def __init__(
+        self,
+        features: int,
+        kernel_size: int = 3,
+        dropout_prob: float = 0.0,
+        padding_mode: str = "zeros",
+        norm: Optional[str] = "batch",
+    ):
+        super().__init__()
+        self.block0 = ConvBlock(
+            features, features, kernel_size, padding=1, padding_mode=padding_mode,
+            norm=norm, activation=None, dropout_prob=dropout_prob,
+        )
+        self.block1 = ConvBlock(
+            features, features, kernel_size, padding=1, padding_mode=padding_mode,
+            norm=norm, activation="relu",
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.block1(self.block0(x))

@@ -1,0 +1,48 @@
+"""BatchNorm with the JAX package's semantics (counterpart of
+``contrast_gan_3d_tpu/models/norm.py``), channels at dim 1 (NCDHW).
+
+- eval: normalize with the running statistics;
+- train: normalize with the biased batch variance ``E[x^2] - E[x]^2``
+  (floored at 0), and update the running EMA with the UNBIASED variance
+  n/(n-1) — torch semantics, which the JAX module keeps for reference
+  parity. ``momentum`` follows torch's convention: 0.1 here is flax's 0.9.
+- Normalization folds into one multiply-add, ``y = x * mult + add``, with
+  ``mult = scale / sqrt(var + eps)`` and ``add = bias - mean * mult``, as in
+  the JAX module.
+
+Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
+``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
+"""
+
+import torch
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = x.mean(axes, dtype=torch.float32)
+            mean2 = x.square().mean(axes, dtype=torch.float32)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1)) if n > 1 else var
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mult = self.weight / torch.sqrt(var + self.eps)
+        add = self.bias - mean * mult
+        return x * mult.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
