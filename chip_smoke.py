@@ -6,21 +6,50 @@ kernel against its plain PyTorch version.
 Phases (any failure raises and exits non-zero):
 1. build the CUDA kernels from ``contrast_gan_3d_tpu_torch/ops/csrc`` into
    ``build/torch_kernels/`` and print the card's name and power limit;
-2. kernels: B1 (``block_conv3x3x3``) and B3 (``s2d_conv3d_block``) at the
-   generator's batch-8 stem and projection shapes, f32 and bf16, against
-   their plain versions, with CUDA-event medians of the kernel, the plain
-   version and one PyTorch library call (a yardstick the port never calls)
-   beside the least time the card could take (the bound);
-3. main path: the default 1,035,297-parameter ``ResnetGenerator`` with
+2. kernels: B1 (``block_conv3x3x3``), B2 (``block_conv3x3x3_v2``, on no
+   path) and B3 (``s2d_conv3d_block``) at the generator's batch-8 stem and
+   projection shapes, f32 and bf16, against their plain versions, with
+   CUDA-event medians of the kernel, the plain version and one PyTorch
+   library call (a yardstick the port never calls) beside the least time
+   the card could take (the bound); then B1's backward at the train path's
+   batch-6 projection shape: dx (a B1 launch on dy padded by 2) and dw
+   from ``BlockConv3x3x3Function`` against autograd through the plain
+   version (1e-4 of max|plain|), with their times and bounds;
+3. serving path: the default 1,035,297-parameter ``ResnetGenerator`` with
    seeded random weights corrects three int16 512x512x128 volumes through
    ``CCTAContrastCorrector`` (128^3 patches, 25% overlap, batch 8: 25
    patches, 4 generator forwards, 8 B1 launches per volume);
    then one 512x512x400 volume at 25% and one at 50% overlap (74 B1
    launches);
-4. path parity: one 96x96x64 volume corrected on the card and on the CPU
-   with the same weights must agree to 0.5 HU;
-5. where the time goes: device time by kernel over one 512x512x128
-   correction under ``torch.profiler``.
+4. serving parity: one 96x96x64 volume corrected on the card and on the
+   CPU with the same weights must agree to 0.5 HU;
+5. train path, full width: the default generator and the default
+   176,873-parameter ``PatchGANDiscriminator``, seeded, on 128^3 int16
+   patches, 6 OPT + 3 LOW + 3 HIGH, through ``Trainer.train_step``:
+   (a) weight clip (basic_3d: Adam 2e-4 (0.5, 0.999), clip 0.01, critic
+   every 1, generator every 5), 10 iterations; (b) gradient penalty
+   (critic without norm, Adam 1e-4 (0, 0.9), lambda 10), 3 iterations of
+   the train_generator_more schedule. Checks: finite losses; every critic
+   parameter within 0.01 after each weight-clip critic update; the B1
+   stages' weights (``first.conv.weight``, ``last_conv.conv.weight``)
+   change at each generator update; B1 launches per iteration (2 for a
+   critic-only step, 3 for a combined or generator-only step, one of them
+   the backward's dx). Prints the warm median seconds of ``critic_step``
+   and ``combined_step``, train_patches_per_sec = 12 / combined seconds,
+   and the peak device memory;
+6. where the time goes: device time by kernel over one 512x512x128
+   correction (after phase 4) and over one warm weight-clip
+   ``combined_step``, under ``torch.profiler``, the latter also by
+   ``convolution_backward`` input shapes;
+7. train parity: default widths, 32^3 patches, batch 2 + 1 + 1, one step
+   from one state on the card and on the CPU (weight clip and gradient
+   penalty with a fixed eps), for each of ``generator_only_step``,
+   ``critic_step`` and ``combined_step``: the trained network's gradients
+   within 1e-3 of max|cpu| per tensor, every loss within 1e-4 relative,
+   each critic update within 2 lr per weight, and the B1 stages'
+   gradients non-zero on the card after a generator update. In
+   ``combined_step`` the CPU run takes the card's updated critic before
+   the generator's loss (``train_parity_phase``).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -32,22 +61,30 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
 from contrast_gan_3d_tpu_torch.ops import _build
 from contrast_gan_3d_tpu_torch.ops.block_conv import (
     block_conv3x3x3,
     block_conv3x3x3_reference,
+    block_conv3x3x3_v2,
+    block_conv3x3x3_v2_reference,
     s2d_conv3d_block,
+    weight_grad,
 )
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import s2d_conv3d
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
+from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
+from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
+from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 outside the tensor cores,
 # bf16 on them, and HBM3 bandwidth
@@ -63,6 +100,29 @@ PATH_TOL_HU = 0.5
 BATCH = 8
 B1_SHAPES = {"stem": (64, 1024), "projection": (1024, 64)}  # (Ci, Co) over 34^3 blocks
 B3_SHAPES = {"stem": (1, 16, False), "projection": (16, 1, True)}  # (Ci, Co, bias) at 128^3
+SOURCE = "contrast_gan_3d_tpu_torch/ops/csrc/block_conv.cu"
+REPLACES = {
+    "block_conv3x3x3": "contrast_gan_3d_tpu/ops/pallas_conv.py:96",
+    "block_conv3x3x3_v2": "contrast_gan_3d_tpu/ops/pallas_conv.py:193",
+    "s2d_conv3d_block": "contrast_gan_3d_tpu/ops/pallas_conv.py:220",
+}
+# the train path: 128^3 patches, 6 OPT + 3 LOW + 3 HIGH (bench.py's
+# reference mix), a 0.1% centerline mask; the generator's batch is 6
+TRAIN_PATCH = (128, 128, 128)
+TRAIN_MIX = (6, 3, 3)
+TRAIN_MODES = {
+    "wc": dict(norm="batch", lr=2e-4, betas=(0.5, 0.999), weight_clip=0.01,
+               critic_every=1, generator_every=5, iterations=10),
+    "gp": dict(norm=None, lr=1e-4, betas=(0.0, 0.9), weight_clip=None,
+               critic_every=5, generator_every=1, iterations=3),
+}
+# B1 launches per train iteration: stem + projection forward, plus the
+# projection's dx in a generator backward (the stem's input is data)
+B1_PER_BRANCH = {"critic": 2, "combined": 3, "generator": 3}
+TIMED_STEPS = 5
+PARITY_PATCH, PARITY_MIX = (32, 32, 32), (2, 1, 1)
+PARITY_GRAD_TOL = 1e-3  # max|cuda - cpu| / max|cpu| per generator gradient
+PARITY_LOSS_TOL = 1e-4  # relative, per loss
 
 
 def nvidia_smi() -> str:
@@ -108,39 +168,46 @@ def compare(got, ref, tol, what):
 
 
 def kernel_phase(dev, g):
-    """Per (kernel, stage, dtype): errors and times at the main path's shapes."""
+    """Per (kernel, stage, dtype): errors and times at the main path's shapes.
+    B2 runs the same contraction as B1 with X and Y swapped in memory; its
+    library yardstick is the same ``F.conv3d`` on its own memory."""
+    # (wrapper, plain, conv weight over x's spatial order (Z, ., .))
+    block_convs = {
+        "block_conv3x3x3": (block_conv3x3x3, block_conv3x3x3_reference, lambda w: w.permute(4, 3, 2, 0, 1)),
+        "block_conv3x3x3_v2": (block_conv3x3x3_v2, block_conv3x3x3_v2_reference, lambda w: w.permute(4, 3, 2, 1, 0)),
+    }
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for stage, (ci, co) in B1_SHAPES.items():
-            x = torch.randn((BATCH, 34, 34, 34, ci), generator=g).to(dev, dtype)
-            w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev, dtype)
-            got = block_conv3x3x3(x, w)
-            ref = block_conv3x3x3_reference(x, w)
-            torch.cuda.synchronize()
-            what = f"B1 block_conv3x3x3 {stage} {dtype}"
-            err, rel = compare(got, ref, REL_TOL[dtype], what)
-            # the library yardstick reads the same memory as NCDHW
-            # (channels-last strides): conv over (Z, X, Y) with w[qx,qy,qz]
-            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 2, 0, 1)
-            if dtype == torch.float32:
-                compare(F.conv3d(xc, wc).permute(0, 2, 3, 4, 1), ref, REL_TOL[dtype],
-                        f"{what} (library conv vs plain)")
-            zo = 32
-            flops = 2 * BATCH * zo**3 * 27 * ci * co
-            b_ms, b_by = bound(flops, nbytes(x, w, got), dtype)
-            ms = median_ms(lambda: block_conv3x3x3(x, w))
-            rows.append(dict(
-                name="block_conv3x3x3", stage=stage, dtype=str(dtype).split(".")[-1],
-                route="cuda", source="contrast_gan_3d_tpu_torch/ops/csrc/block_conv.cu",
-                replaces="contrast_gan_3d_tpu/ops/pallas_conv.py:96",
-                max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=median_ms(lambda: block_conv3x3x3_reference(x, w)),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=median_ms(lambda: F.conv3d(xc, wc)),
-                tflops=flops / ms / 1e9,
-            ))
-            del x, w, got, ref, xc, wc
-            torch.cuda.empty_cache()
+        for name, (wrapper, plain, conv_w) in block_convs.items():
+            for stage, (ci, co) in B1_SHAPES.items():
+                x = torch.randn((BATCH, 34, 34, 34, ci), generator=g).to(dev, dtype)
+                w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev, dtype)
+                got = wrapper(x, w)
+                ref = plain(x, w)
+                torch.cuda.synchronize()
+                what = f"{name} {stage} {dtype}"
+                err, rel = compare(got, ref, REL_TOL[dtype], what)
+                # the library yardstick reads the same memory as NCDHW
+                # (channels-last strides): conv over x's spatial order
+                xc, wc = x.permute(0, 4, 1, 2, 3), conv_w(w)
+                if dtype == torch.float32:
+                    compare(F.conv3d(xc, wc).permute(0, 2, 3, 4, 1), ref, REL_TOL[dtype],
+                            f"{what} (library conv vs plain)")
+                zo = 32
+                flops = 2 * BATCH * zo**3 * 27 * ci * co
+                b_ms, b_by = bound(flops, nbytes(x, w, got), dtype)
+                ms = median_ms(lambda: wrapper(x, w))
+                rows.append(dict(
+                    name=name, stage=stage, dtype=str(dtype).split(".")[-1],
+                    route="cuda", source=SOURCE, replaces=REPLACES[name],
+                    max_abs_err=err, max_rel_err=rel, ms=ms,
+                    plain_ms=median_ms(lambda: plain(x, w)),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=median_ms(lambda: F.conv3d(xc, wc)),
+                    tflops=flops / ms / 1e9,
+                ))
+                del x, w, got, ref, xc, wc
+                torch.cuda.empty_cache()
         for stage, (ci, co, has_bias) in B3_SHAPES.items():
             x = torch.randn((BATCH, 128, 128, 128, ci), generator=g).to(dev, dtype)
             w = (torch.randn((7, 7, 7, ci, co), generator=g) / (343 * ci) ** 0.5).to(dev, dtype)
@@ -162,7 +229,7 @@ def kernel_phase(dev, g):
             rows.append(dict(
                 name="s2d_conv3d_block", stage=stage, dtype=str(dtype).split(".")[-1],
                 route="cuda", source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
-                replaces="contrast_gan_3d_tpu/ops/pallas_conv.py:220",
+                replaces=REPLACES["s2d_conv3d_block"],
                 max_abs_err=err, max_rel_err=rel,
                 ms=median_ms(lambda: s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")),
                 plain_ms=median_ms(lambda: s2d_conv3d(x, w, b, f=4, padding_mode="reflect")),
@@ -176,25 +243,87 @@ def kernel_phase(dev, g):
     return rows
 
 
-def seeded_generator(seed: int) -> ResnetGenerator:
-    """The default generator with lecun-normal conv weights and non-trivial
-    BatchNorm parameters and running statistics, all from one seed."""
-    gen = ResnetGenerator()
+def backward_phase(dev, g):
+    """B1's backward at the train path's batch-6 projection (1024 -> 64 over
+    34^3 blocks): dx and dw from ``BlockConv3x3x3Function`` on the card vs
+    autograd through the plain version, f32; then the dx launch (B1 on dy
+    padded by 2 with the flipped, transposed weight: 64 -> 1024 over 36^3)
+    and dw (27 per-tap products) timed beside their bounds, both counted at
+    the forward's 2 * 6 * 32^3 * 27 * 1024 * 64 operations; dx's library
+    yardstick is cuDNN's dgrad (``torch.nn.grad.conv3d_input``)."""
+    b, ci, co = TRAIN_MIX[1] + TRAIN_MIX[2], 1024, 64
+    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev).requires_grad_(True)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev).requires_grad_(True)
+    dy = torch.randn((b, 32, 32, 32, co), generator=g).to(dev)
+    out = block_conv3x3x3(x, w)
+    if out.grad_fn is None:
+        raise AssertionError("block_conv3x3x3 on CUDA tensors returned an output without grad_fn")
+    launches, bwd_launches = block_conv3x3x3.launches, block_conv3x3x3.backward_launches
+    dx, dw = torch.autograd.grad(out, (x, w), dy)
+    if (block_conv3x3x3.launches - launches, block_conv3x3x3.backward_launches - bwd_launches) != (1, 1):
+        raise AssertionError("the backward's dx was not exactly one counted B1 launch")
+    dx_ref, dw_ref = torch.autograd.grad(block_conv3x3x3_reference(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    err_dx, rel_dx = compare(dx, dx_ref, REL_TOL[torch.float32], "B1 backward dx (batch-6 projection)")
+    compare(dw, dw_ref, REL_TOL[torch.float32], "B1 backward dw (batch-6 projection)")
+    # the library yardstick: cuDNN's input gradient (dgrad) on the unpadded
+    # dy, over the same memory read as NCDHW
+    dyc, wc = dy.permute(0, 4, 1, 2, 3), w.detach().permute(4, 3, 2, 0, 1)
+    x_size = (b, ci, 34, 34, 34)
+    compare(torch.nn.grad.conv3d_input(x_size, wc, dyc).permute(0, 2, 3, 4, 1), dx_ref,
+            REL_TOL[torch.float32], "B1 backward dx (library dgrad vs plain)")
+    del x, out, dw, dx_ref, dw_ref
+    torch.cuda.empty_cache()
+
+    dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))
+    w_t = w.detach().flip(0, 1, 2).transpose(3, 4).contiguous()
+    # dx's own work is the forward's products; the launch also multiplies
+    # the padding's zeros, which the bound does not count
+    flops = 2 * b * 32**3 * 27 * ci * co
+    b_ms, b_by = bound(flops, nbytes(dy, w, dx), torch.float32)
+    ms = median_ms(lambda: block_conv3x3x3(dy_pad, w_t))
+    row = dict(
+        name="block_conv3x3x3", stage="projection dx (backward)", dtype="float32",
+        route="cuda", source=SOURCE, replaces=REPLACES["block_conv3x3x3"],
+        max_abs_err=err_dx, max_rel_err=rel_dx, ms=ms,
+        plain_ms=median_ms(lambda: block_conv3x3x3_reference(dy_pad, w_t)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: torch.nn.grad.conv3d_input(x_size, wc, dyc)),
+        tflops=flops / ms / 1e9,
+    )
+    print("  " + json.dumps(row), flush=True)
+    del dx, dy_pad, w_t, dyc, wc
+    torch.cuda.empty_cache()
+
+    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev)
+    dw_flops = 2 * b * 32**3 * 27 * ci * co
+    dw_bound, dw_by = bound(dw_flops, nbytes(x, dy) + 27 * ci * co * 4, torch.float32)
+    dw_ms = median_ms(lambda: weight_grad(x, dy))
+    print(f"  B1 backward dw (27 per-tap matmuls, batch-6 projection): {dw_ms:.2f} ms, "
+          f"bound {dw_bound:.2f} ms ({dw_by}), {dw_flops / dw_ms / 1e9:.1f} TFLOP/s", flush=True)
+    del x, dy
+    torch.cuda.empty_cache()
+    return row
+
+
+def seeded(module, seed: int):
+    """``module`` with lecun-normal conv weights and non-trivial BatchNorm
+    parameters and running statistics, all from one seed."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, p in gen.named_parameters():
+        for name, p in module.named_parameters():
             if p.dim() > 1:
                 p.copy_(torch.randn(p.shape, generator=g) / p[0].numel() ** 0.5)
             elif name.endswith("norm.weight"):
                 p.copy_(1 + 0.1 * torch.randn(p.shape, generator=g))
             else:
                 p.copy_(0.1 * torch.randn(p.shape, generator=g))
-        for name, buf in gen.named_buffers():
+        for name, buf in module.named_buffers():
             if name.endswith("running_mean"):
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
             elif name.endswith("running_var"):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
-    return gen
+    return module
 
 
 def path_phase(gen, rng):
@@ -212,7 +341,7 @@ def path_phase(gen, rng):
     vols = [rng.integers(-1024, 1500, shape).astype(np.int16) for shape, _ in requests]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_conv3x3x3.launches = 0
+    block_conv3x3x3.launches = block_conv3x3x3_v2.launches = 0
     s2d_conv3d_block.launches = 0
     results = []
     for vol, (shape, overlap) in zip(vols, requests):
@@ -231,7 +360,8 @@ def path_phase(gen, rng):
         if not delta < 600.0 + 1e-2:
             raise AssertionError(f"correction of {delta} HU exceeds the 600 HU bound")
     launches = {"block_conv3x3x3": block_conv3x3x3.launches,
-                "s2d_conv3d_block": s2d_conv3d_block.launches}
+                "s2d_conv3d_block": s2d_conv3d_block.launches,
+                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for r in results:
         print(f"path: {r}", flush=True)
@@ -260,20 +390,18 @@ def parity_phase(gen, state, rng):
         raise AssertionError(f"CUDA and CPU corrections differ by {diff} HU")
 
 
-def profile_phase(gen, rng):
-    """Where the time goes: device time by kernel over one 512x512x128
-    correction under torch.profiler, and the device's busy share of the
-    wall time (the profiler's own cost is inside that wall time)."""
-    corrector = CCTAContrastCorrector(
-        gen, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH
-    )
-    vol = rng.integers(-1024, 1500, (512, 512, 128)).astype(np.int16)
-    corrector(vol)
+def profile(fn, label, top=15):
+    """Device time by kernel over one warm call of ``fn`` under
+    torch.profiler, and the device's busy share of the wall time (the
+    profiler's own cost is inside that wall time); then the device time of
+    each ``aten::convolution_backward`` by input shapes, which names the
+    layer behind a backward kernel (none in a forward-only call)."""
+    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        corrector(vol)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.Counter()
@@ -282,12 +410,208 @@ def profile_phase(gen, rng):
             by_name[e.name] += e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     if not busy_us:
-        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        print(f"profile {label}: the profiler recorded no device time (not measured)", flush=True)
         return
-    print(f"profile: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / wall_us:.1f}%), {sum(1 for _ in by_name)} kernel names", flush=True)
-    for name, us in by_name.most_common(15):
+    for name, us in by_name.most_common(top):
         print(f"  {us / 1e3:9.2f} ms {100 * us / busy_us:5.1f}%  {name[:110]}", flush=True)
+    rows = [e for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::convolution_backward"]
+    for e in sorted(rows, key=lambda e: -e.device_time_total):
+        # input shapes: grad_output, input, weight
+        print(f"  convolution_backward {e.device_time_total / 1e3:9.2f} ms x{e.count} "
+              f"{e.input_shapes[:3]}", flush=True)
+
+
+def train_patches(rng, patch, mix, dev):
+    """One int16 batch of the three streams, as ``bench.py`` makes it: OPT
+    and sub-optimal patches uniform in [-1024, 1500) HU, a 0.1% centerline
+    mask; the sub-optimal rows split into LOW then HIGH. On ``dev``."""
+    n_opt, n_low, n_high = mix
+    opt = rng.integers(-1024, 1500, (n_opt, *patch), dtype=np.int16)
+    sub = rng.integers(-1024, 1500, (n_low + n_high, *patch), dtype=np.int16)
+    msk = (rng.random((n_low + n_high, *patch)) < 0.001).astype(np.int16)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {
+        OPT: {"data": t(opt)},
+        LOW: {"data": t(sub[:n_low]), "seg": t(msk[:n_low])},
+        HIGH: {"data": t(sub[n_low:]), "seg": t(msk[n_low:])},
+    }
+
+
+def make_trainer(mode: str, seed: int, device="cuda", **trainer_kw):
+    spec = TRAIN_MODES[mode]
+    gen = seeded(ResnetGenerator(), seed)
+    critic = seeded(PatchGANDiscriminator(norm=spec["norm"]), seed + 1)
+    tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
+    cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, **trainer_kw)
+    return Trainer(gen, critic, tx, tx, cfg, train_critic_every=spec["critic_every"],
+                   train_generator_every=spec["generator_every"], seed=seed, device=device)
+
+
+def warm_seconds(fn, reps=TIMED_STEPS):
+    """Median host seconds of ``fn`` ending in torch.cuda.synchronize()."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def train_phase(rng):
+    """The train path at full width (module docstring, phase 5). Counts are
+    zeroed just before and read just after; returns (launches, results,
+    the weight-clip trainer and its batch for the profile)."""
+    if count_parameters(PatchGANDiscriminator()) != 176_873:
+        raise AssertionError("the default critic does not have 176,873 parameters")
+    patches = train_patches(rng, TRAIN_PATCH, TRAIN_MIX, "cuda")
+    n_patches = sum(TRAIN_MIX)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
+    s2d_conv3d_block.launches = 0
+    results, trainers = {}, {}
+    for mode, spec in TRAIN_MODES.items():
+        trainer = make_trainer(mode, seed=10)
+        gen, critic = trainer.state.generator, trainer.state.critic
+        branches = schedule_branches(spec["critic_every"], spec["generator_every"], 0, spec["iterations"])
+        for i, branch in enumerate(branches):
+            launches, bwd = block_conv3x3x3.launches, block_conv3x3x3.backward_launches
+            w_first, w_last = gen.first.conv.weight.detach().clone(), gen.last_conv.conv.weight.detach().clone()
+            t0 = time.perf_counter()
+            metrics, _ = trainer.train_step(patches, i)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            values = {k: v.item() for k, v in metrics.items()}
+            got = (block_conv3x3x3.launches - launches, block_conv3x3x3.backward_launches - bwd)
+            print(f"train {mode} iteration {i} {branch}: {seconds:.3f} s, B1 launches {got[0]} "
+                  f"(backward {got[1]}), {values}", flush=True)
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"train {mode} iteration {i}: non-finite loss {values}")
+            if got != (B1_PER_BRANCH[branch], int(branch != "critic")):
+                raise AssertionError(f"train {mode} iteration {i} {branch}: B1 launches {got}")
+            if spec["weight_clip"] is not None and branch != "generator":
+                biggest = max(p.abs().max().item() for p in critic.parameters())
+                if not biggest <= spec["weight_clip"]:
+                    raise AssertionError(f"critic parameter {biggest} beyond the clip after iteration {i}")
+            if branch != "critic":
+                for name, before, now in (("first.conv.weight", w_first, gen.first.conv.weight),
+                                          ("last_conv.conv.weight", w_last, gen.last_conv.conv.weight)):
+                    if torch.equal(before, now.detach()):
+                        raise AssertionError(f"{name} did not change at generator update {i}")
+        opt, subopt, mask, _ = trainer._assemble(patches)
+        timed = {
+            name: warm_seconds(lambda: getattr(trainer.steps, name)(trainer.state, opt, subopt, mask))
+            for name in ("critic_step", "combined_step")
+        }
+        results[mode] = dict(critic_step_s=timed["critic_step"], combined_step_s=timed["combined_step"],
+                             train_patches_per_sec=n_patches / timed["combined_step"])
+        trainers[mode] = trainer
+        print(f"train {mode}: {json.dumps(results[mode])}", flush=True)
+    bwd = block_conv3x3x3.backward_launches
+    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
+                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches, "block_conv3x3x3_backward": bwd}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    results["peak_memory_gib"] = peak_gib
+    print(f"train: launches {launches} (B1 backward {bwd}); peak memory {peak_gib:.2f} GiB", flush=True)
+    # per mode: the schedule's iterations plus the timed critic-only and
+    # combined steps
+    expected = sum(
+        sum(B1_PER_BRANCH[b] for b in schedule_branches(m["critic_every"], m["generator_every"], 0, m["iterations"]))
+        + TIMED_STEPS * (B1_PER_BRANCH["critic"] + B1_PER_BRANCH["combined"])
+        for m in TRAIN_MODES.values()
+    )
+    if launches["block_conv3x3x3"] != expected or launches["s2d_conv3d_block"] != expected - bwd:
+        raise AssertionError(f"expected {expected} B1 launches on the train path, got {launches}")
+    wc = trainers["wc"]
+    return launches, results, wc, wc._assemble(patches)[:3]
+
+
+def _rel_diffs(cuda: dict, cpu: dict) -> dict:
+    """Per tensor: max|cuda - cpu| / max|cpu| (0 where both are all zero)."""
+    out = {}
+    for name, ref in cpu.items():
+        scale = ref.abs().max().item()
+        out[name] = (cuda[name] - ref).abs().max().item() / scale if scale else cuda[name].abs().max().item()
+    return out
+
+
+def train_parity_phase(rng):
+    """One step from one state on the card and on the CPU (module docstring,
+    phase 7), per mode and branch, the card first. Every comparison takes
+    one network's gradients against an identical other network. In
+    ``combined_step`` the critic first takes an Adam step, about lr *
+    sign(g) per weight, so a weight whose gradient is float noise can step
+    the other way on the other device; so the CPU run takes the card's
+    updated critic (parameters and statistics) right after its own critic
+    update, before the generator's loss. Each critic update, the CPU's own
+    included, must land within 2 lr of the card's per weight (the most two
+    first Adam steps can differ); the number of weights apart by more than
+    lr is printed."""
+    patches = train_patches(rng, PARITY_PATCH, PARITY_MIX, "cpu")
+    for mode, spec in TRAIN_MODES.items():
+        for step in ("generator_only_step", "critic_step", "combined_step"):
+            runs, card_critic, cpu_update = {}, None, {}
+            for dev in ("cuda", "cpu"):
+                # gp: a fixed interpolation eps, as the two devices draw differently
+                trainer = make_trainer(mode, seed=20, device=dev, gp_eps=0.3 if mode == "gp" else None)
+                critic, hook = trainer.state.critic, None
+                if dev == "cpu" and step == "combined_step":
+                    def take_card_critic(optimizer, args, kwargs, critic=critic):
+                        cpu_update.update({n: p.detach().clone() for n, p in critic.named_parameters()})
+                        critic.load_state_dict(card_critic, strict=True)
+
+                    hook = trainer.state.critic_opt.optimizer.register_step_post_hook(take_card_critic)
+                opt, subopt, mask, _ = trainer._assemble(patches)
+                state, metrics = getattr(trainer.steps, step)(trainer.state, opt, subopt, mask)
+                if hook is not None:
+                    hook.remove()
+                if dev == "cuda":
+                    card_critic = {k: v.detach().cpu() for k, v in critic.state_dict().items()}
+                net = critic if step == "critic_step" else state.generator
+                runs[dev] = (
+                    {k: v.item() for k, v in metrics.items()},
+                    {n: p.grad.detach().cpu() for n, p in net.named_parameters() if p.grad is not None},
+                    {n: p.detach().cpu() for n, p in critic.named_parameters()},
+                )
+            (m_cuda, g_cuda, c_cuda), (m_cpu, g_cpu, c_cpu) = runs["cuda"], runs["cpu"]
+            if step == "combined_step":
+                if not cpu_update:
+                    raise AssertionError("the CPU's combined_step never took the card's critic")
+                # the CPU's own update, clipped as the step clips it next
+                clip = spec["weight_clip"]
+                c_cpu = {n: p if clip is None else p.clamp(-clip, clip) for n, p in cpu_update.items()}
+            if step == "critic_step":
+                # d(mean(fake) - mean(real)) / d(last bias) = 1 - 1 = 0, and
+                # the penalty does not see the bias: rounding noise on both
+                # sides, held in absolute terms
+                noise = max(g["last.conv.bias"].abs().item() for g in (g_cuda, g_cpu))
+                if not noise <= 1e-6:
+                    raise AssertionError(f"train parity {mode}: last.conv.bias gradient {noise} is not ~0")
+                del g_cuda["last.conv.bias"], g_cpu["last.conv.bias"]
+            grad_rel = _rel_diffs(g_cuda, g_cpu)
+            worst = max(grad_rel, key=grad_rel.get)
+            # relative, with a 1e-7 floor for a loss that lands near zero
+            loss_rel = {k: abs(m_cuda[k] - v) / max(abs(v), 1e-7) for k, v in m_cpu.items()}
+            moved = max((c_cuda[n] - c_cpu[n]).abs().max().item() for n in c_cpu)
+            apart = sum(int(((c_cuda[n] - c_cpu[n]).abs() > spec["lr"]).sum()) for n in c_cpu)
+            print(f"train parity {mode} {step} (32^3, batch 2+1+1): worst gradient {worst} "
+                  f"{grad_rel[worst]:.2e} of max|cpu| over {len(grad_rel)} tensors; losses "
+                  f"cuda {m_cuda} cpu {m_cpu}, relative {loss_rel}; critic update max|cuda - cpu| "
+                  f"{moved:.2e}, weights apart by > lr: {apart}", flush=True)
+            if not grad_rel[worst] <= PARITY_GRAD_TOL:
+                raise AssertionError(f"train parity {mode} {step}: gradient {worst} differs by "
+                                     f"{grad_rel[worst]:.2e} of max|cpu|")
+            if not max(loss_rel.values()) <= PARITY_LOSS_TOL:
+                raise AssertionError(f"train parity {mode} {step}: losses differ by {loss_rel}")
+            if not moved <= 2 * spec["lr"] * (1 + 1e-3):
+                raise AssertionError(f"train parity {mode} {step}: critic updates differ by {moved:.2e}")
+            if step != "critic_step":
+                for name in ("first.conv.weight", "last_conv.conv.weight"):
+                    if not g_cuda[name].abs().max().item() > 0:
+                        raise AssertionError(f"train parity {mode}: zero gradient for {name} on the card")
 
 
 def main() -> int:
@@ -298,7 +622,7 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     rebuilt = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, rebuilt {rebuilt}", flush=True)
     for name in rebuilt:
@@ -314,21 +638,39 @@ def main() -> int:
 
     g = torch.Generator().manual_seed(0)
     rows = kernel_phase(dev, g)
+    dx_row = backward_phase(dev, g)
+    print(f"kernels: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    gen = seeded_generator(0)
+    gen = seeded(ResnetGenerator(), 0)
     state = {k: v.clone() for k, v in gen.state_dict().items()}
     if count_parameters(gen) != 1_035_297:
         raise AssertionError(f"default generator has {count_parameters(gen)} parameters")
     rng = np.random.default_rng(0)
-    launches, results = path_phase(gen, rng)
+    serve_launches, results = path_phase(gen, rng)
     parity_phase(gen, state, rng)
-    profile_phase(gen, rng)
+    corrector = CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH)
+    vol = rng.integers(-1024, 1500, (512, 512, 128)).astype(np.int16)
+    profile(lambda: corrector(vol), "serving 512x512x128")
+    del gen, corrector
+    torch.cuda.empty_cache()
+    print(f"serving: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    train_launches, train_results, wc, batch = train_phase(rng)
+    profile(lambda: wc.steps.combined_step(wc.state, *batch), "train wc combined_step", top=25)
+    del wc, batch
+    torch.cuda.empty_cache()
+    train_parity_phase(rng)
+    print(f"train: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
-    for r in rows:
-        if r["dtype"] == "float32":  # the main path's dtype
-            kernels.append(dict(r, launches=launches[r["name"]]))
-    print(json.dumps({"requests": results, "card": smi}))
+    for r in rows + [dx_row]:
+        if r["dtype"] == "float32":  # the paths' dtype
+            # the dx row counts B1's backward launches only
+            key = "block_conv3x3x3_backward" if r is dx_row else r["name"]
+            by_path = {"serving": serve_launches.get(key, 0), "train": train_launches[key]}
+            kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
+                                on_path=r["name"] != "block_conv3x3x3_v2"))
+    print(json.dumps({"requests": results, "train": train_results, "card": smi}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.norm import BatchNorm
-from contrast_gan_3d_tpu_torch.ops.block_conv import s2d_conv3d_block
-
-ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
+from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, s2d_conv3d_block
 
 
 class S2DConv(nn.Conv3d):

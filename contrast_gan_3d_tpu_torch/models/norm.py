@@ -10,9 +10,17 @@
   ``mult = scale / sqrt(var + eps)`` and ``add = bias - mean * mult``, as in
   the JAX module.
 
+- ``update_stats=False`` (or the ``frozen_batch_stats`` context) keeps train
+  mode's batch statistics and gradients but leaves the running statistics
+  as they are: the JAX package's ``_apply(..., train=True)``, which drops
+  the statistics update (the critic in the generator's loss and in the
+  gradient penalty, ``trainer/steps.py``).
+
 Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
 ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
 """
+
+from contextlib import contextmanager
 
 import torch
 from torch import nn
@@ -27,6 +35,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -35,14 +44,30 @@ class BatchNorm(nn.Module):
             mean = x.mean(axes, dtype=torch.float32)
             mean2 = x.square().mean(axes, dtype=torch.float32)
             var = torch.clamp(mean2 - mean.square(), min=0.0)
-            n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                unbiased = var * (n / (n - 1)) if n > 1 else var
-                m = self.momentum
-                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            if self.update_stats:
+                n = x.numel() // x.shape[1]
+                with torch.no_grad():
+                    unbiased = var * (n / (n - 1)) if n > 1 else var
+                    m = self.momentum
+                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         mult = self.weight / torch.sqrt(var + self.eps)
         add = self.bias - mean * mult
         return x * mult.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+
+
+@contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Run ``module``'s BatchNorms without updating their running statistics
+    (train mode still normalizes with the batch statistics)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield module
+    finally:
+        for m, flag in zip(norms, saved):
+            m.update_stats = flag

@@ -6,13 +6,27 @@
   (B, Z-2, X-2, Y-2, Co). A CUDA tensor runs the hand-written Hopper kernel
   ``csrc/block_conv.cu``; a CPU tensor runs the plain version
   ``block_conv3x3x3_reference``. There is no fallback between the two.
+- ``block_conv3x3x3_v2`` (B2): the same contraction on x (B, Z, Y, X, Ci),
+  out (B, Z-2, Y-2, X-2, Co), w still indexed [qx, qy, qz]; the same CUDA
+  kernel body with the tap decode for that axis order, plain version
+  ``block_conv3x3x3_v2_reference``. The TPU kernel's ``k_splits`` (channel
+  chunks sized to fit VMEM) is not carried over: each CUDA block reduces
+  the whole K = 27 * Ci itself.
 - ``s2d_conv3d_block`` (B3): stride-1 SAME conv through space-to-depth and
   B1, with B3's dispatch: plain ``s2d_conv3d`` for block kernels other than
   3^3 or dims that do not divide f; ``ValueError`` on an unknown
   ``padding_mode``.
 
+B1 and B2 are differentiable through ``BlockConv3x3x3Function`` (f32): the
+input gradient is a FULL 3^3 conv of dy with the flipped, transposed
+weight, i.e. the same kernel on dy padded by 2; the weight gradient is 27
+per-tap products in ``torch.matmul`` (the JAX package differentiates its
+XLA conv there, never a Pallas kernel). On the CPU the forward and
+backward run the plain versions.
+
 Each wrapper counts, in its ``launches`` attribute, the times it launched
-the CUDA kernel.
+the CUDA kernel (forward and backward); ``backward_launches`` counts the
+backward's share.
 """
 
 import ctypes
@@ -20,6 +34,8 @@ from functools import lru_cache
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from contrast_gan_3d_tpu_torch.ops import _build
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import (
@@ -32,63 +48,157 @@ from contrast_gan_3d_tpu_torch.ops.s2d_conv import (
     transform_kernel,
 )
 
-_C_SYMBOLS = {torch.float32: "block_conv3x3x3_f32", torch.bfloat16: "block_conv3x3x3_bf16"}
+# keyed by x's spatial axes in memory order: B1 (Z, X, Y), B2 (Z, Y, X)
+_C_SYMBOLS = {
+    ("zxy", torch.float32): "block_conv3x3x3_f32",
+    ("zxy", torch.bfloat16): "block_conv3x3x3_bf16",
+    ("zyx", torch.float32): "block_conv3x3x3_v2_f32",
+    ("zyx", torch.bfloat16): "block_conv3x3x3_v2_bf16",
+}
+ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
 
 
 @lru_cache(maxsize=None)
-def _kernel_fn(dtype: torch.dtype):
-    fn = getattr(_build.load("block_conv"), _C_SYMBOLS[dtype])
+def _kernel_fn(layout: str, dtype: torch.dtype):
+    fn = getattr(_build.load("block_conv"), _C_SYMBOLS[layout, dtype])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def block_conv3x3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version of B1: 27 shifted slices, each contracted with
-    ``w[qx, qy, qz]`` in f32."""
-    b, zi, xi, yi, ci = x.shape
-    zo, xo, yo = zi - 2, xi - 2, yi - 2
+def _reference(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
+    """27 shifted slices, each contracted with ``w[qx, qy, qz]`` in f32; the
+    slice offsets follow x's axis order."""
+    b, zi, d2, d3, ci = x.shape
+    zo, d2o, d3o = zi - 2, d2 - 2, d3 - 2
     x, w = x.float(), w.float()
-    out = torch.zeros((b, zo, xo, yo, w.shape[-1]), dtype=torch.float32, device=x.device)
+    out = torch.zeros((b, zo, d2o, d3o, w.shape[-1]), dtype=torch.float32, device=x.device)
     for qz in range(3):
         for qx in range(3):
             for qy in range(3):
-                xa = x[:, qz : qz + zo, qx : qx + xo, qy : qy + yo, :]
-                out += torch.einsum("bzxyc,cd->bzxyd", xa, w[qx, qy, qz])
+                q2, q3 = (qx, qy) if layout == "zxy" else (qy, qx)
+                xa = x[:, qz : qz + zo, q2 : q2 + d2o, q3 : q3 + d3o, :]
+                out += torch.einsum("bzuvc,cd->bzuvd", xa, w[qx, qy, qz])
     return out
+
+
+def block_conv3x3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of B1: x (B, Z, X, Y, Ci) -> f32 (B, Z-2, X-2, Y-2, Co)."""
+    return _reference(x, w, "zxy")
+
+
+def block_conv3x3x3_v2_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2: x (B, Z, Y, X, Ci) -> f32 (B, Z-2, Y-2, X-2, Co)."""
+    return _reference(x, w, "zyx")
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
+    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"{name}: expected x (B,Z,.,.,Ci), w (3,3,3,Ci,Co); got {tuple(x.shape)}, {tuple(w.shape)}")
+    if w.shape[3] != x.shape[-1] or min(x.shape[1:4]) < 3:
+        raise ValueError(f"{name}: incompatible x {tuple(x.shape)} and w {tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} for device {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} takes f32 or bf16 x and w of one dtype; got {x.dtype}, {w.dtype}")
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous x and w")
+
+
+def _run(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
+    """One forward contraction: the plain version for a CPU tensor, one
+    counted kernel launch for a CUDA tensor (checked by ``_check``)."""
+    if x.device.type == "cpu":
+        return _reference(x, w, layout)
+    b, zi, d2, d3, ci = x.shape
+    out = torch.empty((b, zi - 2, d2 - 2, d3 - 2, w.shape[-1]), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kernel_fn(layout, x.dtype)(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, zi, d2, d3, ci, w.shape[-1],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    wrapper = _WRAPPERS[layout]
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
+
+
+class BlockConv3x3x3Function(torch.autograd.Function):
+    """B1/B2 with a backward. ``apply(x, w, layout)``, layout ``"zxy"``
+    (B1) or ``"zyx"`` (B2).
+
+    - dx (only when x needs it): a FULL 3^3 conv of dy with the flipped,
+      transposed weight, which is the same VALID kernel on dy zero-padded
+      by 2 on each spatial side: ``w.flip(0, 1, 2).transpose(3, 4)``
+      reverses the taps in all three axes and swaps Ci with Co. One
+      counted launch on the card.
+    - dw: ``dw[qx, qy, qz] = x_tap^T @ dy`` for each of the 27 taps, with
+      x_tap the (M, Ci) slice of x at that tap's offset.
+    - f32 only: a bf16 backward is not ported (ROADMAP).
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, layout):
+        ctx.layout = layout
+        ctx.save_for_backward(x, w)
+        return _run(x, w, layout)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        layout = ctx.layout
+        if x.dtype != torch.float32 or w.dtype != torch.float32:
+            raise NotImplementedError(f"the bf16 backward of the block conv is {ROADMAP_NOTE}")
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
+            dx = _run(dy_pad, w.flip(0, 1, 2).transpose(3, 4).contiguous(), layout)
+            if dx.is_cuda:
+                _WRAPPERS[layout].backward_launches += 1
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, dy, layout)
+        return dx, dw, None
+
+
+def weight_grad(x: torch.Tensor, dy: torch.Tensor, layout: str = "zxy") -> torch.Tensor:
+    """The block conv's weight gradient, f32 (3, 3, 3, Ci, Co):
+    ``dw[qx, qy, qz] = x_tap^T @ dy`` over the 27 taps, in ``torch.matmul``
+    (a hand-written wgrad kernel is ROADMAP work)."""
+    zo, d2o, d3o = dy.shape[1:4]
+    dy_m = dy.reshape(-1, dy.shape[-1])
+    dw = torch.empty((3, 3, 3, x.shape[-1], dy.shape[-1]), dtype=torch.float32, device=x.device)
+    for qx in range(3):
+        for qy in range(3):
+            for qz in range(3):
+                q2, q3 = (qx, qy) if layout == "zxy" else (qy, qx)
+                xa = x[:, qz : qz + zo, q2 : q2 + d2o, q3 : q3 + d3o, :]
+                dw[qx, qy, qz] = xa.reshape(-1, x.shape[-1]).t() @ dy_m
+    return dw
 
 
 def block_conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """B1: VALID 3^3 conv, x (B, Z, X, Y, Ci) -> f32 (B, Z-2, X-2, Y-2, Co)."""
-    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
-        raise ValueError(f"expected x (B,Z,X,Y,Ci), w (3,3,3,Ci,Co); got {tuple(x.shape)}, {tuple(w.shape)}")
-    b, zi, xi, yi, ci = x.shape
-    co = w.shape[-1]
-    if w.shape[3] != ci or min(zi, xi, yi) < 3:
-        raise ValueError(f"incompatible x {tuple(x.shape)} and w {tuple(w.shape)}")
-    if x.device != w.device:
-        raise ValueError(f"x on {x.device}, w on {w.device}")
-    if x.device.type == "cpu":
-        return block_conv3x3x3_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no block_conv3x3x3 for device {x.device}")
-    if x.dtype != w.dtype or x.dtype not in _C_SYMBOLS:
-        raise TypeError(f"block_conv3x3x3 takes f32 or bf16 x and w of one dtype; got {x.dtype}, {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("block_conv3x3x3 needs contiguous x and w")
-    out = torch.empty((b, zi - 2, xi - 2, yi - 2, co), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _kernel_fn(x.dtype)(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, zi, xi, yi, ci, co,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"block_conv3x3x3 kernel launch failed: CUDA error {rc}")
-    block_conv3x3x3.launches += 1
-    return out
+    _check(x, w, "block_conv3x3x3")
+    return BlockConv3x3x3Function.apply(x, w, "zxy")
 
 
-block_conv3x3x3.launches = 0
+def block_conv3x3x3_v2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """B2: VALID 3^3 conv, x (B, Z, Y, X, Ci) -> f32 (B, Z-2, Y-2, X-2, Co),
+    w (3, 3, 3, Ci, Co) indexed [qx, qy, qz] as for B1."""
+    _check(x, w, "block_conv3x3x3_v2")
+    return BlockConv3x3x3Function.apply(x, w, "zyx")
+
+
+_WRAPPERS = {"zxy": block_conv3x3x3, "zyx": block_conv3x3x3_v2}
+for _fn in _WRAPPERS.values():
+    _fn.launches = 0
+    _fn.backward_launches = 0
 
 
 def s2d_conv3d_block(

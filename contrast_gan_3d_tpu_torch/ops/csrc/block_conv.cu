@@ -1,11 +1,18 @@
 // VALID 3x3x3 block convolution for Hopper (sm_90a), as an implicit GEMM.
 //
-// Replaces contrast_gan_3d_tpu/ops/pallas_conv.py::block_conv3x3x3 (the
-// Pallas TPU kernel `_kernel`). Same function and layout contract:
-//   x   (B, Z, X, Y, Ci)   z-major, channels last, f32 or bf16
-//   w   (3, 3, 3, Ci, Co)  indexed [qx][qy][qz], same dtype as x
-//   out (B, Z-2, X-2, Y-2, Co) f32
-//   out[b,z,x,y,:] = sum_{qx,qy,qz} x[b, z+qz, x+qx, y+qy, :] @ w[qx,qy,qz]
+// Replaces two Pallas TPU kernels of contrast_gan_3d_tpu/ops/pallas_conv.py,
+// with the same function and layout contracts:
+// - B1 block_conv3x3x3 (`_kernel`), z-major x:
+//     x   (B, Z, X, Y, Ci)   channels last, f32 or bf16
+//     w   (3, 3, 3, Ci, Co)  indexed [qx][qy][qz], same dtype as x
+//     out (B, Z-2, X-2, Y-2, Co) f32
+//     out[b,z,x,y,:] = sum_{qx,qy,qz} x[b, z+qz, x+qx, y+qy, :] @ w[qx,qy,qz]
+// - B2 block_conv3x3x3_v2 (`_kernel_v2`): the same contraction with X and Y
+//   swapped in memory, x (B, Z, Y, X, Ci) -> out (B, Z-2, Y-2, X-2, Co), w
+//   still indexed [qx][qy][qz] (the Pallas wrapper's pre-transpose of w is
+//   the kernel's tap decode here).
+// One body serves both: the kernel walks x in memory order (Z, D2, D3) and
+// only the tap decode depends on which of X and Y is D2 (template kZYX).
 //
 // What bounds it on the card: arithmetic. The generator's two s2d stages at
 // batch 8 (128^3 patches, 34^3 blocks -> 32^3 outputs) each do
@@ -52,10 +59,11 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, int BN>
+// Spatial dims in memory order: Z, then D2, then D3 (B1: X, Y; B2: Y, X).
+template <typename T, int BN, bool kZYX>
 __global__ void __launch_bounds__(kThreads)
     block_conv3x3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           float* __restrict__ out, int B, int Z, int X, int Y,
+                           float* __restrict__ out, int B, int Z, int D2, int D3,
                            int Ci, int Co) {
   constexpr int TN = BN / 16;                      // 4 or 8 columns per thread
   constexpr int A_LOADS = kBM * kBK / kThreads;    // 8
@@ -67,8 +75,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float As[kBK][kBM + 4];  // A^T: [k][m]
   __shared__ __align__(16) float Bs[kBK][BN];       // [k][n]
 
-  const int Zo = Z - 2, Xo = X - 2, Yo = Y - 2;
-  const int64_t M = (int64_t)B * Zo * Xo * Yo;
+  const int Zo = Z - 2, D2o = D2 - 2, D3o = D3 - 2;
+  const int64_t M = (int64_t)B * Zo * D2o * D3o;
   const int n_tiles = (Co + BN - 1) / BN;
   const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * BN;
@@ -76,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = tid % 16, ty = tid / 16;
 
   // A loader: this thread always loads channel column a_col of rows
-  // a_row0 + i * A_ROW_STEP; a_base is the offset of (b, zo, xo, yo, 0).
+  // a_row0 + i * A_ROW_STEP; a_base is the offset of (b, zo, d2, d3, 0).
   const int a_col = tid % kBK;
   const int a_row0 = tid / kBK;
   int64_t a_base[A_LOADS];
@@ -84,13 +92,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < A_LOADS; ++i) {
     const int64_t m = m0 + a_row0 + i * A_ROW_STEP;
     if (m < M) {
-      const int64_t yo = m % Yo;
-      int64_t t = m / Yo;
-      const int64_t xo = t % Xo;
-      t /= Xo;
+      const int64_t d3 = m % D3o;
+      int64_t t = m / D3o;
+      const int64_t d2 = t % D2o;
+      t /= D2o;
       const int64_t zo = t % Zo;
       const int64_t b = t / Zo;
-      a_base[i] = (((b * Z + zo) * X + xo) * Y + yo) * Ci;
+      a_base[i] = (((b * Z + zo) * D2 + d2) * D3 + d3) * Ci;
     } else {
       a_base[i] = -1;
     }
@@ -113,9 +121,10 @@ __global__ void __launch_bounds__(kThreads)
   auto load = [&](int step) {
     const int tap = step / c_chunks;
     const int c0 = (step - tap * c_chunks) * kBK;
-    // taps in w's [qx][qy][qz] order
+    // taps in w's [qx][qy][qz] order; x is offset along (Z, D2, D3)
     const int qx = tap / 9, qy = (tap / 3) % 3, qz = tap % 3;
-    const int64_t tap_off = (((int64_t)qz * X + qx) * Y + qy) * Ci;
+    const int q2 = kZYX ? qy : qx, q3 = kZYX ? qx : qy;
+    const int64_t tap_off = (((int64_t)qz * D2 + q2) * D3 + q3) * Ci;
     const int c = c0 + a_col;
 #pragma unroll
     for (int i = 0; i < A_LOADS; ++i)
@@ -182,12 +191,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int B, int Z, int X, int Y,
+template <typename T, bool kZYX>
+int launch(const void* x, const void* w, void* out, int B, int Z, int D2, int D3,
            int Ci, int Co, void* stream) {
-  if (B < 1 || Z < 3 || X < 3 || Y < 3 || Ci < 1 || Co < 1)
+  if (B < 1 || Z < 3 || D2 < 3 || D3 < 3 || Ci < 1 || Co < 1)
     return (int)cudaErrorInvalidValue;
-  const int64_t M = (int64_t)B * (Z - 2) * (X - 2) * (Y - 2);
+  const int64_t M = (int64_t)B * (Z - 2) * (D2 - 2) * (D3 - 2);
   const int64_t m_tiles = (M + kBM - 1) / kBM;
   const int bn = Co >= 128 ? 128 : 64;
   const int64_t blocks = m_tiles * ((Co + bn - 1) / bn);
@@ -197,26 +206,39 @@ int launch(const void* x, const void* w, void* out, int B, int Z, int X, int Y,
   const T* wt = static_cast<const T*>(w);
   float* o = static_cast<float*>(out);
   if (bn == 128)
-    block_conv3x3x3_kernel<T, 128><<<(unsigned)blocks, kThreads, 0, s>>>(
-        xt, wt, o, B, Z, X, Y, Ci, Co);
+    block_conv3x3x3_kernel<T, 128, kZYX><<<(unsigned)blocks, kThreads, 0, s>>>(
+        xt, wt, o, B, Z, D2, D3, Ci, Co);
   else
-    block_conv3x3x3_kernel<T, 64><<<(unsigned)blocks, kThreads, 0, s>>>(
-        xt, wt, o, B, Z, X, Y, Ci, Co);
+    block_conv3x3x3_kernel<T, 64, kZYX><<<(unsigned)blocks, kThreads, 0, s>>>(
+        xt, wt, o, B, Z, D2, D3, Ci, Co);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Returns cudaGetLastError() after
-// the launch: 0 on success.
+// the launch: 0 on success. D2, D3 are x's second and third spatial dims in
+// memory order: X, Y for B1 (block_conv3x3x3_*), Y, X for B2 (*_v2_*).
 extern "C" int block_conv3x3x3_f32(const void* x, const void* w, void* out,
-                                   int B, int Z, int X, int Y, int Ci, int Co,
+                                   int B, int Z, int D2, int D3, int Ci, int Co,
                                    void* stream) {
-  return launch<float>(x, w, out, B, Z, X, Y, Ci, Co, stream);
+  return launch<float, false>(x, w, out, B, Z, D2, D3, Ci, Co, stream);
 }
 
 extern "C" int block_conv3x3x3_bf16(const void* x, const void* w, void* out,
-                                    int B, int Z, int X, int Y, int Ci, int Co,
+                                    int B, int Z, int D2, int D3, int Ci, int Co,
                                     void* stream) {
-  return launch<__nv_bfloat16>(x, w, out, B, Z, X, Y, Ci, Co, stream);
+  return launch<__nv_bfloat16, false>(x, w, out, B, Z, D2, D3, Ci, Co, stream);
+}
+
+extern "C" int block_conv3x3x3_v2_f32(const void* x, const void* w, void* out,
+                                      int B, int Z, int D2, int D3, int Ci,
+                                      int Co, void* stream) {
+  return launch<float, true>(x, w, out, B, Z, D2, D3, Ci, Co, stream);
+}
+
+extern "C" int block_conv3x3x3_v2_bf16(const void* x, const void* w, void* out,
+                                       int B, int Z, int D2, int D3, int Ci,
+                                       int Co, void* stream) {
+  return launch<__nv_bfloat16, true>(x, w, out, B, Z, D2, D3, Ci, Co, stream);
 }

@@ -1,0 +1,271 @@
+"""The WGAN train and validation steps (counterpart of
+``contrast_gan_3d_tpu/trainer/steps.py``), eager PyTorch.
+
+One iteration, as in the JAX package:
+- batches arrive as raw int16 ``(B, X, Y, Z)`` patches; the step casts them
+  to f32, applies the scaler and adds the channel dim at dim 1 (NCDHW);
+- the generator runs ONE forward per iteration, in train mode (its
+  BatchNorm running statistics update once), and its graph is kept across
+  the critic update (the JAX step's ``jax.vjp``);
+- the critic updates first, on the detached output: Wasserstein loss on
+  real then fake (its BatchNorm statistics update on real, then on fake,
+  and nowhere else), plus the gradient penalty (``weight_clip=None``) or
+  followed by weight clipping;
+- the generator's loss (adversarial + ZNCC + HU corridor) is then taken
+  against the UPDATED critic, in train mode with the critic's statistics
+  frozen, and its gradients are taken over the generator's parameters only
+  (``torch.autograd.grad``), so no gradient reaches the critic's ``.grad``.
+
+The steps update the state in place and return ``(state, metrics)``, with
+metrics as detached 0-d tensors. This slice trains in f32 without
+augmentation: a ``StepConfig.augment`` other than None raises.
+"""
+
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
+from contrast_gan_3d_tpu_torch.models import losses
+from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE
+from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats
+from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
+from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    """Training-step configuration."""
+
+    weight_clip: Optional[float] = 0.01  # None -> WGAN-GP
+    gp_weight: float = 10.0
+    gan_loss_weight: float = 1.0
+    sim_loss_weight: float = 1.0
+    hu_loss_weight: float = 1.0
+    hu_bounds: Tuple[float, float] = (350.0, 450.0)  # unscaled HU corridor
+    scaler: Scaler = field(default_factory=FactorZeroCenterScaler)
+    augment: Optional[object] = None
+    # fixed GP interpolation eps for every sample (deterministic penalty for
+    # parity tests); None draws it per sample from the state's generator
+    gp_eps: Optional[float] = None
+
+    def __post_init__(self):
+        if self.augment is not None:
+            raise NotImplementedError(f"on-device augmentation in the train step is {ROADMAP_NOTE}")
+
+    @property
+    def hu_bounds_scaled(self) -> Tuple[float, float]:
+        return losses.scale_bounds(self.scaler, self.hu_bounds)
+
+
+@dataclass
+class GANTrainState:
+    """Both networks (their parameters and BatchNorm statistics), both
+    optimizers with their schedules, the random generator and the
+    iteration counter."""
+
+    step: int
+    generator: nn.Module
+    critic: nn.Module
+    gen_opt: ScheduledOptimizer
+    critic_opt: ScheduledOptimizer
+    rng: torch.Generator
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.generator.parameters()).device
+
+
+def init_state(
+    generator: nn.Module,
+    critic: nn.Module,
+    gen_tx: Callable[..., ScheduledOptimizer],
+    critic_tx: Callable[..., ScheduledOptimizer],
+    seed: int = 0,
+    device="cuda",
+) -> GANTrainState:
+    """Move both networks to ``device`` in train mode and build their
+    optimizers (``gen_tx(params)``, e.g. ``partial(make_optimizer, "adam")``)
+    and a ``torch.Generator`` on that device seeded with ``seed``."""
+    device = resolve_device(device)
+    if any(isinstance(m, nn.Dropout) for m in generator.modules()):
+        raise NotImplementedError(f"generator dropout in the train step is {ROADMAP_NOTE}")
+    generator.to(device).train()
+    critic.to(device).train()
+    return GANTrainState(
+        step=0,
+        generator=generator,
+        critic=critic,
+        gen_opt=gen_tx(generator.parameters()),
+        critic_opt=critic_tx(critic.parameters()),
+        rng=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def _scaled(cfg: StepConfig, batch, device) -> torch.Tensor:
+    """int16 (B, X, Y, Z) -> scaled f32 (B, 1, X, Y, Z) on ``device``."""
+    return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).unsqueeze(1)
+
+
+def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device):
+    """int16 -> f32, the scaler, the channel dim (the mask is not scaled)."""
+    mask = torch.as_tensor(subopt_mask).to(device, torch.float32).unsqueeze(1)
+    return _scaled(cfg, opt, device), _scaled(cfg, subopt, device), mask
+
+
+class TrainSteps(NamedTuple):
+    critic_step: Callable          # generator forward + critic update
+    combined_step: Callable        # critic update, then generator update
+    generator_only_step: Callable  # generator update only
+
+
+def build_train_steps(cfg: StepConfig) -> TrainSteps:
+    """The three per-iteration steps, each ``(state, opt, subopt, mask) ->
+    (state, metrics)`` on raw int16 batches."""
+    hu_lo, hu_hi = cfg.hu_bounds_scaled
+    use_gp = cfg.weight_clip is None
+
+    def critic_loss(state: GANTrainState, real, fake):
+        real_logits = state.critic(real)
+        fake_logits = state.critic(fake)
+        loss = cfg.gan_loss_weight * losses.wasserstein_loss(fake_logits, real_logits)
+        if use_gp:
+            eps = None
+            if cfg.gp_eps is not None:
+                n = min(real.shape[0], fake.shape[0])
+                eps = torch.full((n,) + (1,) * (real.dim() - 1), cfg.gp_eps, dtype=real.dtype, device=real.device)
+            with frozen_batch_stats(state.critic):
+                loss = loss + losses.gradient_penalty(
+                    state.critic, real, fake, state.rng, cfg.gp_weight, eps=eps
+                )
+        return loss
+
+    def update_critic(state: GANTrainState, real, fake):
+        state.critic_opt.optimizer.zero_grad(set_to_none=True)
+        loss = critic_loss(state, real, fake.detach())
+        loss.backward()
+        state.critic_opt.step()
+        if cfg.weight_clip is not None:
+            clip_params(state.critic, cfg.weight_clip)
+        return loss.detach()
+
+    def update_generator(state: GANTrainState, opt_hat, subopt, mask):
+        """The generator's loss head against the current critic, then one
+        optimizer step from gradients over the generator's parameters."""
+        with frozen_batch_stats(state.critic):
+            fake_logits = state.critic(opt_hat)
+        loss_g = cfg.gan_loss_weight * -losses.wasserstein_loss(fake_logits)
+        loss_sim = cfg.sim_loss_weight * losses.zncc_loss(opt_hat, subopt)
+        loss_hu = cfg.hu_loss_weight * losses.hu_loss(opt_hat, mask, hu_lo, hu_hi)
+        full = loss_g + loss_sim + loss_hu
+        params = list(state.generator.parameters())
+        for p, g in zip(params, torch.autograd.grad(full, params)):
+            p.grad = g
+        state.gen_opt.step()
+        return {"G": loss_g.detach(), "G-full": full.detach(), "sim": loss_sim.detach(), "HU": loss_hu.detach()}
+
+    def begin(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        state.step += 1
+        return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device)
+
+    def critic_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        opt_b, subopt_b, _ = begin(state, opt_b, subopt_b, subopt_mask)
+        with torch.no_grad():
+            opt_hat = subopt_b - state.generator(subopt_b)
+        return state, {"D": update_critic(state, opt_b, opt_hat)}
+
+    def combined_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        opt_b, subopt_b, mask = begin(state, opt_b, subopt_b, subopt_mask)
+        opt_hat = subopt_b - state.generator(subopt_b)
+        loss_d = update_critic(state, opt_b, opt_hat)
+        return state, {"D": loss_d, **update_generator(state, opt_hat, subopt_b, mask)}
+
+    def generator_only_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        _, subopt_b, mask = begin(state, opt_b, subopt_b, subopt_mask)
+        opt_hat = subopt_b - state.generator(subopt_b)
+        return state, update_generator(state, opt_hat, subopt_b, mask)
+
+    return TrainSteps(critic_step, combined_step, generator_only_step)
+
+
+def schedule_branches(
+    critic_every: Optional[int],
+    generator_every: Optional[int],
+    start: int,
+    length: int,
+) -> tuple:
+    """Branch name per iteration for iterations ``[start, start+length)``:
+    the critic is due iff ``i % critic_every == 0`` (iteration 0 included;
+    ``None`` = never), likewise the generator."""
+    def due(i, every):
+        return every is not None and i % every == 0
+
+    out = []
+    for i in range(start, start + length):
+        c, g = due(i, critic_every), due(i, generator_every)
+        out.append("combined" if c and g else "critic" if c else "generator" if g else "none")
+    return tuple(out)
+
+
+def _wcast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B,) validity weights broadcast against x's shape."""
+    return w.reshape((-1,) + (1,) * (x.dim() - 1)).float()
+
+
+def _masked_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Mean over valid samples only (``x.mean()`` when w is all ones)."""
+    per = x.numel() // x.shape[0]
+    return (x.float() * _wcast(w, x)).sum() / (w.sum() * per)
+
+
+def _masked_zncc(source: torch.Tensor, target: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``zncc_loss`` restricted to valid samples (ddof=1 std, same
+    epsilons)."""
+    wf = _wcast(w, source)
+    n = w.sum() * (source.numel() // source.shape[0])
+    ms = (source * wf).sum() / n
+    mt = (target * wf).sum() / n
+    cc = ((source - ms) * (target - mt) * wf).sum() / n
+    std = torch.sqrt(((source - ms).square() * wf).sum() / (n - 1)) * torch.sqrt(
+        ((target - mt).square() * wf).sum() / (n - 1)
+    )
+    return -(cc / (std + 1e-8))
+
+
+@contextmanager
+def _eval_mode(*modules: nn.Module):
+    was = [m.training for m in modules]
+    for m in modules:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, t in zip(modules, was):
+            m.train(t)
+
+
+def build_val_steps(cfg: StepConfig):
+    """Eval-mode steps ``(state, batch, w)``, w a (B,) 0/1 validity vector:
+    ``val_opt_step`` scores the critic on real (OPT) data;
+    ``val_subopt_step`` runs the generator on sub-optimal data and returns
+    (realism, ZNCC similarity, corrected batch, attenuation), NCDHW."""
+
+    def val_opt_step(state: GANTrainState, batch, w):
+        x = _scaled(cfg, batch, state.device)
+        w = torch.as_tensor(w).to(state.device, torch.float32)
+        with torch.no_grad(), _eval_mode(state.critic):
+            return _masked_mean(state.critic(x), w)
+
+    def val_subopt_step(state: GANTrainState, batch, w):
+        x = _scaled(cfg, batch, state.device)
+        w = torch.as_tensor(w).to(state.device, torch.float32)
+        with torch.no_grad(), _eval_mode(state.generator, state.critic):
+            atten = state.generator(x)
+            sample_hat = x - atten
+            loss_fake = _masked_mean(state.critic(sample_hat), w)
+            return loss_fake, _masked_zncc(sample_hat, x, w), sample_hat, atten
+
+    return val_opt_step, val_subopt_step

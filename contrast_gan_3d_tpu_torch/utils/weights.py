@@ -1,9 +1,11 @@
-"""Carry JAX ``ResnetGenerator`` variables into the port's ``state_dict``.
+"""Carry JAX ``ResnetGenerator`` and ``PatchGANDiscriminator`` variables
+into the port's ``state_dict``.
 
 The JAX variables are ``{"params": ..., "batch_stats": ...}`` nested dicts
 of numpy arrays with flax paths such as ``first/Conv_0/kernel``,
-``resnet_0/ConvBlock_1/BatchNorm_0/scale`` or
-``up_0/ConvTranspose_0/kernel``. The mapping is layout-only:
+``resnet_0/ConvBlock_1/BatchNorm_0/scale``, ``up_0/ConvTranspose_0/kernel``
+or, for the critic, ``middle_0/BatchNorm_0/scale`` and ``last/Conv_0/bias``.
+The mapping is layout-only:
 
 - conv kernels ``(kx, ky, kz, I, O)`` -> ``(O, I, kx, ky, kz)``;
 - transpose-conv kernels: spatial flip, then ``(I, O, kx, ky, kz)`` — torch's
@@ -54,6 +56,18 @@ def generator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]
     """JAX ``ResnetGenerator`` variables (numpy) -> the port's ``state_dict``,
     loadable with ``load_state_dict(strict=True)`` into a port
     ``ResnetGenerator`` of the same architecture."""
+    return _state_dict_from_jax(variables)
+
+
+def critic_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PatchGANDiscriminator`` variables (numpy) -> the port's
+    ``state_dict``, loadable with ``load_state_dict(strict=True)`` into a
+    port ``PatchGANDiscriminator`` of the same architecture (``first/Conv_0``
+    -> ``first.conv``, ``middle_{n}/BatchNorm_0`` -> ``middle_{n}.norm``)."""
+    return _state_dict_from_jax(variables)
+
+
+def _state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     for path, v in _walk(variables["params"]):
         *mods, leaf = path

@@ -1,11 +1,13 @@
 """Port ops vs the JAX package, on the CPU: space-to-depth, the block-conv
-kernel's plain version (B1) and the s2d wrapper (B3), the scalers.
+kernels' plain versions (B1, B2), B1's backward, the s2d wrapper (B3), the
+scalers.
 
 The JAX Pallas kernel runs in interpret mode, as tests/test_pallas_conv.py
 runs it; the port's wrappers take their plain versions because the tensors
 lie on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,12 +17,16 @@ from jax.experimental.pallas import tpu as pltpu
 from contrast_gan_3d_tpu.data import scaler as jax_scaler
 from contrast_gan_3d_tpu.ops import s2d_conv as jax_s2d
 from contrast_gan_3d_tpu.ops.pallas_conv import block_conv3x3x3 as jax_block_conv
+from contrast_gan_3d_tpu.ops.pallas_conv import block_conv3x3x3_v2 as jax_block_conv_v2
 from contrast_gan_3d_tpu.ops.pallas_conv import s2d_conv3d_pallas
 from contrast_gan_3d_tpu_torch.data import scaler as port_scaler
 from contrast_gan_3d_tpu_torch.ops import s2d_conv as port_s2d
 from contrast_gan_3d_tpu_torch.ops.block_conv import (
+    BlockConv3x3x3Function,
     block_conv3x3x3,
     block_conv3x3x3_reference,
+    block_conv3x3x3_v2,
+    block_conv3x3x3_v2_reference,
     s2d_conv3d_block,
 )
 
@@ -97,6 +103,113 @@ def test_block_conv_plain_takes_bf16(rng):
 def test_block_conv_rejects_bad_shapes(x_shape, w_shape):
     with pytest.raises(ValueError):
         block_conv3x3x3(torch.zeros(x_shape), torch.zeros(w_shape))
+
+
+def test_block_conv_v2_plain_matches_pallas_kernel(rng):
+    """B2's plain version vs the Pallas kernel in interpret mode and XLA's
+    conv, x (B, Z, Y, X, C) (tests/test_pallas_conv.py's v2 case).
+    Tolerance 1e-4: f32 sums of 216 products of unit normals, in another
+    order."""
+    x = rng.normal(size=(2, 6, 7, 8, 8)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 3, 8, 4)).astype(np.float32)
+    ref = jax.lax.conv_general_dilated(
+        jnp.transpose(jnp.asarray(x), (0, 3, 2, 1, 4)), jnp.asarray(w), (1, 1, 1), "VALID",
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+    )
+    ref = np.asarray(jnp.transpose(ref, (0, 3, 2, 1, 4)))  # back to (B, Z, Y, X, C)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_block_conv_v2(jnp.asarray(x), jnp.asarray(w)))
+    before = block_conv3x3x3_v2.launches
+    got = block_conv3x3x3_v2(_t(x), _t(w))
+    assert block_conv3x3x3_v2.launches == before
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 4, 5, 6, 4)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    np.testing.assert_allclose(block_conv3x3x3_v2_reference(_t(x), _t(w)).numpy(), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("k_splits", [1, 2])
+def test_block_conv_v2_plain_matches_pallas_k_splits(rng, k_splits):
+    """The TPU kernel's channel split (k_splits 1 and 2 over 256 channels):
+    the port reduces the whole K at once and must equal either. Tolerance
+    1e-4 as above (6912 products per output)."""
+    x = rng.normal(size=(1, 5, 5, 5, 256)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 3, 256, 4)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_block_conv_v2(jnp.asarray(x), jnp.asarray(w), k_splits=k_splits))
+    got = block_conv3x3x3_v2(_t(x), _t(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_block_conv_v2_is_b1_with_x_and_y_swapped(rng):
+    """B2 on (B, Z, Y, X, C) memory equals B1 on the same values laid out
+    (B, Z, X, Y, C), with the same [qx, qy, qz] weights."""
+    x = _t(rng.normal(size=(2, 5, 6, 7, 3)))  # (B, Z, Y, X, C)
+    w = _t(rng.normal(size=(3, 3, 3, 3, 2)))
+    got = block_conv3x3x3_v2(x, w)
+    want = block_conv3x3x3(x.transpose(2, 3).contiguous(), w).transpose(2, 3)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "x_shape,w_shape",
+    [((1, 6, 6, 6, 4), (3, 3, 3, 5, 2)), ((1, 6, 2, 6, 4), (3, 3, 3, 4, 2)), ((1, 6, 6, 6, 4), (2, 3, 3, 4, 2))],
+)
+def test_block_conv_v2_rejects_bad_shapes(x_shape, w_shape):
+    with pytest.raises(ValueError):
+        block_conv3x3x3_v2(torch.zeros(x_shape), torch.zeros(w_shape))
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    (block_conv3x3x3, block_conv3x3x3_reference),
+    (block_conv3x3x3_v2, block_conv3x3x3_v2_reference),
+])
+@pytest.mark.parametrize("x_grad", [True, False])
+def test_block_conv_backward_matches_autograd_of_plain(rng, wrapper, plain, x_grad):
+    """BlockConv3x3x3Function's backward (dx as the same conv of padded dy
+    with the flipped, transposed weight; dw as 27 per-tap products) vs
+    autograd through the plain version, on non-cubic shapes so that a
+    wrong tap or axis order shows. Tolerance 1e-5 of max|grad|: f32 sums
+    in another order. Without x's gradient (the generator's stem, whose
+    input is data) no dx is computed."""
+    x_np = rng.normal(size=(2, 5, 6, 7, 3)).astype(np.float32)
+    w_np = rng.normal(size=(3, 3, 3, 3, 4)).astype(np.float32)
+    dy = _t(rng.normal(size=(2, 3, 4, 5, 4)))
+    x, w = _t(x_np).requires_grad_(x_grad), _t(w_np).requires_grad_(True)
+    out = wrapper(x, w)
+    assert out.grad_fn is not None
+    out.backward(dy)
+    xr, wr = _t(x_np).requires_grad_(x_grad), _t(w_np).requires_grad_(True)
+    plain(xr, wr).backward(dy)
+    pairs = [(w.grad, wr.grad)] + ([(x.grad, xr.grad)] if x_grad else [])
+    for got, want in pairs:
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * scale)
+    assert (x.grad is None) == (not x_grad)
+
+
+def test_block_conv_bf16_backward_points_to_roadmap(rng):
+    x = _t(rng.normal(size=(1, 4, 4, 4, 2))).bfloat16().requires_grad_(True)
+    w = _t(rng.normal(size=(3, 3, 3, 2, 2))).bfloat16().requires_grad_(True)
+    out = BlockConv3x3x3Function.apply(x, w, "zxy")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+def test_s2d_block_is_differentiable_through_b1(rng):
+    """B3 carries the gradient through B1's Function to x and w; the
+    gradients match autograd through the plain s2d_conv3d. Tolerance 1e-4
+    of max|grad| (343-tap sums, as the forward's 2e-4)."""
+    x_np = rng.normal(size=(1, 8, 8, 8, 2)).astype(np.float32)
+    w_np = rng.normal(size=(7, 7, 7, 2, 3)).astype(np.float32)
+    b_np = rng.normal(size=(3,)).astype(np.float32)
+    r = _t(rng.normal(size=(1, 8, 8, 8, 3)))
+    grads = []
+    for fn in (s2d_conv3d_block, port_s2d.s2d_conv3d):
+        x, w, b = (_t(a).requires_grad_(True) for a in (x_np, w_np, b_np))
+        (fn(x, w, b, f=4, padding_mode="reflect") * r).sum().backward()
+        grads.append((x.grad, w.grad, b.grad))
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4 * want.abs().max().item())
 
 
 @pytest.mark.parametrize(
