@@ -11,7 +11,11 @@ Phases (any failure raises and exits non-zero):
    projection shapes, f32 and bf16, against their plain versions, with
    CUDA-event medians of the kernel, the plain version and one PyTorch
    library call (a yardstick the port never calls) beside the least time
-   the card could take (the bound); then B1's backward at the train path's
+   the card could take for the kernel's route (the bound: f32 is 3xTF32,
+   three TF32 tensor-core products per multiply-add, bf16 one) and the
+   FFMA bound of the same work (``bound_ffma_ms``); one ragged case per
+   route (x (2, 5, 7, 9, 3) -> Co 5: channel padding, row and column
+   masks) for B1 and B2 in f32 and bf16 and B1's dx; then B1's backward at the train path's
    batch-6 projection shape: dx (a B1 launch on dy padded by 2) and dw
    from ``BlockConv3x3x3Function`` against autograd through the plain
    version (1e-4 of max|plain|), with their times and bounds;
@@ -49,18 +53,23 @@ Phases (any failure raises and exits non-zero):
    each critic update within 2 lr per weight, and the B1 stages'
    gradients non-zero on the card after a generator update. In
    ``combined_step`` the CPU run takes the card's updated critic before
-   the generator's loss (``train_parity_phase``).
+   the generator's loss, and every CPU run takes the card's side of any
+   activation input within 1e-4 of its max from the relu kink
+   (``ActivationSigns``; ``train_parity_phase``).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from functools import partial
 
 import numpy as np
@@ -68,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.models import blocks
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
@@ -86,10 +96,17 @@ from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer
 
-# H100 SXM dense peaks (NVIDIA data sheet): f32 outside the tensor cores,
-# bf16 on them, and HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
+# cores, TF32 and bf16 on them, and HBM3 bandwidth
+PEAK_FFMA = 67e12
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# tensor-core operations per multiply-add of the work, and their peak, by
+# the kernel's input dtype: f32 is 3xTF32 (three TF32 products), bf16 one
+TC_OPS = {torch.float32: (3, PEAK_TF32), torch.bfloat16: (1, PEAK_BF16)}
+ROUTE = {torch.float32: "cuda wgmma 3xtf32", torch.bfloat16: "cuda wgmma bf16"}
+RAGGED_X, RAGGED_CO = (2, 5, 7, 9, 3), 5
 # max |kernel - plain| / max |plain|
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 # B3 returns x's dtype: a bf16 output is rounded to bf16 (half an ulp is up
@@ -123,6 +140,9 @@ TIMED_STEPS = 5
 PARITY_PATCH, PARITY_MIX = (32, 32, 32), (2, 1, 1)
 PARITY_GRAD_TOL = 1e-3  # max|cuda - cpu| / max|cpu| per generator gradient
 PARITY_LOSS_TOL = 1e-4  # relative, per loss
+# an activation input may sit on the other side of the kink on the other
+# device only within the f32 kernels' tolerance of the call's max|x|
+FLIP_TOL = 1e-4
 
 
 def nvidia_smi() -> str:
@@ -148,10 +168,15 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The route's bound (``bound_ms``, ``bound_by``): the larger of the
+    tensor-core operations over their peak and the bytes over HBM's rate;
+    beside it the same work's FFMA bound (``bound_ffma_ms``)."""
+    per, peak = TC_OPS[dtype]
+    t_ops, t_bytes = per * flops / peak, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ffma_ms=max(flops / PEAK_FFMA, t_bytes) * 1e3)
 
 
 def nbytes(*tensors) -> int:
@@ -195,17 +220,17 @@ def kernel_phase(dev, g):
                             f"{what} (library conv vs plain)")
                 zo = 32
                 flops = 2 * BATCH * zo**3 * 27 * ci * co
-                b_ms, b_by = bound(flops, nbytes(x, w, got), dtype)
                 ms = median_ms(lambda: wrapper(x, w))
                 rows.append(dict(
                     name=name, stage=stage, dtype=str(dtype).split(".")[-1],
-                    route="cuda", source=SOURCE, replaces=REPLACES[name],
+                    route=ROUTE[dtype], source=SOURCE, replaces=REPLACES[name],
                     max_abs_err=err, max_rel_err=rel, ms=ms,
                     plain_ms=median_ms(lambda: plain(x, w)),
-                    bound_ms=b_ms, bound_by=b_by,
+                    **bound(flops, nbytes(x, w, got), dtype),
                     library_ms=median_ms(lambda: F.conv3d(xc, wc)),
                     tflops=flops / ms / 1e9,
                 ))
+                print("  " + json.dumps(rows[-1]), flush=True)
                 del x, w, got, ref, xc, wc
                 torch.cuda.empty_cache()
         for stage, (ci, co, has_bias) in B3_SHAPES.items():
@@ -225,22 +250,60 @@ def kernel_phase(dev, g):
                 return F.conv3d(F.pad(xc, (3,) * 6, mode="reflect"), wc, b)
 
             flops = 2 * BATCH * 128**3 * 343 * ci * co
-            b_ms, b_by = bound(flops, nbytes(x, w, b, got), dtype)
             rows.append(dict(
                 name="s2d_conv3d_block", stage=stage, dtype=str(dtype).split(".")[-1],
-                route="cuda", source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
+                route=ROUTE[dtype], source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
                 replaces=REPLACES["s2d_conv3d_block"],
                 max_abs_err=err, max_rel_err=rel,
                 ms=median_ms(lambda: s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")),
                 plain_ms=median_ms(lambda: s2d_conv3d(x, w, b, f=4, padding_mode="reflect")),
-                bound_ms=b_ms, bound_by=b_by,
+                **bound(flops, nbytes(x, w, b, got), dtype),
                 library_ms=median_ms(library),
             ))
+            print("  " + json.dumps(rows[-1]), flush=True)
             del x, w, b, got, ref, xc, wc
             torch.cuda.empty_cache()
-    for r in rows:
-        print("  " + json.dumps(r), flush=True)
     return rows
+
+
+def ragged_phase(dev, g):
+    """One ragged case per route, off the paths' shapes: B1 and B2 in f32
+    and bf16 on x (2, 5, 7, 9, 3) -> Co 5 (Ci padded to 16 bytes, a
+    partial row tile, an odd Co), and B1's dx on it (Ci 5 -> Co 3), each
+    against its plain version at its dtype's tolerance."""
+    x0 = torch.randn(RAGGED_X, generator=g)
+    w0 = torch.randn((3, 3, 3, RAGGED_X[-1], RAGGED_CO), generator=g)
+    what = f"x {RAGGED_X} -> Co {RAGGED_CO}"
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = x0.to(dev, dtype), w0.to(dev, dtype)
+        for name, wrapper, plain in (("B1", block_conv3x3x3, block_conv3x3x3_reference),
+                                     ("B2", block_conv3x3x3_v2, block_conv3x3x3_v2_reference)):
+            got = wrapper(x, w)
+            torch.cuda.synchronize()
+            compare(got, plain(x, w), REL_TOL[dtype], f"ragged {name} {dtype} {what}")
+    x, w = x0.to(dev).requires_grad_(True), w0.to(dev)
+    dy = torch.randn((RAGGED_X[0], *(d - 2 for d in RAGGED_X[1:4]), RAGGED_CO), generator=g).to(dev)
+    (dx,) = torch.autograd.grad(block_conv3x3x3(x, w), (x,), dy)
+    (dx_ref,) = torch.autograd.grad(block_conv3x3x3_reference(x, w), (x,), dy)
+    torch.cuda.synchronize()
+    compare(dx, dx_ref, REL_TOL[torch.float32], f"ragged B1 dx float32 {what}")
+
+
+def print_build(rebuilt):
+    """ptxas' registers, spills and stack for each kernel instantiation, and
+    the tile (N width, dynamic shared memory) each route launches."""
+    for name in rebuilt:
+        log = _build.build_log_path(name)
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if any(k in line for k in ("entry function", "registers", "spill", "wgmma", "warning")):
+                    print(f"  ptxas {name}: {line.strip()}")
+    tile = _build.load("block_conv").block_conv3x3x3_tile
+    bn, smem = ctypes.c_int(), ctypes.c_int()
+    for dtype in (torch.float32, torch.bfloat16):
+        for co in (1024, 64):
+            tile(int(dtype == torch.float32), co, ctypes.byref(bn), ctypes.byref(smem))
+            print(f"  tile {dtype} Co {co}: 128 x {bn.value}, {smem.value} bytes of dynamic shared memory")
 
 
 def backward_phase(dev, g):
@@ -280,14 +343,13 @@ def backward_phase(dev, g):
     # dx's own work is the forward's products; the launch also multiplies
     # the padding's zeros, which the bound does not count
     flops = 2 * b * 32**3 * 27 * ci * co
-    b_ms, b_by = bound(flops, nbytes(dy, w, dx), torch.float32)
     ms = median_ms(lambda: block_conv3x3x3(dy_pad, w_t))
     row = dict(
         name="block_conv3x3x3", stage="projection dx (backward)", dtype="float32",
-        route="cuda", source=SOURCE, replaces=REPLACES["block_conv3x3x3"],
+        route=ROUTE[torch.float32], source=SOURCE, replaces=REPLACES["block_conv3x3x3"],
         max_abs_err=err_dx, max_rel_err=rel_dx, ms=ms,
         plain_ms=median_ms(lambda: block_conv3x3x3_reference(dy_pad, w_t)),
-        bound_ms=b_ms, bound_by=b_by,
+        **bound(flops, nbytes(dy, w, dx), torch.float32),
         library_ms=median_ms(lambda: torch.nn.grad.conv3d_input(x_size, wc, dyc)),
         tflops=flops / ms / 1e9,
     )
@@ -297,10 +359,11 @@ def backward_phase(dev, g):
 
     x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev)
     dw_flops = 2 * b * 32**3 * 27 * ci * co
-    dw_bound, dw_by = bound(dw_flops, nbytes(x, dy) + 27 * ci * co * 4, torch.float32)
+    # cuBLAS f32 (TF32 off): its bound is the FFMA one
+    dw_bound = bound(dw_flops, nbytes(x, dy) + 27 * ci * co * 4, torch.float32)["bound_ffma_ms"]
     dw_ms = median_ms(lambda: weight_grad(x, dy))
     print(f"  B1 backward dw (27 per-tap matmuls, batch-6 projection): {dw_ms:.2f} ms, "
-          f"bound {dw_bound:.2f} ms ({dw_by}), {dw_flops / dw_ms / 1e9:.1f} TFLOP/s", flush=True)
+          f"FFMA bound {dw_bound:.2f} ms, {dw_flops / dw_ms / 1e9:.1f} TFLOP/s", flush=True)
     del x, dy
     torch.cuda.empty_cache()
     return row
@@ -538,10 +601,57 @@ def _rel_diffs(cuda: dict, cpu: dict) -> dict:
     return out
 
 
+class ActivationSigns:
+    """The sign of every relu / leaky_relu input (``models/blocks.py``) in
+    one step on the card, replayed in the same step on the CPU. A
+    pre-activation within rounding of the kink can land on either side on
+    the two devices, and the gradient then takes another linear piece: one
+    such voxel in a 32^3 step moves a weight gradient by 1e-3 of its max
+    (``unaligned`` in the printout; the plain block conv on the card does
+    it too). In replay the CPU takes the card's side wherever the two
+    disagree, so both differentiate one function; a disagreement farther
+    than FLIP_TOL of the call's max|x| from the kink raises."""
+
+    def __init__(self):
+        self.masks, self.mode, self.i, self.flips, self.worst = [], None, 0, 0, 0.0
+
+    def apply(self, x, slope):
+        pos = x > 0
+        if self.mode == "record":
+            self.masks.append(pos.cpu())
+        elif self.mode == "replay":
+            card = self.masks[self.i].to(x.device)
+            self.i += 1
+            flip = card != pos
+            if flip.any():
+                rel = (x.detach()[flip].abs().max() / x.detach().abs().max()).item()
+                if not rel <= FLIP_TOL:
+                    raise AssertionError(f"an activation input {rel:.2e} of max|x| from the kink "
+                                         "is on the other side on the card")
+                self.flips += int(flip.sum())
+                self.worst = max(self.worst, rel)
+            pos = card
+        return torch.where(pos, x, x * slope)
+
+    @contextlib.contextmanager
+    def run(self, mode):
+        saved, self.mode, self.i = blocks.F, mode, 0
+        signed = types.SimpleNamespace(relu=lambda x: self.apply(x, 0.0),
+                                       leaky_relu=lambda x, negative_slope=0.01: self.apply(x, negative_slope))
+        blocks.F = signed
+        try:
+            yield
+        finally:
+            blocks.F, self.mode = saved, None
+        if mode == "replay" and self.i != len(self.masks):
+            raise AssertionError(f"{self.i} activations on the CPU, {len(self.masks)} on the card")
+
+
 def train_parity_phase(rng):
     """One step from one state on the card and on the CPU (module docstring,
     phase 7), per mode and branch, the card first. Every comparison takes
-    one network's gradients against an identical other network. In
+    one network's gradients against an identical other network, on the
+    same side of every activation's kink (``ActivationSigns``). In
     ``combined_step`` the critic first takes an Adam step, about lr *
     sign(g) per weight, so a weight whose gradient is float noise can step
     the other way on the other device; so the CPU run takes the card's
@@ -549,40 +659,44 @@ def train_parity_phase(rng):
     update, before the generator's loss. Each critic update, the CPU's own
     included, must land within 2 lr of the card's per weight (the most two
     first Adam steps can differ); the number of weights apart by more than
-    lr is printed."""
+    lr is printed. A third run, on the CPU without the card's signs, gives
+    the unaligned gradient difference, printed only."""
     patches = train_patches(rng, PARITY_PATCH, PARITY_MIX, "cpu")
     for mode, spec in TRAIN_MODES.items():
         for step in ("generator_only_step", "critic_step", "combined_step"):
-            runs, card_critic, cpu_update = {}, None, {}
-            for dev in ("cuda", "cpu"):
+            runs, card_critic, updates, signs = {}, None, {}, ActivationSigns()
+            for run, dev, sign_mode in (("cuda", "cuda", "record"), ("cpu", "cpu", "replay"),
+                                        ("unaligned", "cpu", None)):
                 # gp: a fixed interpolation eps, as the two devices draw differently
                 trainer = make_trainer(mode, seed=20, device=dev, gp_eps=0.3 if mode == "gp" else None)
                 critic, hook = trainer.state.critic, None
                 if dev == "cpu" and step == "combined_step":
-                    def take_card_critic(optimizer, args, kwargs, critic=critic):
-                        cpu_update.update({n: p.detach().clone() for n, p in critic.named_parameters()})
+                    def take_card_critic(optimizer, args, kwargs, critic=critic, run=run):
+                        updates[run] = {n: p.detach().clone() for n, p in critic.named_parameters()}
                         critic.load_state_dict(card_critic, strict=True)
 
                     hook = trainer.state.critic_opt.optimizer.register_step_post_hook(take_card_critic)
                 opt, subopt, mask, _ = trainer._assemble(patches)
-                state, metrics = getattr(trainer.steps, step)(trainer.state, opt, subopt, mask)
+                with signs.run(sign_mode):
+                    state, metrics = getattr(trainer.steps, step)(trainer.state, opt, subopt, mask)
                 if hook is not None:
                     hook.remove()
                 if dev == "cuda":
                     card_critic = {k: v.detach().cpu() for k, v in critic.state_dict().items()}
                 net = critic if step == "critic_step" else state.generator
-                runs[dev] = (
+                runs[run] = (
                     {k: v.item() for k, v in metrics.items()},
                     {n: p.grad.detach().cpu() for n, p in net.named_parameters() if p.grad is not None},
                     {n: p.detach().cpu() for n, p in critic.named_parameters()},
                 )
             (m_cuda, g_cuda, c_cuda), (m_cpu, g_cpu, c_cpu) = runs["cuda"], runs["cpu"]
+            g_free = runs["unaligned"][1]
             if step == "combined_step":
-                if not cpu_update:
+                if "cpu" not in updates:
                     raise AssertionError("the CPU's combined_step never took the card's critic")
                 # the CPU's own update, clipped as the step clips it next
                 clip = spec["weight_clip"]
-                c_cpu = {n: p if clip is None else p.clamp(-clip, clip) for n, p in cpu_update.items()}
+                c_cpu = {n: p if clip is None else p.clamp(-clip, clip) for n, p in updates["cpu"].items()}
             if step == "critic_step":
                 # d(mean(fake) - mean(real)) / d(last bias) = 1 - 1 = 0, and
                 # the penalty does not see the bias: rounding noise on both
@@ -590,15 +704,20 @@ def train_parity_phase(rng):
                 noise = max(g["last.conv.bias"].abs().item() for g in (g_cuda, g_cpu))
                 if not noise <= 1e-6:
                     raise AssertionError(f"train parity {mode}: last.conv.bias gradient {noise} is not ~0")
-                del g_cuda["last.conv.bias"], g_cpu["last.conv.bias"]
+                for g in (g_cuda, g_cpu, g_free):
+                    del g["last.conv.bias"]
             grad_rel = _rel_diffs(g_cuda, g_cpu)
             worst = max(grad_rel, key=grad_rel.get)
+            free_rel = _rel_diffs(g_cuda, g_free)
+            free_worst = max(free_rel, key=free_rel.get)
             # relative, with a 1e-7 floor for a loss that lands near zero
             loss_rel = {k: abs(m_cuda[k] - v) / max(abs(v), 1e-7) for k, v in m_cpu.items()}
             moved = max((c_cuda[n] - c_cpu[n]).abs().max().item() for n in c_cpu)
             apart = sum(int(((c_cuda[n] - c_cpu[n]).abs() > spec["lr"]).sum()) for n in c_cpu)
             print(f"train parity {mode} {step} (32^3, batch 2+1+1): worst gradient {worst} "
-                  f"{grad_rel[worst]:.2e} of max|cpu| over {len(grad_rel)} tensors; losses "
+                  f"{grad_rel[worst]:.2e} of max|cpu| over {len(grad_rel)} tensors "
+                  f"(activation signs taken from the card: {signs.flips}, at most {signs.worst:.2e} of "
+                  f"max|x| from the kink; unaligned: {free_worst} {free_rel[free_worst]:.2e}); losses "
                   f"cuda {m_cuda} cpu {m_cpu}, relative {loss_rel}; critic update max|cuda - cpu| "
                   f"{moved:.2e}, weights apart by > lr: {apart}", flush=True)
             if not grad_rel[worst] <= PARITY_GRAD_TOL:
@@ -625,12 +744,7 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     rebuilt = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, rebuilt {rebuilt}", flush=True)
-    for name in rebuilt:
-        log = _build.build_log_path(name)
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+    print_build(rebuilt)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -639,6 +753,7 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     rows = kernel_phase(dev, g)
     dx_row = backward_phase(dev, g)
+    ragged_phase(dev, g)
     print(f"kernels: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     gen = seeded(ResnetGenerator(), 0)

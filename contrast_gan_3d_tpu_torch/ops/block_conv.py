@@ -4,8 +4,9 @@
 - ``block_conv3x3x3`` (B1): VALID 3^3 conv, x (B, Z, X, Y, Ci) z-major
   channels-last, w (3, 3, 3, Ci, Co) indexed [qx, qy, qz], f32 out
   (B, Z-2, X-2, Y-2, Co). A CUDA tensor runs the hand-written Hopper kernel
-  ``csrc/block_conv.cu``; a CPU tensor runs the plain version
-  ``block_conv3x3x3_reference``. There is no fallback between the two.
+  ``csrc/block_conv.cu`` on the tensor cores (3xTF32 for f32, native bf16);
+  a CPU tensor runs the plain version ``block_conv3x3x3_reference``. There
+  is no fallback between the two.
 - ``block_conv3x3x3_v2`` (B2): the same contraction on x (B, Z, Y, X, Ci),
   out (B, Z-2, Y-2, X-2, Co), w still indexed [qx, qy, qz]; the same CUDA
   kernel body with the tap decode for that axis order, plain version
@@ -15,11 +16,19 @@
 - ``s2d_conv3d_block`` (B3): stride-1 SAME conv through space-to-depth and
   B1, with B3's dispatch: plain ``s2d_conv3d`` for block kernels other than
   3^3 or dims that do not divide f; ``ValueError`` on an unknown
-  ``padding_mode``.
+  ``padding_mode``. B1 reads the (B, X, Y, Z) block grid as it is: the
+  weights are permuted to that spatial order, not the data.
+
+Every launch takes the weights K-major per tap, (27, Co, Ci) with tap =
+qx*9 + qy*3 + qz (``kmajor``), as wgmma reads a tf32 operand; for f32 they
+are split into TF32 big and small parts (``tf32_split``), the kernel's
+3xTF32 products. Channels are zero-padded to 16 bytes (``pad_channels``)
+where Ci is not a multiple of 4 (f32) or 8 (bf16).
 
 B1 and B2 are differentiable through ``BlockConv3x3x3Function`` (f32): the
 input gradient is a FULL 3^3 conv of dy with the flipped, transposed
-weight, i.e. the same kernel on dy padded by 2; the weight gradient is 27
+weight, i.e. the same kernel on dy padded by 2, whose K-major weight is
+the flipped weight as it lies (``dx_weight``); the weight gradient is 27
 per-tap products in ``torch.matmul`` (the JAX package differentiates its
 XLA conv there, never a Pallas kernel). On the CPU the forward and
 backward run the plain versions.
@@ -56,14 +65,56 @@ _C_SYMBOLS = {
     ("zyx", torch.bfloat16): "block_conv3x3x3_v2_bf16",
 }
 ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
+TF32_DROP = 0x1FFF  # the 13 low mantissa bits that TF32 does not keep
 
 
 @lru_cache(maxsize=None)
 def _kernel_fn(layout: str, dtype: torch.dtype):
     fn = getattr(_build.load("block_conv"), _C_SYMBOLS[layout, dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Ci, Co) -> the (27, Co, Ci) view the kernel reads."""
+    return w.reshape(27, w.shape[3], w.shape[4]).transpose(1, 2)
+
+
+def from_kmajor(w_km: torch.Tensor) -> torch.Tensor:
+    """(27, Co, Ci) -> (3, 3, 3, Ci, Co)."""
+    return w_km.transpose(1, 2).reshape(3, 3, 3, w_km.shape[2], w_km.shape[1])
+
+
+def dx_weight(w: torch.Tensor) -> torch.Tensor:
+    """The K-major weight of B1's input gradient: dx is the VALID conv of
+    dy padded by 2 with ``w.flip(0, 1, 2).transpose(3, 4)``, whose K-major
+    form (27, Ci, Co) is the flipped weight without the transpose."""
+    return w.flip(0, 1, 2).reshape(27, w.shape[3], w.shape[4])
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~TF32_DROP).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor):
+    """(big, small): ``big = tf32_round(v)``, ``small = tf32_round(v - big)``;
+    ``|v - big - small| <= 2^-22 |v|``."""
+    big = tf32_round(v)
+    return big, tf32_round(v - big)
+
+
+def pad_channels(x: torch.Tensor, w_km: torch.Tensor):
+    """Zero-pad x's and the K-major weight's Ci to a multiple of 16 bytes
+    (4 f32, 8 bf16), the kernel's copy width; returns them unchanged where
+    Ci already is one. Zero channels add nothing to the contraction."""
+    pad = -x.shape[-1] % (16 // x.element_size())
+    if not pad:
+        return x, w_km
+    return F.pad(x, (0, pad)), F.pad(w_km, (0, pad))
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
@@ -108,17 +159,26 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
             raise ValueError(f"{name} needs contiguous x and w")
 
 
-def _run(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
-    """One forward contraction: the plain version for a CPU tensor, one
-    counted kernel launch for a CUDA tensor (checked by ``_check``)."""
+def _run(x: torch.Tensor, w_km: torch.Tensor, layout: str) -> torch.Tensor:
+    """One contraction with the K-major weight ``w_km`` (27, Co, Ci): the
+    plain version for a CPU tensor, one counted kernel launch for a CUDA
+    tensor (checked by ``_check``)."""
     if x.device.type == "cpu":
-        return _reference(x, w, layout)
+        return _reference(x, from_kmajor(w_km), layout)
+    x, w_km = pad_channels(x, w_km)
+    if x.data_ptr() % 16:  # a view at an odd offset; the copies are 16-byte
+        x = x.clone()
+    if x.dtype == torch.float32:
+        w_big, w_small = tf32_split(w_km)
+    else:
+        w_big = w_small = w_km.contiguous()
     b, zi, d2, d3, ci = x.shape
-    out = torch.empty((b, zi - 2, d2 - 2, d3 - 2, w.shape[-1]), dtype=torch.float32, device=x.device)
+    co = w_km.shape[1]
+    out = torch.empty((b, zi - 2, d2 - 2, d3 - 2, co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _kernel_fn(layout, x.dtype)(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, zi, d2, d3, ci, w.shape[-1],
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), w_big.data_ptr(), w_small.data_ptr(), out.data_ptr(),
+            b, zi, d2, d3, ci, co, torch.cuda.current_stream().cuda_stream,
         )
     wrapper = _WRAPPERS[layout]
     if rc != 0:
@@ -134,8 +194,8 @@ class BlockConv3x3x3Function(torch.autograd.Function):
     - dx (only when x needs it): a FULL 3^3 conv of dy with the flipped,
       transposed weight, which is the same VALID kernel on dy zero-padded
       by 2 on each spatial side: ``w.flip(0, 1, 2).transpose(3, 4)``
-      reverses the taps in all three axes and swaps Ci with Co. One
-      counted launch on the card.
+      reverses the taps in all three axes and swaps Ci with Co; its K-major
+      form is ``dx_weight(w)``. One counted launch on the card.
     - dw: ``dw[qx, qy, qz] = x_tap^T @ dy`` for each of the 27 taps, with
       x_tap the (M, Ci) slice of x at that tap's offset.
     - f32 only: a bf16 backward is not ported (ROADMAP).
@@ -145,7 +205,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
     def forward(ctx, x, w, layout):
         ctx.layout = layout
         ctx.save_for_backward(x, w)
-        return _run(x, w, layout)
+        return _run(x, kmajor(w), layout)
 
     @staticmethod
     @once_differentiable
@@ -158,7 +218,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
-            dx = _run(dy_pad, w.flip(0, 1, 2).transpose(3, 4).contiguous(), layout)
+            dx = _run(dy_pad, dx_weight(w), layout)
             if dx.is_cuda:
                 _WRAPPERS[layout].backward_launches += 1
         if ctx.needs_input_grad[1]:
@@ -229,14 +289,13 @@ def s2d_conv3d_block(
     if any(extra):
         xp = pad_spatial(xp, [(0, e) for e in extra])
     xs = space_to_depth(xp, f)  # (B, Xb+2, Yb+2, Zb+2, f^3 ci)
-    ws = transform_kernel(w, f).to(x.dtype).contiguous()
-
-    xs_t = xs.permute(0, 3, 1, 2, 4).contiguous()  # z-major for B1
-    out = block_conv3x3x3(xs_t, ws)  # (B, Zb', Xb', Yb', f^3 co) f32
+    ws = transform_kernel(w, f).to(x.dtype)  # [kx, ky, kz] block taps
+    # B1 pairs w's axes (0, 1, 2) with x's spatial axes (2, 3, 1); on the
+    # (X, Y, Z) block grid that takes the taps ordered [ky, kz, kx]
+    out = block_conv3x3x3(xs, ws.permute(1, 2, 0, 3, 4).contiguous())  # (B, Xb', Yb', Zb', f^3 co) f32
     if x.is_cuda:
         s2d_conv3d_block.launches += 1
-    out = out.permute(0, 2, 3, 1, 4).to(x.dtype)
-    out = out[:, : X // f, : Y // f, : Z // f]
+    out = out[:, : X // f, : Y // f, : Z // f].to(x.dtype)
     out = depth_to_space(out, f)
     if bias is not None:
         out = out + bias.to(out.dtype)

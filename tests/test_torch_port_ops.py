@@ -218,6 +218,8 @@ def test_s2d_block_is_differentiable_through_b1(rng):
         ((1, 8, 8, 8, 3), 7, 3, 2, "reflect", True),   # the generator's 7^3 stages
         ((1, 8, 8, 8, 2), 6, 2, 3, "zeros", False),    # even k: the d + f(K-1) bound
         ((2, 8, 12, 4, 1), 7, 1, 4, "reflect", False),  # stem-like, non-cubic
+        ((1, 12, 8, 16, 2), 7, 2, 1, "zeros", True),   # projection-like, non-cubic
+        ((1, 4, 16, 8, 1), 5, 1, 3, "reflect", True),  # odd k < 7, non-cubic
     ],
 )
 def test_s2d_block_matches_pallas_wrapper_and_xla(rng, x_shape, k, ci, co, mode, bias):
