@@ -3,7 +3,10 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
-Phases (any failure raises and exits non-zero):
+Both of the port's compute dtypes are driven: f32 (the JAX package's
+strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
+generator, the critic, ``StepConfig`` and the corrector). Phases (any
+failure raises and exits non-zero):
 1. build the CUDA kernels from ``contrast_gan_3d_tpu_torch/ops/csrc`` into
    ``build/torch_kernels/`` and print the card's name and power limit;
 2. kernels: B1 (``block_conv3x3x3``), B2 (``block_conv3x3x3_v2``, on no
@@ -15,21 +18,30 @@ Phases (any failure raises and exits non-zero):
    three TF32 tensor-core products per multiply-add, bf16 one) and the
    FFMA bound of the same work (``bound_ffma_ms``); one ragged case per
    route (x (2, 5, 7, 9, 3) -> Co 5: channel padding, row and column
-   masks) for B1 and B2 in f32 and bf16 and B1's dx; then B1's backward at the train path's
-   batch-6 projection shape: dx (a B1 launch on dy padded by 2) and dw
-   from ``BlockConv3x3x3Function`` against autograd through the plain
-   version (1e-4 of max|plain|), with their times and bounds;
-3. serving path: the default 1,035,297-parameter ``ResnetGenerator`` with
-   seeded random weights corrects three int16 512x512x128 volumes through
-   ``CCTAContrastCorrector`` (128^3 patches, 25% overlap, batch 8: 25
-   patches, 4 generator forwards, 8 B1 launches per volume);
-   then one 512x512x400 volume at 25% and one at 50% overlap (74 B1
-   launches);
-4. serving parity: one 96x96x64 volume corrected on the card and on the
-   CPU with the same weights must agree to 0.5 HU;
-5. train path, full width: the default generator and the default
-   176,873-parameter ``PatchGANDiscriminator``, seeded, on 128^3 int16
-   patches, 6 OPT + 3 LOW + 3 HIGH, through ``Trainer.train_step``:
+   masks) for B1 and B2 in f32 and bf16 and B1's dx in both; then B1's
+   backward at the train path's batch-6 projection shape, f32 and bf16:
+   dx (a B1 launch on dy padded by 2) and dw from
+   ``BlockConv3x3x3Function`` against autograd through the plain version
+   (f32: 1e-4 of max|plain|; bf16, on the bf16 values with dy rounded to
+   bf16: 2^-8 for dx, rounded once to bf16, and 2^-7 for dw, bf16 products
+   summed by cuBLAS), with their times and bounds, dx's yardstick cuDNN's
+   dgrad in the same dtype;
+3. serving path, f32: the default 1,035,297-parameter ``ResnetGenerator``
+   with seeded random weights corrects three int16 512x512x128 volumes
+   through ``CCTAContrastCorrector`` (128^3 patches, 25% overlap, batch 8:
+   25 patches, 4 generator forwards, 8 B1 launches per volume); then one
+   512x512x400 volume at 25% and one at 50% overlap (74 B1 launches);
+4. serving parity, f32: one 96x96x64 volume corrected on the card and on
+   the CPU with the same weights must agree to 0.5 HU;
+5. serving path and parity, bf16: the same weights in
+   ``ResnetGenerator(dtype=torch.bfloat16)`` behind
+   ``CCTAContrastCorrector(dtype=torch.bfloat16)``, the same requests and
+   launch checks (s/volume printed beside f32's); the 96x96x64 volume
+   corrected three ways, card bf16, CPU bf16 and CPU f32:
+   max|card_bf16 - cpu_f32| <= 2 * max|cpu_bf16 - cpu_f32| + 0.5 HU;
+6. train path, full width, f32 then bf16: the default generator and the
+   default 176,873-parameter ``PatchGANDiscriminator``, seeded, on 128^3
+   int16 patches, 6 OPT + 3 LOW + 3 HIGH, through ``Trainer.train_step``:
    (a) weight clip (basic_3d: Adam 2e-4 (0.5, 0.999), clip 0.01, critic
    every 1, generator every 5), 10 iterations; (b) gradient penalty
    (critic without norm, Adam 1e-4 (0, 0.9), lambda 10), 3 iterations of
@@ -40,22 +52,29 @@ Phases (any failure raises and exits non-zero):
    critic-only step, 3 for a combined or generator-only step, one of them
    the backward's dx). Prints the warm median seconds of ``critic_step``
    and ``combined_step``, train_patches_per_sec = 12 / combined seconds,
-   and the peak device memory;
-6. where the time goes: device time by kernel over one 512x512x128
-   correction (after phase 4) and over one warm weight-clip
-   ``combined_step``, under ``torch.profiler``, the latter also by
+   and the peak device memory, bf16 beside f32;
+7. where the time goes: device time by kernel over one 512x512x128
+   correction and over one warm weight-clip ``combined_step``, in each
+   dtype, under ``torch.profiler``, the steps also by
    ``convolution_backward`` input shapes;
-7. train parity: default widths, 32^3 patches, batch 2 + 1 + 1, one step
-   from one state on the card and on the CPU (weight clip and gradient
-   penalty with a fixed eps), for each of ``generator_only_step``,
-   ``critic_step`` and ``combined_step``: the trained network's gradients
-   within 1e-3 of max|cpu| per tensor, every loss within 1e-4 relative,
-   each critic update within 2 lr per weight, and the B1 stages'
-   gradients non-zero on the card after a generator update. In
-   ``combined_step`` the CPU run takes the card's updated critic before
-   the generator's loss, and every CPU run takes the card's side of any
-   activation input within 1e-4 of its max from the relu kink
-   (``ActivationSigns``; ``train_parity_phase``).
+8. train parity, f32: default widths, 32^3 patches, batch 2 + 1 + 1, one
+   step from one state on the card and on the CPU (weight clip and
+   gradient penalty with a fixed eps), for each of
+   ``generator_only_step``, ``critic_step`` and ``combined_step``: the
+   trained network's gradients within 1e-3 of max|cpu| per tensor, every
+   loss within 1e-4 relative, each critic update within 2 lr per weight,
+   and the B1 stages' gradients non-zero on the card after a generator
+   update. In ``combined_step`` the CPU run takes the card's updated
+   critic before the generator's loss, and every CPU run takes the card's
+   side of any activation input within 1e-4 of its max from the relu kink
+   (``ActivationSigns``; ``train_parity_phase``);
+9. train parity, bf16: the same steps from one state three ways, card
+   bf16, CPU bf16 and CPU f32 (``train_parity_bf16_phase``): per gradient
+   tensor, the card's relative L2 error against CPU f32 at most twice the
+   CPU bf16 run's (on that tensor, or its median over the network's
+   tensors where that is larger) plus 1e-3; per loss, the card's distance
+   from CPU f32 at most twice the CPU bf16 run's (at least 2^-7 |loss|,
+   about one bf16 ulp of it) plus 1e-3 max(1, |loss|).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -105,14 +124,20 @@ PEAK_BYTES_PER_S = 3.35e12
 # tensor-core operations per multiply-add of the work, and their peak, by
 # the kernel's input dtype: f32 is 3xTF32 (three TF32 products), bf16 one
 TC_OPS = {torch.float32: (3, PEAK_TF32), torch.bfloat16: (1, PEAK_BF16)}
-ROUTE = {torch.float32: "cuda wgmma 3xtf32", torch.bfloat16: "cuda wgmma bf16"}
+# every kernel is CUDA C++ ("route"); how it uses the tensor cores by dtype
+TENSOR_CORES = {torch.float32: "wgmma 3xtf32", torch.bfloat16: "wgmma bf16"}
 RAGGED_X, RAGGED_CO = (2, 5, 7, 9, 3), 5
 # max |kernel - plain| / max |plain|
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 # B3 returns x's dtype: a bf16 output is rounded to bf16 (half an ulp is up
 # to 2^-8 of the value), so no bf16 B3 can sit closer than that to the f32
-# truth; its bf16 check uses that bound
+# truth; its bf16 check uses that bound, as does B1's bf16 dx (rounded to
+# bf16 too); B1's bf16 dw is cuBLAS's bf16 GEMM, whose split-K partial sums
+# may be rounded to bf16 as well
 B3_BF16_REL_TOL = 2.0**-8
+BF16_DW_REL_TOL = 2.0**-7
+DTYPES = (torch.float32, torch.bfloat16)
+DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 PATH_TOL_HU = 0.5
 BATCH = 8
 B1_SHAPES = {"stem": (64, 1024), "projection": (1024, 64)}  # (Ci, Co) over 34^3 blocks
@@ -140,6 +165,10 @@ TIMED_STEPS = 5
 PARITY_PATCH, PARITY_MIX = (32, 32, 32), (2, 1, 1)
 PARITY_GRAD_TOL = 1e-3  # max|cuda - cpu| / max|cpu| per generator gradient
 PARITY_LOSS_TOL = 1e-4  # relative, per loss
+# bf16: the card's error against CPU f32 may be at most twice the CPU's own
+# bf16 error plus this (relative L2 per gradient tensor; per loss, in units
+# of max(1, |loss|))
+BF16_PARITY_FLOOR = 1e-3
 # an activation input may sit on the other side of the kink on the other
 # device only within the f32 kernels' tolerance of the call's max|x|
 FLIP_TOL = 1e-4
@@ -222,8 +251,8 @@ def kernel_phase(dev, g):
                 flops = 2 * BATCH * zo**3 * 27 * ci * co
                 ms = median_ms(lambda: wrapper(x, w))
                 rows.append(dict(
-                    name=name, stage=stage, dtype=str(dtype).split(".")[-1],
-                    route=ROUTE[dtype], source=SOURCE, replaces=REPLACES[name],
+                    name=name, stage=stage, dtype=DTYPE_NAME[dtype],
+                    route="cuda", tensor_cores=TENSOR_CORES[dtype], source=SOURCE, replaces=REPLACES[name],
                     max_abs_err=err, max_rel_err=rel, ms=ms,
                     plain_ms=median_ms(lambda: plain(x, w)),
                     **bound(flops, nbytes(x, w, got), dtype),
@@ -251,8 +280,8 @@ def kernel_phase(dev, g):
 
             flops = 2 * BATCH * 128**3 * 343 * ci * co
             rows.append(dict(
-                name="s2d_conv3d_block", stage=stage, dtype=str(dtype).split(".")[-1],
-                route=ROUTE[dtype], source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
+                name="s2d_conv3d_block", stage=stage, dtype=DTYPE_NAME[dtype],
+                route="cuda", tensor_cores=TENSOR_CORES[dtype], source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
                 replaces=REPLACES["s2d_conv3d_block"],
                 max_abs_err=err, max_rel_err=rel,
                 ms=median_ms(lambda: s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")),
@@ -269,8 +298,8 @@ def kernel_phase(dev, g):
 def ragged_phase(dev, g):
     """One ragged case per route, off the paths' shapes: B1 and B2 in f32
     and bf16 on x (2, 5, 7, 9, 3) -> Co 5 (Ci padded to 16 bytes, a
-    partial row tile, an odd Co), and B1's dx on it (Ci 5 -> Co 3), each
-    against its plain version at its dtype's tolerance."""
+    partial row tile, an odd Co), and B1's dx on it (Ci 5 -> Co 3) in both
+    dtypes, each against its plain version at its dtype's tolerance."""
     x0 = torch.randn(RAGGED_X, generator=g)
     w0 = torch.randn((3, 3, 3, RAGGED_X[-1], RAGGED_CO), generator=g)
     what = f"x {RAGGED_X} -> Co {RAGGED_CO}"
@@ -281,12 +310,15 @@ def ragged_phase(dev, g):
             got = wrapper(x, w)
             torch.cuda.synchronize()
             compare(got, plain(x, w), REL_TOL[dtype], f"ragged {name} {dtype} {what}")
-    x, w = x0.to(dev).requires_grad_(True), w0.to(dev)
     dy = torch.randn((RAGGED_X[0], *(d - 2 for d in RAGGED_X[1:4]), RAGGED_CO), generator=g).to(dev)
-    (dx,) = torch.autograd.grad(block_conv3x3x3(x, w), (x,), dy)
-    (dx_ref,) = torch.autograd.grad(block_conv3x3x3_reference(x, w), (x,), dy)
-    torch.cuda.synchronize()
-    compare(dx, dx_ref, REL_TOL[torch.float32], f"ragged B1 dx float32 {what}")
+    for dtype in DTYPES:
+        x, w = x0.to(dev, dtype).requires_grad_(True), w0.to(dev, dtype)
+        (dx,) = torch.autograd.grad(block_conv3x3x3(x, w), (x,), dy)
+        xr = x.detach().float().requires_grad_(True)
+        (dx_ref,) = torch.autograd.grad(block_conv3x3x3_reference(xr, w.float()), (xr,), dy.to(dtype).float())
+        torch.cuda.synchronize()
+        tol = REL_TOL[dtype] if dtype == torch.float32 else B3_BF16_REL_TOL
+        compare(dx, dx_ref, tol, f"ragged B1 dx {dtype} {what}")
 
 
 def print_build(rebuilt):
@@ -306,17 +338,20 @@ def print_build(rebuilt):
             print(f"  tile {dtype} Co {co}: 128 x {bn.value}, {smem.value} bytes of dynamic shared memory")
 
 
-def backward_phase(dev, g):
+def backward_phase(dev, g, dtype):
     """B1's backward at the train path's batch-6 projection (1024 -> 64 over
-    34^3 blocks): dx and dw from ``BlockConv3x3x3Function`` on the card vs
-    autograd through the plain version, f32; then the dx launch (B1 on dy
-    padded by 2 with the flipped, transposed weight: 64 -> 1024 over 36^3)
-    and dw (27 per-tap products) timed beside their bounds, both counted at
-    the forward's 2 * 6 * 32^3 * 27 * 1024 * 64 operations; dx's library
-    yardstick is cuDNN's dgrad (``torch.nn.grad.conv3d_input``)."""
+    34^3 blocks) in ``dtype``: dx and dw from ``BlockConv3x3x3Function`` on
+    the card vs autograd through the plain version (f32 on the same values;
+    for bf16 with dy rounded to bf16, the backward's first rounding); then
+    the dx launch (B1 on dy padded by 2 with the flipped, transposed weight:
+    64 -> 1024 over 36^3) and dw (27 per-tap products) timed beside their
+    bounds, both counted at the forward's 2 * 6 * 32^3 * 27 * 1024 * 64
+    operations; dx's library yardstick is cuDNN's dgrad
+    (``torch.nn.grad.conv3d_input``) in ``dtype``."""
     b, ci, co = TRAIN_MIX[1] + TRAIN_MIX[2], 1024, 64
-    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev).requires_grad_(True)
-    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev).requires_grad_(True)
+    name = DTYPE_NAME[dtype]
+    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev, dtype).requires_grad_(True)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev, dtype).requires_grad_(True)
     dy = torch.randn((b, 32, 32, 32, co), generator=g).to(dev)
     out = block_conv3x3x3(x, w)
     if out.grad_fn is None:
@@ -325,31 +360,38 @@ def backward_phase(dev, g):
     dx, dw = torch.autograd.grad(out, (x, w), dy)
     if (block_conv3x3x3.launches - launches, block_conv3x3x3.backward_launches - bwd_launches) != (1, 1):
         raise AssertionError("the backward's dx was not exactly one counted B1 launch")
-    dx_ref, dw_ref = torch.autograd.grad(block_conv3x3x3_reference(x, w), (x, w), dy)
+    if dx.dtype != dtype or dw.dtype != dtype:
+        raise AssertionError(f"{name} backward returned dx {dx.dtype}, dw {dw.dtype}")
+    dy = dy.to(dtype)
+    xr, wr = x.detach().float().requires_grad_(True), w.detach().float().requires_grad_(True)
+    dx_ref, dw_ref = torch.autograd.grad(block_conv3x3x3_reference(xr, wr), (xr, wr), dy.float())
     torch.cuda.synchronize()
-    err_dx, rel_dx = compare(dx, dx_ref, REL_TOL[torch.float32], "B1 backward dx (batch-6 projection)")
-    compare(dw, dw_ref, REL_TOL[torch.float32], "B1 backward dw (batch-6 projection)")
+    dx_tol = REL_TOL[dtype] if dtype == torch.float32 else B3_BF16_REL_TOL
+    err_dx, rel_dx = compare(dx, dx_ref, dx_tol, f"B1 backward dx {name} (batch-6 projection)")
+    compare(dw, dw_ref, REL_TOL[dtype] if dtype == torch.float32 else BF16_DW_REL_TOL,
+            f"B1 backward dw {name} (batch-6 projection)")
     # the library yardstick: cuDNN's input gradient (dgrad) on the unpadded
     # dy, over the same memory read as NCDHW
     dyc, wc = dy.permute(0, 4, 1, 2, 3), w.detach().permute(4, 3, 2, 0, 1)
     x_size = (b, ci, 34, 34, 34)
     compare(torch.nn.grad.conv3d_input(x_size, wc, dyc).permute(0, 2, 3, 4, 1), dx_ref,
-            REL_TOL[torch.float32], "B1 backward dx (library dgrad vs plain)")
-    del x, out, dw, dx_ref, dw_ref
+            dx_tol, f"B1 backward dx {name} (library dgrad vs plain)")
+    del x, xr, wr, out, dw, dx_ref, dw_ref
     torch.cuda.empty_cache()
 
     dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))
     w_t = w.detach().flip(0, 1, 2).transpose(3, 4).contiguous()
     # dx's own work is the forward's products; the launch also multiplies
-    # the padding's zeros, which the bound does not count
+    # the padding's zeros, which the bound does not count; the launch
+    # writes f32
     flops = 2 * b * 32**3 * 27 * ci * co
     ms = median_ms(lambda: block_conv3x3x3(dy_pad, w_t))
     row = dict(
-        name="block_conv3x3x3", stage="projection dx (backward)", dtype="float32",
-        route=ROUTE[torch.float32], source=SOURCE, replaces=REPLACES["block_conv3x3x3"],
+        name="block_conv3x3x3", stage="projection dx (backward)", dtype=name,
+        route="cuda", tensor_cores=TENSOR_CORES[dtype], source=SOURCE, replaces=REPLACES["block_conv3x3x3"],
         max_abs_err=err_dx, max_rel_err=rel_dx, ms=ms,
         plain_ms=median_ms(lambda: block_conv3x3x3_reference(dy_pad, w_t)),
-        **bound(flops, nbytes(dy, w, dx), torch.float32),
+        **bound(flops, nbytes(dy, w) + dx.numel() * 4, dtype),
         library_ms=median_ms(lambda: torch.nn.grad.conv3d_input(x_size, wc, dyc)),
         tflops=flops / ms / 1e9,
     )
@@ -357,13 +399,16 @@ def backward_phase(dev, g):
     del dx, dy_pad, w_t, dyc, wc
     torch.cuda.empty_cache()
 
-    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev)
+    x = torch.randn((b, 34, 34, 34, ci), generator=g).to(dev, dtype)
     dw_flops = 2 * b * 32**3 * 27 * ci * co
-    # cuBLAS f32 (TF32 off): its bound is the FFMA one
-    dw_bound = bound(dw_flops, nbytes(x, dy) + 27 * ci * co * 4, torch.float32)["bound_ffma_ms"]
+    # cuBLAS: f32 with TF32 off is bound by FFMA, bf16 by the tensor cores
+    dw_bytes = nbytes(x, dy) + 27 * ci * co * 4
+    dw_bound = bound(dw_flops, dw_bytes, dtype)
+    dw_bound = dw_bound["bound_ffma_ms"] if dtype == torch.float32 else dw_bound["bound_ms"]
     dw_ms = median_ms(lambda: weight_grad(x, dy))
-    print(f"  B1 backward dw (27 per-tap matmuls, batch-6 projection): {dw_ms:.2f} ms, "
-          f"FFMA bound {dw_bound:.2f} ms, {dw_flops / dw_ms / 1e9:.1f} TFLOP/s", flush=True)
+    print(f"  B1 backward dw {name} (27 per-tap matmuls, batch-6 projection): {dw_ms:.2f} ms, "
+          f"bound {dw_bound:.2f} ms, {dw_flops / dw_ms / 1e9:.1f} TFLOP/s", flush=True)
+    row["dw_ms"], row["dw_bound_ms"] = dw_ms, dw_bound
     del x, dy
     torch.cuda.empty_cache()
     return row
@@ -389,14 +434,15 @@ def seeded(module, seed: int):
     return module
 
 
-def path_phase(gen, rng):
-    """The requests of the main path through the CUDA corrector: three
-    512x512x128 volumes at 25% overlap, then one 512x512x400 volume at 25%
-    and one at 50% (the JAX package's headline volume). The B1/B3 counts
-    are zeroed just before and read just after."""
+def path_phase(gen, rng, dtype):
+    """The requests of the main path through the CUDA corrector in
+    ``dtype`` (the generator's compute dtype): three 512x512x128 volumes at
+    25% overlap, then one 512x512x400 volume at 25% and one at 50% (the JAX
+    package's headline volume). The B1/B3 counts are zeroed just before and
+    read just after."""
     correctors = {
         overlap: CCTAContrastCorrector(
-            gen, inference_patch_size=(128, 128, 128), overlap=overlap, batch_size=BATCH
+            gen, inference_patch_size=(128, 128, 128), overlap=overlap, batch_size=BATCH, dtype=dtype
         )
         for overlap in (0.25, 0.5)
     }
@@ -427,8 +473,8 @@ def path_phase(gen, rng):
                 "block_conv3x3x3_v2": block_conv3x3x3_v2.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for r in results:
-        print(f"path: {r}", flush=True)
-    print(f"path: launches {launches}; peak memory {peak_gib:.2f} GiB", flush=True)
+        print(f"path {DTYPE_NAME[dtype]}: {r}", flush=True)
+    print(f"path {DTYPE_NAME[dtype]}: launches {launches}; peak memory {peak_gib:.2f} GiB", flush=True)
     # two B1 launches (stem + projection) per generator forward: 8 per
     # 512x512x128 volume at 25% overlap, 74 per 512x512x400 at 50%
     expected = [2 * r["forwards"] for r in results]
@@ -436,7 +482,7 @@ def path_phase(gen, rng):
         raise AssertionError(f"expected B1/B3 launches {expected}, got {results}, {launches}")
     if expected[:3] != [8, 8, 8] or expected[-1] != 74:
         raise AssertionError(f"unexpected patch grid: {expected}")
-    return launches, results
+    return launches, results, peak_gib
 
 
 def parity_phase(gen, state, rng):
@@ -451,6 +497,28 @@ def parity_phase(gen, state, rng):
           f"(tol {PATH_TOL_HU})", flush=True)
     if not diff <= PATH_TOL_HU:
         raise AssertionError(f"CUDA and CPU corrections differ by {diff} HU")
+
+
+def parity_bf16_phase(gen16, state, rng):
+    """One 96x96x64 volume corrected three ways with the same weights: on
+    the card in bf16 (``gen16``), on the CPU in bf16 and on the CPU in f32.
+    The card's bf16 may sit at most twice as far from CPU f32 as the CPU's
+    own bf16 does, plus 0.5 HU."""
+    vol = rng.integers(-1024, 1500, (96, 96, 64)).astype(np.int16)
+    kw = dict(inference_patch_size=(64, 64, 64), overlap=0.25, batch_size=BATCH)
+    out = {"card_bf16": CCTAContrastCorrector(gen16, dtype=torch.bfloat16, **kw)(vol).cpu()}
+    for name, dtype in (("cpu_bf16", torch.bfloat16), ("cpu_f32", torch.float32)):
+        gen_cpu = ResnetGenerator(dtype=dtype)
+        gen_cpu.load_state_dict(state, strict=True)
+        out[name] = CCTAContrastCorrector(gen_cpu, device="cpu", dtype=dtype, **kw)(vol)
+    diff = {f"{a}-{b}": (out[a] - out[b]).abs().max().item()
+            for a, b in (("card_bf16", "cpu_f32"), ("cpu_bf16", "cpu_f32"), ("card_bf16", "cpu_bf16"))}
+    limit = 2 * diff["cpu_bf16-cpu_f32"] + PATH_TOL_HU
+    print(f"path parity bf16 (96x96x64, 64^3 patches): max |a - b| in HU {json.dumps(diff)}; "
+          f"card_bf16-cpu_f32 limit {limit:.4f}", flush=True)
+    if not diff["card_bf16-cpu_f32"] <= limit:
+        raise AssertionError(f"the card's bf16 correction is {diff['card_bf16-cpu_f32']} HU from CPU f32 "
+                             f"(limit {limit})")
 
 
 def profile(fn, label, top=15):
@@ -502,12 +570,12 @@ def train_patches(rng, patch, mix, dev):
     }
 
 
-def make_trainer(mode: str, seed: int, device="cuda", **trainer_kw):
+def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, **trainer_kw):
     spec = TRAIN_MODES[mode]
-    gen = seeded(ResnetGenerator(), seed)
-    critic = seeded(PatchGANDiscriminator(norm=spec["norm"]), seed + 1)
+    gen = seeded(ResnetGenerator(dtype=dtype), seed)
+    critic = seeded(PatchGANDiscriminator(norm=spec["norm"], dtype=dtype), seed + 1)
     tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
-    cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, **trainer_kw)
+    cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, dtype=dtype, **trainer_kw)
     return Trainer(gen, critic, tx, tx, cfg, train_critic_every=spec["critic_every"],
                    train_generator_every=spec["generator_every"], seed=seed, device=device)
 
@@ -523,10 +591,11 @@ def warm_seconds(fn, reps=TIMED_STEPS):
     return statistics.median(times)
 
 
-def train_phase(rng):
-    """The train path at full width (module docstring, phase 5). Counts are
-    zeroed just before and read just after; returns (launches, results,
-    the weight-clip trainer and its batch for the profile)."""
+def train_phase(rng, dtype):
+    """The train path at full width in ``dtype`` (module docstring, phase
+    6). Counts are zeroed just before and read just after; returns
+    (launches, results, the weight-clip trainer and its batch for the
+    profile)."""
     if count_parameters(PatchGANDiscriminator()) != 176_873:
         raise AssertionError("the default critic does not have 176,873 parameters")
     patches = train_patches(rng, TRAIN_PATCH, TRAIN_MIX, "cuda")
@@ -537,7 +606,7 @@ def train_phase(rng):
     s2d_conv3d_block.launches = 0
     results, trainers = {}, {}
     for mode, spec in TRAIN_MODES.items():
-        trainer = make_trainer(mode, seed=10)
+        trainer = make_trainer(mode, seed=10, dtype=dtype)
         gen, critic = trainer.state.generator, trainer.state.critic
         branches = schedule_branches(spec["critic_every"], spec["generator_every"], 0, spec["iterations"])
         for i, branch in enumerate(branches):
@@ -549,7 +618,7 @@ def train_phase(rng):
             seconds = time.perf_counter() - t0
             values = {k: v.item() for k, v in metrics.items()}
             got = (block_conv3x3x3.launches - launches, block_conv3x3x3.backward_launches - bwd)
-            print(f"train {mode} iteration {i} {branch}: {seconds:.3f} s, B1 launches {got[0]} "
+            print(f"train {DTYPE_NAME[dtype]} {mode} iteration {i} {branch}: {seconds:.3f} s, B1 launches {got[0]} "
                   f"(backward {got[1]}), {values}", flush=True)
             if not all(np.isfinite(v) for v in values.values()):
                 raise AssertionError(f"train {mode} iteration {i}: non-finite loss {values}")
@@ -572,13 +641,14 @@ def train_phase(rng):
         results[mode] = dict(critic_step_s=timed["critic_step"], combined_step_s=timed["combined_step"],
                              train_patches_per_sec=n_patches / timed["combined_step"])
         trainers[mode] = trainer
-        print(f"train {mode}: {json.dumps(results[mode])}", flush=True)
+        print(f"train {DTYPE_NAME[dtype]} {mode}: {json.dumps(results[mode])}", flush=True)
     bwd = block_conv3x3x3.backward_launches
     launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
                 "block_conv3x3x3_v2": block_conv3x3x3_v2.launches, "block_conv3x3x3_backward": bwd}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     results["peak_memory_gib"] = peak_gib
-    print(f"train: launches {launches} (B1 backward {bwd}); peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"train {DTYPE_NAME[dtype]}: launches {launches} (B1 backward {bwd}); peak memory {peak_gib:.2f} GiB",
+          flush=True)
     # per mode: the schedule's iterations plus the timed critic-only and
     # combined steps
     expected = sum(
@@ -733,6 +803,110 @@ def train_parity_phase(rng):
                         raise AssertionError(f"train parity {mode}: zero gradient for {name} on the card")
 
 
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def train_parity_bf16_phase(rng):
+    """One step from one state three ways (module docstring, phase 9): card
+    bf16, CPU bf16, CPU f32, per mode and branch, the card first. The
+    error of a bf16 run is its relative L2 distance from CPU f32 per
+    gradient tensor of the trained network. The card's may be at most
+    twice the CPU bf16 run's plus 1e-3, where the CPU's is taken as the
+    larger of its error on that tensor and its median error over the
+    network's tensors: one tensor's error is a single draw of the rounding
+    noise, and a gradient that is a sum of cancelling terms (the
+    projection's one bias sums the ZNCC gradient, whose sum is 0) draws
+    anywhere from 1e-4 to 1e-1 (CPU bf16, three seeds: 3.4e-4 .. 2.2e-2,
+    median over the generator's tensors 0.16-0.19). Each loss: its
+    distance from CPU f32 at most twice the CPU bf16 run's plus 1e-3
+    max(1, |loss|) (a loss near 0 has no relative error to speak of),
+    where the CPU's is taken as at least 2^-7 |loss|: a bf16 loss is
+    rounded to 8 significant bits, so the CPU's draw can land below one
+    ulp by luck (the WC critic's mean logit, about 0.2, read 8.2e-4 on the
+    CPU and 3.1e-3 on the card, one ulp there being 9.8e-4 .. 2.0e-3).
+    Every step is checked and printed before the first failure raises.
+    The f32 gate's alignment of relu kinks is not used: an activation
+    input within rounding of the kink lands on either side in bf16 on
+    either device, and those flips are part of the bf16 error both runs
+    measure. As in the f32 gate, in ``combined_step`` both CPU runs take
+    the card's updated critic before the generator's loss, each critic
+    update (the CPU's own included) must land within 2 lr of the card's
+    per weight, and the B1 stages' gradients must be non-zero on the card
+    after a generator update. In ``critic_step`` the last conv's bias
+    gradient is 1 - 1 and the penalty does not see it: it is held to 2^-6
+    in absolute terms and left out of the relative gate."""
+    patches = train_patches(rng, PARITY_PATCH, PARITY_MIX, "cpu")
+    runs_of = (("card_bf16", "cuda", torch.bfloat16), ("cpu_bf16", "cpu", torch.bfloat16),
+               ("cpu_f32", "cpu", torch.float32))
+    failed = []
+    for mode, spec in TRAIN_MODES.items():
+        for step in ("generator_only_step", "critic_step", "combined_step"):
+            runs, card_critic, updates = {}, None, {}
+            for run, dev, dtype in runs_of:
+                trainer = make_trainer(mode, seed=20, device=dev, dtype=dtype,
+                                       gp_eps=0.3 if mode == "gp" else None)
+                critic, hook = trainer.state.critic, None
+                if dev == "cpu" and step == "combined_step":
+                    def take_card_critic(optimizer, args, kwargs, critic=critic, run=run):
+                        updates[run] = {n: p.detach().clone() for n, p in critic.named_parameters()}
+                        critic.load_state_dict(card_critic, strict=True)
+
+                    hook = trainer.state.critic_opt.optimizer.register_step_post_hook(take_card_critic)
+                opt, subopt, mask, _ = trainer._assemble(patches)
+                state, metrics = getattr(trainer.steps, step)(trainer.state, opt, subopt, mask)
+                if hook is not None:
+                    hook.remove()
+                if dev == "cuda":
+                    card_critic = {k: v.detach().cpu() for k, v in critic.state_dict().items()}
+                net = critic if step == "critic_step" else state.generator
+                runs[run] = (
+                    {k: v.float().item() for k, v in metrics.items()},
+                    {n: p.grad.detach().float().cpu() for n, p in net.named_parameters() if p.grad is not None},
+                    {n: p.detach().cpu() for n, p in critic.named_parameters()},
+                )
+            (m_card, g_card, c_card), (m16, g16, c16), (m32, g32, c32) = (runs[r] for r, _, _ in runs_of)
+            if step == "combined_step":
+                if set(updates) != {"cpu_bf16", "cpu_f32"}:
+                    raise AssertionError("a CPU combined_step never took the card's critic")
+                clip = spec["weight_clip"]
+                c16, c32 = ({n: p if clip is None else p.clamp(-clip, clip) for n, p in updates[r].items()}
+                            for r in ("cpu_bf16", "cpu_f32"))
+            if step == "critic_step":
+                noise = max(g["last.conv.bias"].abs().item() for g in (g_card, g16))
+                if not noise <= 2.0**-6:
+                    raise AssertionError(f"train parity bf16 {mode}: last.conv.bias gradient {noise} is not ~0")
+                for g in (g_card, g16, g32):
+                    del g["last.conv.bias"]
+            errs = {n: (_rel_l2(g_card[n], ref), _rel_l2(g16[n], ref)) for n, ref in g32.items()}
+            median16 = statistics.median(e[1] for e in errs.values())
+            margin = {n: e[0] / (2 * max(e[1], median16) + BF16_PARITY_FLOOR) for n, e in errs.items()}
+            loss_errs = {k: (abs(m_card[k] - v), abs(m16[k] - v)) for k, v in m32.items()}
+            margin.update({f"loss {k}": e[0] / (2 * max(e[1], 2.0**-7 * abs(m32[k]))
+                                                + BF16_PARITY_FLOOR * max(1.0, abs(m32[k])))
+                           for k, e in loss_errs.items()})
+            top = sorted(margin, key=margin.get, reverse=True)[:3]
+            moved = max(max((c_card[n] - c[n]).abs().max().item() for n in c32) for c in (c16, c32))
+            print(f"train parity bf16 {mode} {step} (32^3, batch 2+1+1): relative L2 vs cpu_f32 over "
+                  f"{len(errs)} tensors, median card {statistics.median(e[0] for e in errs.values()):.2e} "
+                  f"cpu_bf16 {median16:.2e}; nearest their limit: "
+                  + ", ".join(f"{n} {margin[n]:.2f}" + (f" (card {errs[n][0]:.2e} cpu_bf16 {errs[n][1]:.2e})"
+                                                        if n in errs else "") for n in top)
+                  + f"; losses |card - f32| / |cpu_bf16 - f32| "
+                  f"{json.dumps({k: [float(f'{x:.3e}') for x in v] for k, v in loss_errs.items()})}; critic "
+                  f"update max|card - cpu| {moved:.2e}", flush=True)
+            if not margin[top[0]] <= 1.0:
+                failed.append(f"{mode} {step}: {top[0]} card error {margin[top[0]]:.2f} of its limit")
+            if not moved <= 2 * spec["lr"] * (1 + 1e-3):
+                failed.append(f"{mode} {step}: critic updates differ by {moved:.2e}")
+            if step != "critic_step":
+                failed += [f"{mode} {step}: zero gradient for {name} on the card"
+                           for name in ("first.conv.weight", "last_conv.conv.weight")
+                           if not g_card[name].abs().max().item() > 0]
+    if failed:
+        raise AssertionError("train parity bf16: " + "; ".join(failed))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -752,7 +926,7 @@ def main() -> int:
 
     g = torch.Generator().manual_seed(0)
     rows = kernel_phase(dev, g)
-    dx_row = backward_phase(dev, g)
+    dx_rows = [backward_phase(dev, g, dtype) for dtype in DTYPES]
     ragged_phase(dev, g)
     print(f"kernels: {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -760,32 +934,63 @@ def main() -> int:
     state = {k: v.clone() for k, v in gen.state_dict().items()}
     if count_parameters(gen) != 1_035_297:
         raise AssertionError(f"default generator has {count_parameters(gen)} parameters")
-    rng = np.random.default_rng(0)
-    serve_launches, results = path_phase(gen, rng)
+    # the bf16 phases draw from their own stream, so the f32 phases see the
+    # inputs they always saw
+    rng, rng16 = np.random.default_rng(0), np.random.default_rng(1)
+    serve = {torch.float32: path_phase(gen, rng, torch.float32)}
     parity_phase(gen, state, rng)
     corrector = CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH)
     vol = rng.integers(-1024, 1500, (512, 512, 128)).astype(np.int16)
-    profile(lambda: corrector(vol), "serving 512x512x128")
+    profile(lambda: corrector(vol), "serving 512x512x128 float32")
     del gen, corrector
+    torch.cuda.empty_cache()
+    gen16 = ResnetGenerator(dtype=torch.bfloat16)
+    gen16.load_state_dict(state, strict=True)
+    serve[torch.bfloat16] = path_phase(gen16, rng16, torch.bfloat16)
+    for r32, r16 in zip(serve[torch.float32][1], serve[torch.bfloat16][1]):
+        print(f"serving {r32['shape']} at {r32['overlap']:.0%}: float32 {r32['seconds']:.4f} s, "
+              f"bfloat16 {r16['seconds']:.4f} s per volume; B1 launches {r32['b1_launches']} / {r16['b1_launches']}",
+              flush=True)
+    parity_bf16_phase(gen16, state, rng16)
+    corrector = CCTAContrastCorrector(gen16, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH,
+                                      dtype=torch.bfloat16)
+    profile(lambda: corrector(vol), "serving 512x512x128 bfloat16")
+    del gen16, corrector, vol
     torch.cuda.empty_cache()
     print(f"serving: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    train_launches, train_results, wc, batch = train_phase(rng)
-    profile(lambda: wc.steps.combined_step(wc.state, *batch), "train wc combined_step", top=25)
-    del wc, batch
-    torch.cuda.empty_cache()
+    train = {}
+    for dtype, stream in ((torch.float32, rng), (torch.bfloat16, rng16)):
+        launches, results, wc, batch = train_phase(stream, dtype)
+        train[dtype] = launches, results
+        profile(lambda: wc.steps.combined_step(wc.state, *batch), f"train wc combined_step {DTYPE_NAME[dtype]}",
+                top=25)
+        del wc, batch
+        torch.cuda.empty_cache()
+    for mode in TRAIN_MODES:
+        print(f"train {mode}: " + "; ".join(
+            f"{DTYPE_NAME[dt]} critic_step {r[mode]['critic_step_s']:.4f} s, combined_step "
+            f"{r[mode]['combined_step_s']:.4f} s, {r[mode]['train_patches_per_sec']:.3f} patches/s"
+            for dt, (_, r) in train.items()), flush=True)
+    print("train peak memory: " + ", ".join(f"{DTYPE_NAME[dt]} {r['peak_memory_gib']:.2f} GiB"
+                                            for dt, (_, r) in train.items()), flush=True)
     train_parity_phase(rng)
+    train_parity_bf16_phase(rng16)
     print(f"train: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
-    for r in rows + [dx_row]:
-        if r["dtype"] == "float32":  # the paths' dtype
-            # the dx row counts B1's backward launches only
-            key = "block_conv3x3x3_backward" if r is dx_row else r["name"]
-            by_path = {"serving": serve_launches.get(key, 0), "train": train_launches[key]}
-            kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
-                                on_path=r["name"] != "block_conv3x3x3_v2"))
-    print(json.dumps({"requests": results, "train": train_results, "card": smi}))
+    dtype_of = {v: k for k, v in DTYPE_NAME.items()}
+    # the dx rows count B1's backward launches only
+    for r, key in [(r, r["name"]) for r in rows] + [(r, "block_conv3x3x3_backward") for r in dx_rows]:
+        dtype = dtype_of[r["dtype"]]
+        by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key]}
+        kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
+                            on_path=r["name"] != "block_conv3x3x3_v2"))
+    print(json.dumps({
+        "requests": {DTYPE_NAME[dt]: v[1] for dt, v in serve.items()},
+        "serving_peak_memory_gib": {DTYPE_NAME[dt]: v[2] for dt, v in serve.items()},
+        "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi,
+    }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,9 @@ class CCTAContrastCorrector:
     ``generator``: a port ``ResnetGenerator`` holding its weights (e.g.
     carried from JAX by ``utils/weights.py``); it is moved to ``device`` and
     put in eval mode. ``device`` defaults to CUDA and raises without it.
+    ``dtype``: the patches' dtype on the way into the generator, as the JAX
+    corrector's; bf16 serving passes ``torch.bfloat16`` here and builds the
+    generator with ``dtype=torch.bfloat16``. The blend stays f32.
     """
 
     def __init__(
@@ -33,6 +36,7 @@ class CCTAContrastCorrector:
         scaler: Scaler = FactorZeroCenterScaler(),
         layout: str = "direct",
         device="cuda",
+        dtype: torch.dtype = torch.float32,
     ):
         self.device = resolve_device(device)
         if len(inference_patch_size) != 3:
@@ -53,6 +57,7 @@ class CCTAContrastCorrector:
             batch_size=batch_size,
             scaler=scaler,
             device=self.device,
+            dtype=dtype,
         )
 
     @torch.inference_mode()

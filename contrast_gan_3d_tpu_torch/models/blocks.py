@@ -6,6 +6,12 @@ with a bias only when unnormalized; ``ResNetBlock`` = two ConvBlocks +
 optional dropout + skip. Weights use torch's layouts: conv ``(O, I, kx, ky,
 kz)``, transpose conv ``(I, O, kx, ky, kz)`` (``utils/weights.py`` maps the
 JAX kernels onto them).
+
+``dtype`` is the compute dtype, as the JAX modules' ``dtype``: parameters
+stay f32; each conv casts its input, weight and bias to ``dtype``, its
+output, the bias add, the BatchNorm multiply-add and the activation stay
+in it (bf16 in, bf16 out). No ``torch.autocast``: its op lists would put
+the rounding points elsewhere.
 """
 
 from typing import Optional
@@ -27,24 +33,29 @@ class S2DConv(nn.Conv3d):
     ``use_s2d``), made here once. ``s2d_conv3d_block`` keeps its own check
     only as the JAX wrapper's dispatch for direct callers."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, padding_mode="zeros", f=4, bias=True):
+    def __init__(self, in_channels, out_channels, kernel_size, padding_mode="zeros", f=4, bias=True,
+                 dtype=torch.float32):
         super().__init__(
             in_channels, out_channels, kernel_size,
             padding=(kernel_size - 1) // 2, padding_mode=padding_mode, bias=bias,
         )
         self.f = f
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if any(d % self.f for d in x.shape[2:]):
-            return super().forward(x)
+            return _add_bias(self._conv_forward(x, w, None), b)
         y = s2d_conv3d_block(
-            x.permute(0, 2, 3, 4, 1),
-            self.weight.permute(2, 3, 4, 1, 0),
-            self.bias,
-            f=self.f,
-            padding_mode=self.padding_mode,
+            x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), b, f=self.f, padding_mode=self.padding_mode
         )
         return y.permute(0, 4, 1, 2, 3)
+
+
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The conv's bias added after the conv, in y's dtype (flax adds it so)."""
+    return y if bias is None else y + bias.view(-1, 1, 1, 1)
 
 
 def _same_tconv_offset(k: int, s: int) -> int:
@@ -73,6 +84,7 @@ class ConvBlock(nn.Module):
         dropout_prob: float = 0.0,
         s2d: Optional[int] = None,
         tconv_placement: str = "same",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if padding_mode not in ("reflect", "zeros"):
@@ -83,6 +95,7 @@ class ConvBlock(nn.Module):
             raise ValueError(f"Unknown activation {activation!r}")
         use_bias = norm is None
         self.transpose = transpose
+        self.dtype = dtype
         self.activation = activation
         self.negative_slope = negative_slope
         if transpose:
@@ -99,25 +112,33 @@ class ConvBlock(nn.Module):
         elif s2d is not None and stride == 1 and padding == (kernel_size - 1) // 2:
             self.conv = S2DConv(
                 in_channels, features, kernel_size, padding_mode=padding_mode,
-                f=s2d, bias=use_bias,
+                f=s2d, bias=use_bias, dtype=dtype,
             )
         else:
             self.conv = nn.Conv3d(
                 in_channels, features, kernel_size, stride=stride, padding=padding,
                 padding_mode=padding_mode, bias=use_bias,
             )
-        self.norm = BatchNorm(features) if norm == "batch" else None
+        self.norm = BatchNorm(features, dtype=dtype) if norm == "batch" else None
         self.dropout = nn.Dropout(dropout_prob) if dropout_prob > 0 else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.conv, S2DConv):
+            return self.conv(x)
+        x, w = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
             # full transpose conv, then the size-preserving window
             n = x.shape[2:]
             s = self.conv.stride[0]
             lo = self.tconv_offset
-            x = self.conv(x)[:, :, lo : lo + s * n[0], lo : lo + s * n[1], lo : lo + s * n[2]]
+            y = torch.conv_transpose3d(x, w, stride=s)
+            y = y[:, :, lo : lo + s * n[0], lo : lo + s * n[1], lo : lo + s * n[2]]
         else:
-            x = self.conv(x)
+            y = self.conv._conv_forward(x, w, None)
+        return _add_bias(y, None if self.conv.bias is None else self.conv.bias.to(self.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._conv(x)
         if self.norm is not None:
             x = self.norm(x)
         if self.dropout is not None:
@@ -142,15 +163,16 @@ class ResNetBlock(nn.Module):
         dropout_prob: float = 0.0,
         padding_mode: str = "zeros",
         norm: Optional[str] = "batch",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.block0 = ConvBlock(
             features, features, kernel_size, padding=1, padding_mode=padding_mode,
-            norm=norm, activation=None, dropout_prob=dropout_prob,
+            norm=norm, activation=None, dropout_prob=dropout_prob, dtype=dtype,
         )
         self.block1 = ConvBlock(
             features, features, kernel_size, padding=1, padding_mode=padding_mode,
-            norm=norm, activation="relu",
+            norm=norm, activation="relu", dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

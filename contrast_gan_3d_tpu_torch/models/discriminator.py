@@ -8,7 +8,8 @@ channels with ``norm`` ("batch" or None, the gradient-penalty preset's
 choice), then a k=4, s=1, p=1 conv to a 1-channel logit map: patch-wise
 realism scores with no global pooling. Module names ``first``,
 ``middle_{n}`` and ``last`` follow the flax ones. The default config has
-176,873 parameters.
+176,873 parameters. ``dtype`` is every block's compute dtype
+(``models/blocks.py``); the logits come out in it.
 """
 
 from typing import Optional
@@ -28,20 +29,21 @@ class PatchGANDiscriminator(nn.Module):
         kernel_size: int = 4,
         negative_slope: float = 0.2,
         norm: Optional[str] = "batch",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if ndim != 3:
             raise NotImplementedError(f"ndim={ndim} (the 2D family) is {ROADMAP_NOTE}")
         self.discriminator_depth = discriminator_depth
         c0 = init_channels_out
-        block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope)
+        block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope, dtype=dtype)
         self.first = ConvBlock(1, c0, kernel_size, stride=2, norm=None, **block)
         c_in = c0
         for n in range(discriminator_depth):
             c_out = min(2 ** (n + 1), 8) * c0
             self.add_module(f"middle_{n}", ConvBlock(c_in, c_out, kernel_size, stride=2, norm=norm, **block))
             c_in = c_out
-        self.last = ConvBlock(c_in, 1, kernel_size, stride=1, padding=1, norm=None, activation=None)
+        self.last = ConvBlock(c_in, 1, kernel_size, stride=1, padding=1, norm=None, activation=None, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.first(x)

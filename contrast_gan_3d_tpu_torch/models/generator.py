@@ -10,6 +10,10 @@ bounded attenuation map in (-1, 1) that the caller subtracts.
 With ``s2d_factor=4`` (the default) the stem and projection run through
 space-to-depth and the block-conv kernel (B3 -> B1). The default config has
 1,035,297 parameters.
+
+``dtype`` is the compute dtype of every block (``models/blocks.py``): the
+first block casts the input to it and the attenuation comes out in it;
+parameters and BatchNorm statistics stay f32.
 """
 
 from typing import Optional
@@ -33,6 +37,7 @@ class ResnetGenerator(nn.Module):
         s2d_factor: Optional[int] = 4,
         tconv_placement: str = "same",
         layout: str = "direct",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if n_resnet_blocks <= 0:
@@ -49,27 +54,27 @@ class ResnetGenerator(nn.Module):
 
         self.first = ConvBlock(
             1, c0, 7, padding=3, padding_mode="reflect", norm=norm,
-            activation="relu", s2d=s2d_factor,
+            activation="relu", s2d=s2d_factor, dtype=dtype,
         )
         for i in range(n_updownsample_blocks):
             self.add_module(f"down_{i}", ConvBlock(
                 c0 * 2**i, c0 * 2 ** (i + 1), 3, stride=2, padding=1, norm=norm,
-                activation="relu",
+                activation="relu", dtype=dtype,
             ))
         bottleneck = c0 * 2**n_updownsample_blocks
         for i in range(n_resnet_blocks):
             self.add_module(f"resnet_{i}", ResNetBlock(
                 bottleneck, dropout_prob=resnet_dropout_prob,
-                padding_mode=resnet_padding_mode, norm=norm,
+                padding_mode=resnet_padding_mode, norm=norm, dtype=dtype,
             ))
         for i in range(n_updownsample_blocks, 0, -1):
             self.add_module(f"up_{i - 1}", ConvBlock(
                 c0 * 2**i, c0 * 2 ** (i - 1), 3, stride=2, transpose=True,
-                norm=norm, activation="relu", tconv_placement=tconv_placement,
+                norm=norm, activation="relu", tconv_placement=tconv_placement, dtype=dtype,
             ))
         self.last_conv = ConvBlock(
             c0, 1, 7, padding=3, padding_mode="reflect", norm=None,
-            activation="tanh", s2d=s2d_factor,
+            activation="tanh", s2d=s2d_factor, dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

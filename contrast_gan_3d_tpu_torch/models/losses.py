@@ -9,6 +9,12 @@
   differentiated with respect to its input with ``create_graph=True`` so the
   caller's backward reaches the critic's parameters.
 - ``scale_bounds``: the intensity scaler applied to the HU corridor.
+
+On bf16 inputs the losses round as the JAX functions do: a mean or sum
+accumulates in f32 and returns the input's dtype (``jnp.mean``), the std
+is computed in f32 and returned in the input's dtype (``jnp.std``), and
+elementwise work stays in the input's dtype; the HU loss's f32 mask makes
+it f32.
 """
 
 from typing import Callable, Optional, Tuple
@@ -17,10 +23,15 @@ import numpy as np
 import torch
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean``: accumulated in f32, returned in x's dtype."""
+    return x.mean(dtype=torch.float32).to(x.dtype)
+
+
 def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None) -> torch.Tensor:
-    ret = fake.mean()
+    ret = _mean(fake)
     if real is not None:
-        ret = ret - real.mean()
+        ret = ret - _mean(real)
     return ret
 
 
@@ -30,7 +41,7 @@ class StableStd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        std = torch.std(x, correction=1)
+        std = torch.std(x.float(), correction=1).to(x.dtype)
         ctx.save_for_backward(x, std)
         return std
 
@@ -38,12 +49,12 @@ class StableStd(torch.autograd.Function):
     def backward(ctx, g):
         x, std = ctx.saved_tensors
         n = x.numel()
-        return (2.0 / (n - 1.0)) * (g / (std * 2 + 1e-6)) * (x - x.mean())
+        return (2.0 / (n - 1.0)) * (g / (std * 2 + 1e-6)) * (x - _mean(x))
 
 
 def zncc_loss(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """-ZNCC(source, target) over the whole batch."""
-    cc = ((source - source.mean()) * (target - target.mean())).mean()
+    cc = _mean((source - _mean(source)) * (target - _mean(target)))
     std = StableStd.apply(source) * StableStd.apply(target)
     return -(cc / (std + 1e-8))
 
@@ -71,7 +82,8 @@ def gradient_penalty(
     ``real`` and ``fake`` must carry no graph (the penalty differentiates
     only the critic). When batch sizes differ, both are resampled to the
     smaller one with ``generator``; ``eps`` (broadcastable to ``(n, 1, ...)``)
-    fixes the interpolation, else it is drawn uniform per sample."""
+    fixes the interpolation, else it is drawn uniform per sample in
+    ``real``'s dtype, in which the interpolation runs."""
     n = min(real.shape[0], fake.shape[0])
     dev = real.device
     if real.shape[0] != fake.shape[0]:
@@ -81,8 +93,9 @@ def gradient_penalty(
         eps = torch.rand((n,) + (1,) * (real.dim() - 1), generator=generator, device=dev, dtype=real.dtype)
     interp = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(critic_fn(interp).sum(), interp, create_graph=True)
-    grad_norms = torch.sqrt(grads.reshape(n, -1).square().sum(-1) + 1e-12)
-    return lambda_ * (grad_norms - 1.0).square().mean()
+    sq = grads.reshape(n, -1).square().sum(-1, dtype=torch.float32).to(grads.dtype)
+    grad_norms = torch.sqrt(sq + 1e-12)
+    return lambda_ * _mean((grad_norms - 1.0).square())
 
 
 def scale_bounds(scaler, bounds: Tuple[float, float]) -> Tuple[float, float]:

@@ -8,7 +8,9 @@
   parity. ``momentum`` follows torch's convention: 0.1 here is flax's 0.9.
 - Normalization folds into one multiply-add, ``y = x * mult + add``, with
   ``mult = scale / sqrt(var + eps)`` and ``add = bias - mean * mult``, as in
-  the JAX module.
+  the JAX module. The statistics accumulate in f32 whatever x's dtype; the
+  multiply-add runs in ``dtype`` (None: x's dtype), e.g. bf16, with
+  ``mult`` and ``add`` cast to it.
 
 - ``update_stats=False`` (or the ``frozen_batch_stats`` context) keeps train
   mode's batch statistics and gradients but leaves the running statistics
@@ -21,16 +23,24 @@ Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
 """
 
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 from torch import nn
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(
+        self,
+        num_features: int,
+        momentum: float = 0.1,
+        eps: float = 1e-5,
+        dtype: Optional[torch.dtype] = None,
+    ):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -55,7 +65,8 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mult = self.weight / torch.sqrt(var + self.eps)
         add = self.bias - mean * mult
-        return x * mult.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+        dtype = self.dtype or x.dtype
+        return x.to(dtype) * mult.to(dtype).view(shape) + add.to(dtype).view(shape)
 
 
 @contextmanager

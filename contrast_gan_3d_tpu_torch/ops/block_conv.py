@@ -25,13 +25,14 @@ are split into TF32 big and small parts (``tf32_split``), the kernel's
 3xTF32 products. Channels are zero-padded to 16 bytes (``pad_channels``)
 where Ci is not a multiple of 4 (f32) or 8 (bf16).
 
-B1 and B2 are differentiable through ``BlockConv3x3x3Function`` (f32): the
+B1 and B2 are differentiable through ``BlockConv3x3x3Function``: the
 input gradient is a FULL 3^3 conv of dy with the flipped, transposed
 weight, i.e. the same kernel on dy padded by 2, whose K-major weight is
 the flipped weight as it lies (``dx_weight``); the weight gradient is 27
 per-tap products in ``torch.matmul`` (the JAX package differentiates its
-XLA conv there, never a Pallas kernel). On the CPU the forward and
-backward run the plain versions.
+XLA conv there, never a Pallas kernel). In bf16 both take dy rounded to
+bf16 and return bf16, as the VJP of XLA's bf16 conv does. On the CPU the
+forward and backward run the plain versions.
 
 Each wrapper counts, in its ``launches`` attribute, the times it launched
 the CUDA kernel (forward and backward); ``backward_launches`` counts the
@@ -198,7 +199,9 @@ class BlockConv3x3x3Function(torch.autograd.Function):
       form is ``dx_weight(w)``. One counted launch on the card.
     - dw: ``dw[qx, qy, qz] = x_tap^T @ dy`` for each of the 27 taps, with
       x_tap the (M, Ci) slice of x at that tap's offset.
-    - f32 only: a bf16 backward is not ported (ROADMAP).
+    - bf16 x and w: dy (the f32 output's gradient) is rounded to bf16 first,
+      dx is the bf16 launch and dw the products of bf16 operands (f32
+      accumulation), each returned in its input's dtype.
     """
 
     @staticmethod
@@ -212,24 +215,23 @@ class BlockConv3x3x3Function(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         layout = ctx.layout
-        if x.dtype != torch.float32 or w.dtype != torch.float32:
-            raise NotImplementedError(f"the bf16 backward of the block conv is {ROADMAP_NOTE}")
-        dy = dy.contiguous()
+        dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
-            dx = _run(dy_pad, dx_weight(w), layout)
+            dx = _run(dy_pad, dx_weight(w), layout).to(x.dtype)
             if dx.is_cuda:
                 _WRAPPERS[layout].backward_launches += 1
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, dy, layout)
+            dw = weight_grad(x, dy, layout).to(w.dtype)
         return dx, dw, None
 
 
 def weight_grad(x: torch.Tensor, dy: torch.Tensor, layout: str = "zxy") -> torch.Tensor:
     """The block conv's weight gradient, f32 (3, 3, 3, Ci, Co):
     ``dw[qx, qy, qz] = x_tap^T @ dy`` over the 27 taps, in ``torch.matmul``
-    (a hand-written wgrad kernel is ROADMAP work)."""
+    on x's and dy's dtype (bf16 operands give bf16 products, summed in f32
+    by the matmul; a hand-written wgrad kernel is ROADMAP work)."""
     zo, d2o, d3o = dy.shape[1:4]
     dy_m = dy.reshape(-1, dy.shape[-1])
     dw = torch.empty((3, 3, 3, x.shape[-1], dy.shape[-1]), dtype=torch.float32, device=x.device)

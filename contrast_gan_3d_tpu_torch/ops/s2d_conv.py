@@ -110,7 +110,9 @@ def s2d_conv3d(
 
     x: (B, X, Y, Z, Ci) with X/s, Y/s, Z/s divisible by ``f``; w:
     (k,k,k,Ci,Co); pre-pad (k-1)//2 per side. ``padding_mode``: 'zeros' |
-    'reflect'."""
+    'reflect'. The conv runs on x's dtype and its output and the bias add
+    stay in it (bf16 in, bf16 out), as the JAX version's
+    ``preferred_element_type=x.dtype``."""
     kx, ky, kz = w.shape[:3]
     b, X, Y, Z, ci = x.shape
     s = stride
@@ -142,5 +144,5 @@ def s2d_conv3d(
     out = out[:, : out_dims[0] // f, : out_dims[1] // f, : out_dims[2] // f]
     out = depth_to_space(out, f)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     return out

@@ -144,12 +144,15 @@ def make_volume_corrector(
     scaler: Scaler = FactorZeroCenterScaler(),
     sigma_scale: float = 0.125,
     device="cuda",
+    dtype: torch.dtype = torch.float32,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``correct(volume) -> corrected_volume`` on ``device``.
 
-    ``generator_apply``: (B, 1, *patch) scaled f32 -> (B, 1, *patch)
-    attenuation in (-1, 1), on ``device``. ``volume``: a (W, H, D) HU array
-    or tensor (int16/float); the result is an f32 HU tensor on ``device``.
+    ``generator_apply``: (B, 1, *patch) scaled patches in ``dtype`` ->
+    (B, 1, *patch) attenuation in (-1, 1), on ``device``; the attenuation is
+    cast to f32 before the blend. ``volume``: a (W, H, D) HU array or tensor
+    (int16/float), scaled in f32; the result is an f32 HU tensor on
+    ``device``.
     """
     device = resolve_device(device)
     patch_size, stride = plan_stride(patch_size, overlap, packed_io=False)
@@ -160,7 +163,7 @@ def make_volume_corrector(
             vol[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]]
             for x, y, z in starts
         ])
-        atten = generator_apply(patches[:, None])[:, 0]
+        atten = generator_apply(patches[:, None].to(dtype))[:, 0]
         if tuple(atten.shape[1:]) != patch_size:
             # the JAX version resizes a ceil-rounded generator output back
             raise NotImplementedError(

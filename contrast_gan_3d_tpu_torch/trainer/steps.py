@@ -3,7 +3,9 @@
 
 One iteration, as in the JAX package:
 - batches arrive as raw int16 ``(B, X, Y, Z)`` patches; the step casts them
-  to f32, applies the scaler and adds the channel dim at dim 1 (NCDHW);
+  to f32, applies the scaler, casts to ``StepConfig.dtype`` (the networks'
+  compute dtype; the mask stays f32) and adds the channel dim at dim 1
+  (NCDHW);
 - the generator runs ONE forward per iteration, in train mode (its
   BatchNorm running statistics update once), and its graph is kept across
   the critic update (the JAX step's ``jax.vjp``);
@@ -17,8 +19,11 @@ One iteration, as in the JAX package:
   (``torch.autograd.grad``), so no gradient reaches the critic's ``.grad``.
 
 The steps update the state in place and return ``(state, metrics)``, with
-metrics as detached 0-d tensors. This slice trains in f32 without
-augmentation: a ``StepConfig.augment`` other than None raises.
+metrics as detached 0-d tensors. ``StepConfig.dtype`` bf16 with networks
+built with ``dtype=torch.bfloat16`` is the JAX package's default training
+(parameters, optimizer state and BatchNorm statistics stay f32). There is
+no augmentation in the step: a ``StepConfig.augment`` other than None
+raises.
 """
 
 from contextlib import contextmanager
@@ -51,6 +56,9 @@ class StepConfig:
     # fixed GP interpolation eps for every sample (deterministic penalty for
     # parity tests); None draws it per sample from the state's generator
     gp_eps: Optional[float] = None
+    # the scaled batches' dtype: the networks' compute dtype (bf16 is the
+    # JAX package's training default; its StepConfig default is f32)
+    dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.augment is not None:
@@ -105,15 +113,17 @@ def init_state(
     )
 
 
-def _scaled(cfg: StepConfig, batch, device) -> torch.Tensor:
-    """int16 (B, X, Y, Z) -> scaled f32 (B, 1, X, Y, Z) on ``device``."""
-    return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).unsqueeze(1)
+def _scaled(cfg: StepConfig, batch, device, dtype=torch.float32) -> torch.Tensor:
+    """int16 (B, X, Y, Z) -> scaled (B, 1, X, Y, Z) on ``device``: the scaler
+    in f32, then ``dtype``."""
+    return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).to(dtype).unsqueeze(1)
 
 
 def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device):
-    """int16 -> f32, the scaler, the channel dim (the mask is not scaled)."""
+    """int16 -> f32, the scaler, ``cfg.dtype``, the channel dim (the mask is
+    neither scaled nor cast: it stays f32)."""
     mask = torch.as_tensor(subopt_mask).to(device, torch.float32).unsqueeze(1)
-    return _scaled(cfg, opt, device), _scaled(cfg, subopt, device), mask
+    return _scaled(cfg, opt, device, cfg.dtype), _scaled(cfg, subopt, device, cfg.dtype), mask
 
 
 class TrainSteps(NamedTuple):
@@ -251,7 +261,9 @@ def build_val_steps(cfg: StepConfig):
     """Eval-mode steps ``(state, batch, w)``, w a (B,) 0/1 validity vector:
     ``val_opt_step`` scores the critic on real (OPT) data;
     ``val_subopt_step`` runs the generator on sub-optimal data and returns
-    (realism, ZNCC similarity, corrected batch, attenuation), NCDHW."""
+    (realism, ZNCC similarity, corrected batch, attenuation), NCDHW. As in
+    the JAX val steps the scaled batch stays f32 whatever ``cfg.dtype``:
+    the networks' first blocks cast it, and the corrected batch is f32."""
 
     def val_opt_step(state: GANTrainState, batch, w):
         x = _scaled(cfg, batch, state.device)

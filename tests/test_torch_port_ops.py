@@ -187,12 +187,27 @@ def test_block_conv_backward_matches_autograd_of_plain(rng, wrapper, plain, x_gr
     assert (x.grad is None) == (not x_grad)
 
 
-def test_block_conv_bf16_backward_points_to_roadmap(rng):
-    x = _t(rng.normal(size=(1, 4, 4, 4, 2))).bfloat16().requires_grad_(True)
-    w = _t(rng.normal(size=(3, 3, 3, 2, 2))).bfloat16().requires_grad_(True)
-    out = BlockConv3x3x3Function.apply(x, w, "zxy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+@pytest.mark.parametrize("layout", ["zxy", "zyx"])
+def test_block_conv_bf16_backward_matches_plain_autograd(rng, layout):
+    """The bf16 backward of ``BlockConv3x3x3Function`` on the CPU: dx and dw
+    come back in bf16 and match autograd through the plain version in f32
+    on the same bf16 values with dy rounded to bf16 (the backward's first
+    rounding). Each result is then rounded once to bf16: tolerance 2^-8 of
+    max|grad|, the most half a bf16 ulp can be."""
+    x = _t(rng.normal(size=(2, 5, 6, 7, 3))).bfloat16().requires_grad_(True)
+    w = _t(rng.normal(size=(3, 3, 3, 3, 4))).bfloat16().requires_grad_(True)
+    dy = _t(rng.normal(size=(2, 3, 4, 5, 4)))
+    out = BlockConv3x3x3Function.apply(x, w, layout)
+    assert out.dtype == torch.float32
+    out.backward(dy)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    xr, wr = x.detach().float().requires_grad_(True), w.detach().float().requires_grad_(True)
+    (block_conv3x3x3_reference if layout == "zxy" else block_conv3x3x3_v2_reference)(xr, wr).backward(
+        dy.bfloat16().float()
+    )
+    for got, want in ((x.grad, xr.grad), (w.grad, wr.grad)):
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2.0**-8 * scale)
 
 
 def test_s2d_block_is_differentiable_through_b1(rng):

@@ -104,8 +104,14 @@ def test_channel_padding_keeps_the_plain_result(rng, dtype, multiple):
     w = _t(rng.normal(size=(3, 3, 3, 3, 5))).to(dtype)
     xp, wp = pad_channels(x, kmajor(w))
     assert xp.shape[-1] == wp.shape[-1] == multiple and wp.shape[1] == 5
-    torch.testing.assert_close(_reference(xp, from_kmajor(wp.contiguous()), "zxy"),
-                               block_conv3x3x3_reference(x, w), rtol=0, atol=0)
+    # the padded channels are exactly zero and the rest is x and w as given
+    assert not xp[..., 3:].any() and not wp[..., 3:].any()
+    assert torch.equal(xp[..., :3], x) and torch.equal(wp[..., :3], kmajor(w))
+    # the two f32 einsums (over Ci = 3 and over the padded Ci) sum in another
+    # order, so they agree to rounding, not bit for bit
+    plain = block_conv3x3x3_reference(x, w)
+    padded = _reference(xp, from_kmajor(wp.contiguous()), "zxy")
+    np.testing.assert_allclose(padded.numpy(), plain.numpy(), rtol=0, atol=1e-6 * plain.abs().max().item())
     x8 = torch.zeros((1, 3, 3, 3, 8), dtype=dtype)
     assert pad_channels(x8, kmajor(torch.zeros((3, 3, 3, 8, 2), dtype=dtype)))[0] is x8
 
