@@ -16,7 +16,9 @@ failure raises and exits non-zero):
    library call (a yardstick the port never calls) beside the least time
    the card could take for the kernel's route (the bound: f32 is 3xTF32,
    three TF32 tensor-core products per multiply-add, bf16 one) and the
-   FFMA bound of the same work (``bound_ffma_ms``); one ragged case per
+   FFMA bound of the same work (``bound_ffma_ms``); B1 and B3 also at the
+   fit path's bf16 validation forward (2 x 256x256x128, B1 on 66x66x34
+   blocks, the stages' rows marked "(validation)"); one ragged case per
    route (x (2, 5, 7, 9, 3) -> Co 5: channel padding, row and column
    masks) for B1 and B2 in f32 and bf16 and B1's dx in both; then B1's
    backward at the train path's batch-6 projection shape, f32 and bf16:
@@ -76,6 +78,36 @@ failure raises and exits non-zero):
    from CPU f32 at most twice the CPU bf16 run's (at least 2^-7 |loss|,
    about one bf16 ulp of it) plus 1e-3 max(1, |loss|).
 
+10. augmentation parity: one draw set made on the CPU goes through
+    ``coords_from_draws`` and the samplers on the card and on the CPU at
+    2 x 128^3 (every transform on): the elastic field within 1e-6, the
+    coordinates within 1e-4 voxel; on the same coordinates the trilinear
+    scan within 1e-5 of max|x| and the mask equal; each device on its own
+    coordinates, the mask equal wherever no coordinate lies within 1e-4
+    of a half-integer, and the trilinear sample of a smooth CT-like
+    volume (``smooth_ct``) within 1e-5 of max|x|; then the CUDA-event
+    time of the device augmentation of a 6 + 6 batch at 128^3;
+11. the training run users start, bf16 at full width: nine synthetic
+    288x288x160 int16 patients (3 per label) written with the port's
+    ``write_patient``, a splits pickle and an override file, then the
+    port's CLI ``main`` in-process on ``basic_3d`` with device
+    augmentation for 15 iterations (logs every 5, validation at 10 with
+    one iteration, a checkpoint every 10, console logger). Checks: finite
+    logged losses, the critic within the clip, the periodic checkpoint
+    with its meta and data sidecars (named for the completed step count,
+    11), B1 launches per iteration as the schedule predicts; a fresh
+    trainer restores the model, optimizers, generator state and step
+    equal to the first run's end, and fresh loaders the saved data-stream
+    states; a second ``main`` to 20 iterations resumes at 15, and its
+    trainer goes on for 10 iterations under the profiler. Prints the
+    logged patches/s beside the bare-step figure of phase 6, the
+    ``TimeBudget`` shares, the peak memory and the profile;
+12. the host backend (the JAX package's default): the same run for 11
+    iterations with ``augment_backend="host"``, its ``data_wait`` share
+    and patches/s printed. The warm patches/s of both backends is the one
+    logged at iteration 5, which the lagged fetch measures over iterations
+    6-10.
+
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -83,19 +115,32 @@ The last two lines are a ``{"kernels": [...]}`` JSON object and
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import json
+import logging
+import math
+import pickle
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from contrast_gan_3d_tpu_torch import train as train_cli
+from contrast_gan_3d_tpu_torch.data import augment as aug
+from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
+from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.experiments.builder import build
+from contrast_gan_3d_tpu_torch.experiments.config import load_config
 from contrast_gan_3d_tpu_torch.models import blocks
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
@@ -110,10 +155,13 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import (
     weight_grad,
 )
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import s2d_conv3d
+from contrast_gan_3d_tpu_torch.ops.resample import nearest_sample, trilinear_sample
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
+from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
+from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
-from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer
+from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, TrainerConfig
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
 # cores, TF32 and bf16 on them, and HBM3 bandwidth
@@ -135,6 +183,10 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 # bf16 too); B1's bf16 dw is cuBLAS's bf16 GEMM, whose split-K partial sums
 # may be rounded to bf16 as well
 B3_BF16_REL_TOL = 2.0**-8
+# with a bias, B3's bf16 output is rounded twice: the block conv's result,
+# then the bias added in bf16; the validation rows are held to that bound
+# (the batch-8 rows keep the one-rounding gate they were given)
+B3_BF16_BIAS_REL_TOL = 2 * B3_BF16_REL_TOL
 BF16_DW_REL_TOL = 2.0**-7
 DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -221,77 +273,107 @@ def compare(got, ref, tol, what):
     return err, rel
 
 
+# (wrapper, plain, conv weight over x's spatial order (Z, ., .)); B2 runs
+# the same contraction as B1 with X and Y swapped in memory
+BLOCK_CONVS = {
+    "block_conv3x3x3": (block_conv3x3x3, block_conv3x3x3_reference, lambda w: w.permute(4, 3, 2, 0, 1)),
+    "block_conv3x3x3_v2": (block_conv3x3x3_v2, block_conv3x3x3_v2_reference, lambda w: w.permute(4, 3, 2, 1, 0)),
+}
+# the fit path's validation forward (basic_3d: 256x256x128 patches, 2 per
+# sub-optimal label, bf16) gives B3 that volume and B1 its 66x66x34 blocks
+VAL_BATCH, VAL_VOLUME = 2, (256, 256, 128)
+
+
+def b1_row(dev, g, dtype, name, stage, ci, co, batch, blocks):
+    """B1 (or B2) on x (batch, *blocks, ci) -> co against its plain version,
+    with its times and bound; the library yardstick is ``F.conv3d`` on the
+    same memory."""
+    wrapper, plain, conv_w = BLOCK_CONVS[name]
+    x = torch.randn((batch, *blocks, ci), generator=g).to(dev, dtype)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev, dtype)
+    got = wrapper(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    what = f"{name} {stage} {dtype}"
+    err, rel = compare(got, ref, REL_TOL[dtype], what)
+    # the library yardstick reads the same memory as NCDHW (channels-last
+    # strides): conv over x's spatial order
+    xc, wc = x.permute(0, 4, 1, 2, 3), conv_w(w)
+    if dtype == torch.float32:
+        compare(F.conv3d(xc, wc).permute(0, 2, 3, 4, 1), ref, REL_TOL[dtype], f"{what} (library conv vs plain)")
+    flops = 2 * batch * math.prod(b - 2 for b in blocks) * 27 * ci * co
+    ms = median_ms(lambda: wrapper(x, w))
+    row = dict(
+        name=name, stage=stage, dtype=DTYPE_NAME[dtype], x_shape=list(x.shape),
+        route="cuda", tensor_cores=TENSOR_CORES[dtype], source=SOURCE, replaces=REPLACES[name],
+        max_abs_err=err, max_rel_err=rel, ms=ms,
+        plain_ms=median_ms(lambda: plain(x, w)),
+        **bound(flops, nbytes(x, w, got), dtype),
+        library_ms=median_ms(lambda: F.conv3d(xc, wc)),
+        tflops=flops / ms / 1e9,
+    )
+    print("  " + json.dumps(row), flush=True)
+    del x, w, got, ref, xc, wc
+    torch.cuda.empty_cache()
+    return row
+
+
+def b3_row(dev, g, dtype, stage, ci, co, has_bias, batch, volume, bf16_tol=B3_BF16_REL_TOL):
+    """B3 on x (batch, *volume, ci), a 7^3 reflect-padded conv -> co,
+    against the plain ``s2d_conv3d`` in f32 on the same values (bf16 to
+    ``bf16_tol``), with its times and bound; the library yardstick is
+    ``F.conv3d`` on the padded volume."""
+    x = torch.randn((batch, *volume, ci), generator=g).to(dev, dtype)
+    w = (torch.randn((7, 7, 7, ci, co), generator=g) / (343 * ci) ** 0.5).to(dev, dtype)
+    b = torch.randn((co,), generator=g).to(dev, dtype) if has_bias else None
+    got = s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")
+    # the plain version in f32 on the same (possibly bf16) values
+    ref = s2d_conv3d(x.float(), w.float(), None if b is None else b.float(), f=4, padding_mode="reflect")
+    torch.cuda.synchronize()
+    tol = REL_TOL[dtype] if dtype == torch.float32 else bf16_tol
+    err, rel = compare(got, ref, tol, f"B3 s2d_conv3d_block {stage} {dtype}")
+    xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+
+    def library():
+        return F.conv3d(F.pad(xc, (3,) * 6, mode="reflect"), wc, b)
+
+    flops = 2 * batch * math.prod(volume) * 343 * ci * co
+    row = dict(
+        name="s2d_conv3d_block", stage=stage, dtype=DTYPE_NAME[dtype], x_shape=list(x.shape),
+        route="cuda", tensor_cores=TENSOR_CORES[dtype], source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
+        replaces=REPLACES["s2d_conv3d_block"],
+        max_abs_err=err, max_rel_err=rel,
+        ms=median_ms(lambda: s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")),
+        plain_ms=median_ms(lambda: s2d_conv3d(x, w, b, f=4, padding_mode="reflect")),
+        **bound(flops, nbytes(x, w, b, got), dtype),
+        library_ms=median_ms(library),
+    )
+    print("  " + json.dumps(row), flush=True)
+    del x, w, b, got, ref, xc, wc
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_phase(dev, g):
-    """Per (kernel, stage, dtype): errors and times at the main path's shapes.
-    B2 runs the same contraction as B1 with X and Y swapped in memory; its
-    library yardstick is the same ``F.conv3d`` on its own memory."""
-    # (wrapper, plain, conv weight over x's spatial order (Z, ., .))
-    block_convs = {
-        "block_conv3x3x3": (block_conv3x3x3, block_conv3x3x3_reference, lambda w: w.permute(4, 3, 2, 0, 1)),
-        "block_conv3x3x3_v2": (block_conv3x3x3_v2, block_conv3x3x3_v2_reference, lambda w: w.permute(4, 3, 2, 1, 0)),
-    }
+    """Per (kernel, stage, dtype): errors and times at the main paths'
+    shapes: the batch-8 stem and projection at 128^3 (34^3 blocks) in f32
+    and bf16, then the fit path's bf16 validation forward (2 x 256x256x128,
+    66x66x34 blocks) for B1 and B3, from a generator of its own."""
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, (wrapper, plain, conv_w) in block_convs.items():
+    for dtype in DTYPES:
+        for name in BLOCK_CONVS:
             for stage, (ci, co) in B1_SHAPES.items():
-                x = torch.randn((BATCH, 34, 34, 34, ci), generator=g).to(dev, dtype)
-                w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5).to(dev, dtype)
-                got = wrapper(x, w)
-                ref = plain(x, w)
-                torch.cuda.synchronize()
-                what = f"{name} {stage} {dtype}"
-                err, rel = compare(got, ref, REL_TOL[dtype], what)
-                # the library yardstick reads the same memory as NCDHW
-                # (channels-last strides): conv over x's spatial order
-                xc, wc = x.permute(0, 4, 1, 2, 3), conv_w(w)
-                if dtype == torch.float32:
-                    compare(F.conv3d(xc, wc).permute(0, 2, 3, 4, 1), ref, REL_TOL[dtype],
-                            f"{what} (library conv vs plain)")
-                zo = 32
-                flops = 2 * BATCH * zo**3 * 27 * ci * co
-                ms = median_ms(lambda: wrapper(x, w))
-                rows.append(dict(
-                    name=name, stage=stage, dtype=DTYPE_NAME[dtype],
-                    route="cuda", tensor_cores=TENSOR_CORES[dtype], source=SOURCE, replaces=REPLACES[name],
-                    max_abs_err=err, max_rel_err=rel, ms=ms,
-                    plain_ms=median_ms(lambda: plain(x, w)),
-                    **bound(flops, nbytes(x, w, got), dtype),
-                    library_ms=median_ms(lambda: F.conv3d(xc, wc)),
-                    tflops=flops / ms / 1e9,
-                ))
-                print("  " + json.dumps(rows[-1]), flush=True)
-                del x, w, got, ref, xc, wc
-                torch.cuda.empty_cache()
+                rows.append(b1_row(dev, g, dtype, name, stage, ci, co, BATCH, (34, 34, 34)))
         for stage, (ci, co, has_bias) in B3_SHAPES.items():
-            x = torch.randn((BATCH, 128, 128, 128, ci), generator=g).to(dev, dtype)
-            w = (torch.randn((7, 7, 7, ci, co), generator=g) / (343 * ci) ** 0.5).to(dev, dtype)
-            b = torch.randn((co,), generator=g).to(dev, dtype) if has_bias else None
-            got = s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")
-            # the plain version in f32 on the same (possibly bf16) values
-            ref = s2d_conv3d(x.float(), w.float(), None if b is None else b.float(),
-                             f=4, padding_mode="reflect")
-            torch.cuda.synchronize()
-            tol = REL_TOL[dtype] if dtype == torch.float32 else B3_BF16_REL_TOL
-            err, rel = compare(got, ref, tol, f"B3 s2d_conv3d_block {stage} {dtype}")
-            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
-
-            def library():
-                return F.conv3d(F.pad(xc, (3,) * 6, mode="reflect"), wc, b)
-
-            flops = 2 * BATCH * 128**3 * 343 * ci * co
-            rows.append(dict(
-                name="s2d_conv3d_block", stage=stage, dtype=DTYPE_NAME[dtype],
-                route="cuda", tensor_cores=TENSOR_CORES[dtype], source="contrast_gan_3d_tpu_torch/ops/block_conv.py",
-                replaces=REPLACES["s2d_conv3d_block"],
-                max_abs_err=err, max_rel_err=rel,
-                ms=median_ms(lambda: s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")),
-                plain_ms=median_ms(lambda: s2d_conv3d(x, w, b, f=4, padding_mode="reflect")),
-                **bound(flops, nbytes(x, w, b, got), dtype),
-                library_ms=median_ms(library),
-            ))
-            print("  " + json.dumps(rows[-1]), flush=True)
-            del x, w, b, got, ref, xc, wc
-            torch.cuda.empty_cache()
+            rows.append(b3_row(dev, g, dtype, stage, ci, co, has_bias, BATCH, TRAIN_PATCH))
+    gv = torch.Generator().manual_seed(2)
+    blocks = tuple(d // 4 + 2 for d in VAL_VOLUME)
+    for stage, (ci, co) in B1_SHAPES.items():
+        rows.append(b1_row(dev, gv, torch.bfloat16, "block_conv3x3x3", f"{stage} (validation)", ci, co,
+                           VAL_BATCH, blocks))
+    for stage, (ci, co, has_bias) in B3_SHAPES.items():
+        rows.append(b3_row(dev, gv, torch.bfloat16, f"{stage} (validation)", ci, co, has_bias, VAL_BATCH,
+                           VAL_VOLUME, bf16_tol=B3_BF16_BIAS_REL_TOL if has_bias else B3_BF16_REL_TOL))
     return rows
 
 
@@ -576,8 +658,8 @@ def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, **tra
     critic = seeded(PatchGANDiscriminator(norm=spec["norm"], dtype=dtype), seed + 1)
     tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
     cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, dtype=dtype, **trainer_kw)
-    return Trainer(gen, critic, tx, tx, cfg, train_critic_every=spec["critic_every"],
-                   train_generator_every=spec["generator_every"], seed=seed, device=device)
+    schedule = TrainerConfig(train_critic_every=spec["critic_every"], train_generator_every=spec["generator_every"])
+    return Trainer(gen, critic, tx, tx, cfg, schedule, seed=seed, device=device)
 
 
 def warm_seconds(fn, reps=TIMED_STEPS):
@@ -907,6 +989,339 @@ def train_parity_bf16_phase(rng):
         raise AssertionError("train parity bf16: " + "; ".join(failed))
 
 
+# --- the training run users start (phases 10-12) ---------------------------
+
+AUG_SHAPE = (128, 128, 128)
+# every transform on, so the parity covers rotation, scale and elastic
+AUG_ALWAYS = aug.AugmentConfig(p_elastic=1.0, p_scale=1.0, p_rotation=1.0)
+AUG_FIELD_TOL, AUG_COORD_TOL, AUG_SCAN_TOL, AUG_HALF_TOL = 1e-6, 1e-4, 1e-5, 1e-4
+# the fit phase: patients at least 288x288x160 (the JAX package's synthetic
+# study volumes), 3 per label, and its cadences
+FIT_PATIENT = (288, 288, 160)
+# 11 host iterations, so that its warm window (below) is whole
+FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 11
+FIT_PROFILE_ITERATIONS = 10
+FIT_OVERRIDES = dict(log_every=5, validate_every=10, val_iterations=1, checkpoint_every=10, logger="console")
+LOG_LINE = re.compile(r"\[(train|validation) (\d+)\] (.*)")
+# the lagged fetch logs at iteration 5 the patches/s of iterations 6-10:
+# one whole 4 critic + 1 combined period, warm, before validation and the
+# checkpoint at 10
+WARM_LOG = 5
+
+
+def smooth_ct(shape, phase):
+    """A smooth CT-like volume in whole HU: air (-1024) around a soft-tissue
+    (40) ellipsoid whose edge rises over about 6 voxels, with a
+    contrast-filled tube (+410, a Gaussian profile of sigma 5 voxels)
+    winding inside it along the last axis from ``phase``. Its steps are at most
+    about 50 HU per voxel along each axis."""
+    i, j, k = torch.meshgrid(*(torch.arange(n, dtype=torch.float32) for n in shape), indexing="ij")
+    centre = [(n - 1) / 2 for n in shape]
+    radii = [0.4 * n for n in shape]
+    d = torch.sqrt(sum(((a - c) / r) ** 2 for a, c, r in zip((i, j, k), centre, radii)))
+    body = torch.sigmoid((1 - d) * min(radii) / 6)
+    tube_x = centre[0] + 0.15 * shape[0] * torch.sin(2 * math.pi * k / shape[2] + phase)
+    tube = torch.exp(-((i - tube_x) ** 2 + (j - centre[1]) ** 2) / (2 * 5.0**2))
+    return (-1024 + (1064 + 410 * tube) * body).round()
+
+
+def augment_phase(dev):
+    """Phase 10: the device augmentation on the card against the CPU from
+    one draw set, and its time for a 6 + 6 batch at 128^3.
+
+    The two devices' coordinates differ by rounding (about 3e-5 voxel:
+    sin, cos and the rotation product), and on a noise scan that moves a
+    trilinear sample by up to 2524 HU per voxel of it. So the samplers are
+    held on the same coordinates (the card's, copied to the CPU), the
+    coordinates to 1e-4 voxel, and the whole chain, each device on its own
+    coordinates, on the mask away from half-integers and on the trilinear
+    sample of a smooth CT-like volume (``smooth_ct``). There a coordinate
+    error d moves a sample by at most d times the volume's largest steps
+    along the three axes, summed: that prediction is printed beside it."""
+    cfg = AUG_ALWAYS
+    g = torch.Generator().manual_seed(30)
+    draws = aug.draw(g, 2, cfg)
+    scan = (torch.rand((2, *AUG_SHAPE), generator=g) * 2524 - 1024).round()
+    seg = (torch.rand((2, *AUG_SHAPE), generator=g) < 0.01).float()
+    field = {d: aug.elastic_field(draws.coarse.to(d), AUG_SHAPE).cpu() for d in ("cuda", "cpu")}
+    coords = {d: aug.coords_from_draws(draws.to(d), AUG_SHAPE, cfg) for d in ("cuda", "cpu")}
+    card = (trilinear_sample(scan.to(dev), coords["cuda"]).cpu(), nearest_sample(seg.to(dev), coords["cuda"]).cpu())
+    ct = torch.stack([smooth_ct(AUG_SHAPE, phase) for phase in (0.0, math.pi / 2)])
+    ct_card = trilinear_sample(ct.to(dev), coords["cuda"]).cpu()
+    coords["cuda"] = coords["cuda"].cpu()
+    same = (trilinear_sample(scan, coords["cuda"]), nearest_sample(seg, coords["cuda"]))
+    own_mask = nearest_sample(seg, coords["cpu"])
+    field_err = (field["cuda"] - field["cpu"]).abs().max().item()
+    coord_err = (coords["cuda"] - coords["cpu"]).abs().max().item()
+    scan_rel = (card[0] - same[0]).abs().max().item() / scan.abs().max().item()
+    same_mask_diff = int((card[1] != same[1]).sum())
+    frac = torch.remainder(coords["cpu"], 1.0)
+    safe = ~((frac - 0.5).abs() < AUG_HALF_TOL).any(-1)
+    mask_diff = int((card[1] != own_mask)[safe].sum())
+    ct_max = ct.abs().max().item()
+    ct_rel = (ct_card - trilinear_sample(ct, coords["cpu"])).abs().max().item() / ct_max
+    ct_predicted = coord_err * sum(ct.diff(dim=a).abs().max().item() for a in (1, 2, 3)) / ct_max
+    print(f"augment parity (2 x 128^3, every transform on): elastic field max|cuda - cpu| {field_err:.2e} "
+          f"(tol {AUG_FIELD_TOL:.0e}), coordinates {coord_err:.2e} voxel (tol {AUG_COORD_TOL:.0e}); on the card's "
+          f"coordinates: scan {scan_rel:.2e} of max|x| (tol {AUG_SCAN_TOL:.0e}), mask voxels that differ "
+          f"{same_mask_diff}; each device on its own coordinates: mask voxels that differ away from half-integers "
+          f"{mask_diff} ({int((~safe).sum())} voxels near one skipped), smooth CT-like scan {ct_rel:.2e} of "
+          f"max|x| (tol {AUG_SCAN_TOL:.0e}; predicted at most {ct_predicted:.2e})", flush=True)
+    if not (field_err <= AUG_FIELD_TOL and coord_err <= AUG_COORD_TOL and scan_rel <= AUG_SCAN_TOL
+            and same_mask_diff == 0 and mask_diff == 0 and ct_rel <= AUG_SCAN_TOL):
+        raise AssertionError("the device augmentation disagrees with the CPU")
+    del field, coords, card, same, own_mask, frac, safe, ct, ct_card
+    # the step's augmentation at the train mix: draws on the card's
+    # generator, 6 sub-optimal patches with their masks, 6 OPT patches
+    cfg = aug.AugmentConfig()
+    rng = torch.Generator(device="cuda").manual_seed(31)
+    sub = torch.randint(-1024, 1500, (6, *AUG_SHAPE), device=dev).float()
+    mask = (torch.rand((6, *AUG_SHAPE), device=dev) < 0.001).float()
+    opt = torch.randint(-1024, 1500, (6, *AUG_SHAPE), device=dev).float()
+
+    def step_augment():
+        aug.augment_batch(sub, mask, aug.draw(rng, 6, cfg), cfg)
+        aug.augment_batch(opt, None, aug.draw(rng, 6, cfg), cfg)
+
+    ms = median_ms(step_augment)
+    print(f"augment: device augmentation of a 6 + 6 batch at 128^3 (basic_3d probabilities): {ms:.2f} ms "
+          "(CUDA events, median of 10)", flush=True)
+    del sub, mask, opt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def synthetic_patient(rng, shape, contrast_hu):
+    """A noisy soft-tissue int16 volume with a bright polyline 'vessel'
+    (3^3 voxels per point) and its centerline mask, as the JAX package's
+    ``tests/synth.py`` makes them."""
+    vol = rng.standard_normal(shape, dtype=np.float32) * 30 + 40
+    t = np.linspace(0, 1, 400)
+    pts = np.stack([(0.2 + 0.6 * t) * shape[0],
+                    (0.5 + 0.3 * np.sin(2 * np.pi * t)) * shape[1] / 2 + shape[1] / 4,
+                    (0.1 + 0.8 * t) * shape[2]], axis=-1)
+    mask = np.zeros(shape, np.uint8)
+    for x, y, z in np.clip(np.round(pts).astype(int), 1, np.asarray(shape) - 2):
+        vol[x - 1:x + 2, y - 1:y + 2, z - 1:z + 2] = contrast_hu + rng.normal(0, 10)
+        mask[x, y, z] = 1
+    spacing, offset = np.array([0.5, 0.5, 0.5]), np.array([-10.0, -5.0, 0.0])
+    meta = {"spacing": spacing, "offset": offset,
+            "centerlines_world": np.concatenate([pts * spacing + offset, np.full((len(pts), 1), 0.7)],
+                                                axis=-1).astype(np.float32)}
+    return vol.astype(np.int16), mask, meta
+
+
+class LogCapture(logging.Handler):
+    """The console logger's lines, parsed: (stage, iteration, {key: value})."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        m = LOG_LINE.match(record.getMessage())
+        if m:
+            values = dict(kv.split("=") for kv in m.group(3).split())
+            self.records.append((m.group(1), int(m.group(2)), {k: float(v) for k, v in values.items()}))
+
+
+@contextlib.contextmanager
+def b1_per_iteration():
+    """Record B1 launches per ``Trainer.train_step`` call: (iteration,
+    forward + dx launches, dx launches)."""
+    seen, real = [], Trainer.train_step
+
+    def counted(self, patches, iteration):
+        before = (block_conv3x3x3.launches, block_conv3x3x3.backward_launches)
+        out = real(self, patches, iteration)
+        seen.append((iteration, block_conv3x3x3.launches - before[0], block_conv3x3x3.backward_launches - before[1]))
+        return out
+
+    Trainer.train_step = counted
+    try:
+        yield seen
+    finally:
+        Trainer.train_step = real
+
+
+def expected_b1(start, stop, val_every, val_iterations):
+    """B1 launches of a basic_3d fit over iterations [start, stop): per
+    iteration by its branch, plus 2 per validation generator forward (LOW
+    and HIGH per validation iteration)."""
+    per_iteration = [B1_PER_BRANCH[b] for b in schedule_branches(1, 5, start, stop - start)]
+    validations = sum(1 for i in range(start, stop) if i and i % val_every == 0)
+    return per_iteration, sum(per_iteration) + validations * val_iterations * 2 * 2
+
+
+def _same_state(a, b, what):
+    for m in ("generator", "critic"):
+        for (k, x), y in zip(getattr(a, m).state_dict().items(), getattr(b, m).state_dict().values()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {m}.{k} differs")
+    for o in ("gen_opt", "critic_opt"):
+        sa, sb = getattr(a, o).optimizer.state_dict(), getattr(b, o).optimizer.state_dict()
+        if sa["param_groups"] != sb["param_groups"] or getattr(a, o).scheduler.state_dict() != \
+                getattr(b, o).scheduler.state_dict():
+            raise AssertionError(f"{what}: {o} hyperparameters or schedule differ")
+        for i in sa["state"]:
+            for k in sa["state"][i]:
+                if not torch.equal(sa["state"][i][k], sb["state"][i][k]):
+                    raise AssertionError(f"{what}: {o} state {i}.{k} differs")
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()) or a.step != b.step:
+        raise AssertionError(f"{what}: the generator state or the step differs")
+
+
+def fit_phase(bare_wc, device="cuda"):
+    """Phases 11 and 12 (module docstring): the CLI's ``main`` at full width.
+    ``bare_wc`` holds phase 6's bf16 weight-clip step times. Returns the
+    B1 / B3 launches of the three runs and the printed figures."""
+    capture = LogCapture()
+    console = logging.getLogger("contrast_gan_3d_tpu_torch.trainer.logger")
+    console.setLevel(logging.INFO)
+    console.addHandler(capture)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(40)
+        fold = []
+        for label, hu in ((0, 400), (-1, 250), (1, 600)):
+            for i in range(3):
+                vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
+                fold.append((str(write_patient(vol, mask, meta, f"synth_{label}_{i}", tmp / "patients")), label))
+        splits = tmp / "splits.pkl"
+        splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+        confs = {}
+        for backend in ("device", "host"):
+            confs[backend] = tmp / f"fit_{backend}.py"
+            confs[backend].write_text(
+                "from dataclasses import replace\n\n\ndef config(base):\n"
+                f"    return replace(base, augment_backend={backend!r}, **{FIT_OVERRIDES!r})\n")
+        print(f"fit: wrote 9 patients of {FIT_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def run(backend, iterations):
+            args = ["--conf", str(confs[backend]), "--cval-splits", str(splits), "--checkpoint-root",
+                    str(tmp / "runs"), "--run-id", backend, "--iterations", str(iterations), "--device", device]
+            capture.records.clear()
+            t = time.perf_counter()
+            with b1_per_iteration() as per_it:
+                manager = train_cli.main(args)
+            torch.cuda.synchronize()
+            fold_run = manager.runs[0]
+            logs = list(capture.records)
+            for stage, it, values in logs:
+                if not all(np.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"fit {backend}: non-finite {stage} scalars at {it}: {values}")
+            return fold_run, logs, per_it, time.perf_counter() - t
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
+        s2d_conv3d_block.launches = 0
+        first, logs, per_it, seconds = run("device", FIT_ITERATIONS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        trainer = first.trainer
+        run_dir = tmp / "runs" / "device"
+        want_per_it, want_total = expected_b1(0, FIT_ITERATIONS, FIT_OVERRIDES["validate_every"],
+                                              FIT_OVERRIDES["val_iterations"])
+        got_per_it = [n for _, n, _ in per_it]
+        if got_per_it != want_per_it or block_conv3x3x3.launches != want_total:
+            raise AssertionError(f"fit: B1 launches per iteration {got_per_it} (expected {want_per_it}), "
+                                 f"in all {block_conv3x3x3.launches} (expected {want_total})")
+        clip = trainer.step_cfg.weight_clip
+        biggest = max(p.abs().max().item() for p in trainer.state.critic.parameters())
+        if not biggest <= clip:
+            raise AssertionError(f"fit: critic parameter {biggest} beyond the clip {clip}")
+        periodic = FIT_OVERRIDES["checkpoint_every"] + 1  # named for the completed step count
+        files = {p.name for p in run_dir.iterdir()}
+        if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{FIT_ITERATIONS}.pt"} <= files:
+            raise AssertionError(f"fit: checkpoint files {sorted(files)}")
+        if not any(stage == "validation" for stage, _, _ in logs):
+            raise AssertionError("fit: no validation scalars logged")
+        pps = {it: v["patches_per_sec"] for stage, it, v in logs if stage == "train" and "patches_per_sec" in v}
+        shares = trainer.time_budget.shares()
+        n_patches = 12
+        crit, comb = bare_wc["critic_step_s"], bare_wc["combined_step_s"]
+        bare_schedule = n_patches / ((4 * crit + comb) / 5)
+        results["device"] = dict(patches_per_sec=pps, warm_patches_per_sec=pps[WARM_LOG], wall_s=seconds,
+                                 shares=shares, peak_memory_gib=peak_gib,
+                                 bare_combined_patches_per_sec=n_patches / comb,
+                                 bare_schedule_patches_per_sec=bare_schedule)
+        print(f"fit device (basic_3d bf16, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
+              f"{pps[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps)}; bare steps of phase 6: {n_patches / comb:.1f} patches/s per "
+              f"combined_step, {bare_schedule:.1f} over the 4 critic + 1 combined schedule; time budget "
+              f"{json.dumps({k: round(v, 4) for k, v in shares.items()})}; peak memory {peak_gib:.2f} GiB",
+              flush=True)
+        print(f"fit device: {trainer.time_budget.summary()}", flush=True)
+
+        # a fresh trainer and fresh loaders restore what the run saved
+        cfg = load_config(str(confs["device"]), train_iterations=FIT_ITERATIONS)
+        built = build(cfg, checkpoint_dir=str(run_dir), device=device)
+        fresh = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                        built.trainer_config, seed=built.seed + 1, logger_interface=NoopLogger(), device=device)
+        _same_state(fresh.state, trainer.state, "fit restore")
+        loaders = create_loaders(fold, cfg.train_patch_size, cfg.train_batch_size, np.random.default_rng(0),
+                                 num_threads=cfg.num_workers[0], device=device)
+        saved = pickle.loads(ckpt_lib.data_state_path(run_dir, FIT_ITERATIONS).read_bytes())["loaders"]
+        if not ckpt_lib.maybe_restore_data_state(loaders, run_dir, FIT_ITERATIONS) or any(
+                loaders[k].get_state() != saved[k] for k in saved):
+            raise AssertionError("fit: the loaders' data-stream states were not restored as saved")
+        del fresh, built, loaders
+        torch.cuda.empty_cache()
+        print(f"fit restore: model, optimizers, schedules, generator state, step {FIT_ITERATIONS} and "
+              f"{len(saved)} data streams equal to what the run saved", flush=True)
+
+        before = block_conv3x3x3.launches
+        second, logs2, per_it2, seconds2 = run("device", FIT_RESUME_TO)
+        if second.trainer.start_iteration != FIT_ITERATIONS or second.trainer.iteration != FIT_RESUME_TO:
+            raise AssertionError(f"fit resume: ran {second.trainer.start_iteration} -> {second.trainer.iteration}")
+        want_per_it, want_total = expected_b1(FIT_ITERATIONS, FIT_RESUME_TO, FIT_OVERRIDES["validate_every"],
+                                              FIT_OVERRIDES["val_iterations"])
+        if [n for _, n, _ in per_it2] != want_per_it or block_conv3x3x3.launches - before != want_total:
+            raise AssertionError(f"fit resume: B1 launches {per_it2}, expected {want_per_it}")
+        print(f"fit resume: {FIT_ITERATIONS} -> {FIT_RESUME_TO} in {seconds2:.1f} s", flush=True)
+
+        # where the time of fit iterations goes: the resumed trainer and its
+        # loaders go on for a few iterations under the profiler, without
+        # validation or checkpoints (the loaders' start is inside the wall)
+        prof = second.trainer
+        prof.cfg = dataclasses.replace(prof.cfg, checkpoint_dir=None, val_every=None)
+
+        def window():
+            prof.cfg = dataclasses.replace(prof.cfg, train_iterations=prof.iteration + FIT_PROFILE_ITERATIONS)
+            prof.fit(second.train_loaders)
+
+        profile(window, f"fit device, {FIT_PROFILE_ITERATIONS} iterations of a started run")
+        print(f"profile fit device: {prof.time_budget.summary()}", flush=True)
+        del first, second, trainer
+        torch.cuda.empty_cache()
+
+        before = block_conv3x3x3.launches
+        host, logs3, per_it3, seconds3 = run("host", FIT_HOST_ITERATIONS)
+        want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
+                                              FIT_OVERRIDES["val_iterations"])
+        if [n for _, n, _ in per_it3] != want_per_it or block_conv3x3x3.launches - before != want_total:
+            raise AssertionError(f"fit host: B1 launches {per_it3}, expected {want_per_it}")
+        pps3 = {it: v["patches_per_sec"] for stage, it, v in logs3 if stage == "train" and "patches_per_sec" in v}
+        shares3 = host.trainer.time_budget.shares()
+        results["host"] = dict(patches_per_sec=pps3, warm_patches_per_sec=pps3[WARM_LOG], wall_s=seconds3,
+                               shares=shares3)
+        print(f"fit host (augment_backend='host', {FIT_HOST_ITERATIONS} iterations, {seconds3:.1f} s with set-up): "
+              f"warm {pps3[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps3)}; data_wait share {shares3['data_wait']:.3f}; time budget "
+              f"{json.dumps({k: round(v, 4) for k, v in shares3.items()})}", flush=True)
+        print(f"fit host: {host.trainer.time_budget.summary()}", flush=True)
+        del host
+    console.removeHandler(capture)
+    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
+                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
+                "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
+    if launches["s2d_conv3d_block"] != launches["block_conv3x3x3"] - launches["block_conv3x3x3_backward"]:
+        raise AssertionError(f"fit: B3 launches do not match B1's forwards: {launches}")
+    print(f"fit: launches {launches}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -978,18 +1393,25 @@ def main() -> int:
     train_parity_bf16_phase(rng16)
     print(f"train: {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    augment_ms = augment_phase(dev)
+    fit_launches, fit_results = fit_phase(train[torch.bfloat16][1]["wc"])
+    print(f"fit: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
     # the dx rows count B1's backward launches only
     for r, key in [(r, r["name"]) for r in rows] + [(r, "block_conv3x3x3_backward") for r in dx_rows]:
         dtype = dtype_of[r["dtype"]]
-        by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key]}
+        # the fit path is basic_3d, which trains in bf16
+        by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key],
+                   "fit": fit_launches[key] if dtype == torch.bfloat16 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
         "requests": {DTYPE_NAME[dt]: v[1] for dt, v in serve.items()},
         "serving_peak_memory_gib": {DTYPE_NAME[dt]: v[2] for dt, v in serve.items()},
         "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi,
+        "augment_6_plus_6_ms": augment_ms, "fit": fit_results,
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

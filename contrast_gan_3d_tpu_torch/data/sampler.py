@@ -1,0 +1,188 @@
+"""Random 3D patch sampling from memory-mapped patients (counterpart of the
+3D ``CCTAPatchSampler`` in ``contrast_gan_3d_tpu/data/sampler.py``).
+
+Per sample: a patient from a shuffled epoch order, a random crop of the
+(virtually) centre-padded scan and mask, or with ``p_centerline_3d`` a crop
+centred on a random centerline point, then the optional host augmenter.
+With the same files and the same ``np.random.Generator`` seed the batches
+are bit-identical to the JAX sampler's: the draws are the same calls in
+the same order, and the crop is the JAX package's numpy crop. Patches stay
+int16; the scaler runs in the train step. The 2D sampler is not ported
+(ROADMAP).
+"""
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from contrast_gan_3d_tpu_torch.data.preprocess import ROADMAP_NOTE, load_patient
+from contrast_gan_3d_tpu_torch.utils import geometry as geom
+
+
+def crop_pad_int16(volume: np.ndarray, start, patch_size) -> np.ndarray:
+    """A zero-padded (px, py, pz, C) int16 window of the (W, H, D, C)
+    ``volume`` whose ``start`` may be negative or overhang it; only the
+    window's pages are read from a memmap."""
+    px, py, pz = (int(p) for p in patch_size)
+    out = np.zeros((px, py, pz, volume.shape[3]), np.int16)
+    src_sl, dst_sl = [], []
+    for s, p, dim in zip(start, (px, py, pz), volume.shape[:3]):
+        lo, hi = max(0, int(s)), min(dim, int(s) + p)
+        src_sl.append(slice(lo, hi))
+        dst_sl.append(slice(lo - int(s), lo - int(s) + max(0, hi - lo)))
+    if all(sl.stop > sl.start for sl in src_sl):
+        out[tuple(dst_sl)] = volume[tuple(src_sl)]
+    return out
+
+
+class CCTAPatchSampler:
+    """Random 3D patch sampler over one ScanType's patient list; infinite,
+    or one pass (``infinite=False``, the last batch may be short)."""
+
+    def __init__(
+        self,
+        paths: List[str],
+        patch_shape: Sequence[int],
+        batch_size: int,
+        rng: Optional[np.random.Generator] = None,
+        shuffle: bool = True,
+        infinite: bool = True,
+        augmenter=None,  # HostAugmenter
+        p_centerline_3d: float = 0.0,
+    ):
+        if not paths:
+            raise ValueError("empty patient list")
+        self.paths = list(paths)
+        self._path_strs = [str(p) for p in self.paths]
+        self.patch_shape = tuple(int(p) for p in patch_shape)
+        if len(self.patch_shape) != 3:
+            raise NotImplementedError(f"the 2D patch sampler is {ROADMAP_NOTE}")
+        self.batch_size = int(batch_size)
+        self.p_centerline_3d = float(p_centerline_3d)
+        self.rng = rng or np.random.default_rng()
+        self.shuffle = shuffle
+        self.infinite = infinite
+        self.augmenter = augmenter
+        self._order: List[int] = []
+        self._epoch_done = False
+        # np.random.Generator is not thread-safe and the loader's workers
+        # sample concurrently: every draw goes through this lock
+        self._rng_lock = threading.Lock()
+        self._patients: Dict[str, tuple] = {}
+        self._patients_lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    # -- resumable data stream (checkpointed beside the model) -------------
+    def get_state(self) -> Dict:
+        """The stream's rng, epoch order and patient list (and the
+        augmenter's rng): :meth:`set_state` replays the batches from here."""
+        with self._rng_lock:
+            state = {
+                "rng": self.rng.bit_generator.state,
+                "order": list(self._order),
+                "epoch_done": self._epoch_done,
+                "paths": list(self._path_strs),
+            }
+            if self.augmenter is not None:
+                state["augmenter_rng"] = self.augmenter.rng.bit_generator.state
+        return state
+
+    def set_state(self, state: Dict):
+        """Restore a :meth:`get_state` snapshot; ValueError when it was saved
+        for another patient list."""
+        saved_paths = state.get("paths")
+        if saved_paths is not None and list(saved_paths) != self._path_strs:
+            raise ValueError(
+                "data-stream state was saved for a different patient list "
+                f"({len(saved_paths)} patients vs {len(self.paths)} now); the stream cannot be replayed"
+            )
+        with self._rng_lock:
+            self.rng.bit_generator.state = state["rng"]
+            self._order = list(state["order"])
+            self._epoch_done = bool(state["epoch_done"])
+            if self.augmenter is not None and "augmenter_rng" in state:
+                self.augmenter.rng.bit_generator.state = state["augmenter_rng"]
+
+    def _next_indices(self) -> List[int]:
+        out = []
+        with self._rng_lock:
+            while len(out) < self.batch_size:
+                if not self._order:
+                    if self._epoch_done and not self.infinite:
+                        if out:
+                            return out
+                        raise StopIteration
+                    self._order = list(range(len(self.paths)))
+                    self._epoch_done = True
+                    if self.shuffle:
+                        self.rng.shuffle(self._order)
+                    else:
+                        self._order.reverse()  # pop() serves from the end
+                out.append(self._order.pop())
+        return out
+
+    def _sample_3d(self, data_and_seg: np.ndarray, meta: Dict) -> np.ndarray:
+        target = np.broadcast_to(np.asarray(self.patch_shape), (3,))
+        padded_shape = np.maximum(data_and_seg.shape[:3], target)
+        pad_off = (padded_shape - np.asarray(data_and_seg.shape[:3])) // 2
+        with self._rng_lock:
+            guided = (
+                self.p_centerline_3d > 0.0
+                and len(meta.get("centerlines_world", ())) > 0
+                and self.rng.random() < self.p_centerline_3d
+            )
+            if guided:
+                idx = int(self.rng.integers(0, len(meta["centerlines_world"])))
+            else:
+                start = np.array([
+                    int(self.rng.integers(0, padded_shape[i] - target[i] + 1)) - pad_off[i] for i in range(3)
+                ])
+        if guided:
+            ctls = np.asarray(meta["centerlines_world"])
+            point = geom.world_to_image_coords(ctls[idx, :3], meta["offset"], meta["spacing"])
+            point = np.clip(point, 0, np.asarray(data_and_seg.shape[:3]) - 1)
+            bbox = geom.get_patch_bounds(target, padded_shape, point + pad_off)
+            start = bbox[:, 0] - pad_off
+        return crop_pad_int16(data_and_seg, start, target)
+
+    def _load_patient_cached(self, path: str):
+        with self._patients_lock:
+            hit = self._patients.get(path)
+        if hit is not None:
+            return hit
+        loaded = load_patient(path)
+        with self._patients_lock:
+            return self._patients.setdefault(path, loaded)
+
+    def sample_one(self, path: str) -> Tuple[np.ndarray, str]:
+        data_and_seg, meta = self._load_patient_cached(path)
+        patch = self._sample_3d(data_and_seg, meta)
+        if self.augmenter is not None:
+            scan, seg = self.augmenter(patch[..., 0], patch[..., 1])
+            patch = np.stack([scan, seg], axis=-1)
+        return patch, meta["name"]
+
+    def next_batch(self) -> Dict:
+        """{"data": (B, *patch) int16, "seg": (B, *patch) int16, "name",
+        "path"}."""
+        indices = self._next_indices()
+        shape = (len(indices), *self.patch_shape)
+        data = np.empty(shape, dtype=np.int16)
+        seg = np.empty(shape, dtype=np.int16)
+        names, paths = [], []
+        for i, idx in enumerate(indices):
+            patch, name = self.sample_one(self.paths[idx])
+            data[i], seg[i] = patch[..., 0], patch[..., 1]
+            names.append(name)
+            paths.append(self.paths[idx])
+        return {"data": data, "seg": seg, "name": names, "path": paths}
+
+    def __iter__(self):
+        while True:
+            try:
+                yield self.next_batch()
+            except StopIteration:
+                return

@@ -1,0 +1,154 @@
+"""Turn an :class:`ExperimentConfig` into runnable objects: models,
+optimizers, step and trainer configs, the host augmenter and the logger
+(counterpart of ``contrast_gan_3d_tpu/experiments/builder.py``).
+
+What the JAX builder chooses automatically, the port resolves so:
+- ``generator_layout="auto"`` -> "direct" (logged once); "packed" raises;
+- ``cycle_length`` None or 1 -> per-iteration dispatch (the same math as a
+  fused cycle); K > 1 raises;
+- ``remat`` None or False -> off; True raises;
+- ``dp_devices`` / ``sp_devices`` set -> raise;
+- ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
+  ``HostAugmenter`` for the train loaders;
+- the 2D family and the layer-norm critic raise (ROADMAP).
+
+The networks' initial weights are drawn on the CPU from the config's seed
+(torch initialises a module when it is built, where the JAX package draws
+them from a key in ``init_state``), then move to ``device``.
+"""
+
+import logging
+from dataclasses import dataclass
+from functools import partial
+from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from contrast_gan_3d_tpu_torch.data.augment import AugmentConfig
+from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter
+from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
+from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
+from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
+from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
+from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
+from contrast_gan_3d_tpu_torch.trainer.logger import ConsoleLogger, FileLogger, LoggerInterface, NoopLogger
+from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
+from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig
+from contrast_gan_3d_tpu_torch.trainer.trainer import TrainerConfig
+from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_warned_layout = False
+
+
+@dataclass
+class BuiltExperiment:
+    config: ExperimentConfig
+    generator: nn.Module
+    critic: nn.Module
+    gen_tx: Callable    # params -> ScheduledOptimizer
+    critic_tx: Callable
+    step_config: StepConfig
+    trainer_config: TrainerConfig
+    scaler: FactorZeroCenterScaler
+    logger_interface: LoggerInterface
+    seed: int
+    host_augmenter: Optional[HostAugmenter] = None
+
+
+def _check_portable(cfg: ExperimentConfig):
+    """Raise for what the port does not run."""
+    unported = []
+    if cfg.is_2d or len(cfg.train_patch_size) != 3:
+        unported.append("the 2D family")
+    if cfg.critic_args.get("norm", "batch") not in ("batch", None):
+        unported.append(f"critic norm {cfg.critic_args['norm']!r}")
+    if cfg.generator_args.get("layout", cfg.generator_layout) == "packed":
+        unported.append("the packed generator layout (A7)")
+    if cfg.cycle_length is not None and cfg.cycle_length > 1:
+        unported.append(f"fused schedule cycles (cycle_length={cfg.cycle_length})")
+    if cfg.remat:
+        unported.append("remat")
+    if cfg.dp_devices is not None or cfg.sp_devices:
+        unported.append("meshes (dp_devices / sp_devices)")
+    if cfg.logger in ("wandb", "tensorboard"):
+        unported.append(f"the {cfg.logger} logger")
+    if unported:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} {ROADMAP_NOTE}")
+    if cfg.augment_backend not in ("host", "device"):
+        raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
+    if cfg.logger not in ("file", "console", "none"):
+        raise ValueError(f"unknown logger {cfg.logger!r}: expected file | console | none")
+
+
+def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="cuda") -> BuiltExperiment:
+    global _warned_layout
+    _check_portable(cfg)
+    device = resolve_device(device)
+    dtype = _DTYPES[cfg.compute_dtype]
+    layout = cfg.generator_args.get("layout", cfg.generator_layout)
+    if layout == "auto" and not _warned_layout:
+        _warned_layout = True
+        logger.info("generator_layout 'auto' resolves to 'direct' (the packed layout is %s)", ROADMAP_NOTE)
+    gen_args = {k: v for k, v in cfg.generator_args.items() if k not in ("layout", "remat")}
+    seed = DEFAULT_SEED if cfg.seed is None else cfg.seed
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        generator = ResnetGenerator(**{**dict(dtype=dtype), **gen_args, "layout": "direct"})
+        critic = PatchGANDiscriminator(**{**dict(dtype=dtype), **{k: v for k, v in cfg.critic_args.items()
+                                                                   if k != "remat"}})
+    generator.to(device)
+    critic.to(device)
+    tx = partial(make_optimizer, cfg.optimizer, lr=cfg.lr, betas=cfg.betas, milestones=cfg.milestones,
+                 lr_gamma=cfg.lr_gamma)
+    scaler = FactorZeroCenterScaler(*cfg.HU_norm_range, cfg.max_HU_delta)
+
+    augment = host_augmenter = None
+    if cfg.augment:
+        augment = AugmentConfig(
+            do_elastic=cfg.do_elastic, deformation_scale=cfg.deformation_scale, p_elastic=cfg.p_elastic,
+            do_scale=cfg.do_scale, scale_range=cfg.scale_range, p_scale=cfg.p_scale,
+            do_rotation=cfg.do_rotation, angle=float(np.deg2rad(cfg.rotation_deg)), p_rotation=cfg.p_rotation,
+        )
+        if cfg.augment_backend == "host":
+            host_augmenter = HostAugmenter(augment, np.random.default_rng(seed))
+            augment = None  # the warp happens in the loaders' workers
+
+    step_config = StepConfig(
+        weight_clip=cfg.weight_clip,
+        gp_weight=cfg.gp_weight,
+        hu_bounds=tuple(float(b) for b in cfg.desired_HU_bounds),
+        scaler=scaler,
+        augment=augment,
+        dtype=dtype,
+    )
+    trainer_config = TrainerConfig(
+        train_iterations=cfg.train_iterations,
+        train_critic_every=cfg.train_critic_every,
+        train_generator_every=cfg.train_generator_every,
+        val_every=cfg.validate_every,
+        val_iterations=cfg.val_iterations,
+        log_every=cfg.log_every,
+        log_images_every=cfg.log_images_every,
+        checkpoint_every=cfg.checkpoint_every,
+        checkpoint_keep=cfg.checkpoint_keep,
+        checkpoint_dir=checkpoint_dir,
+    )
+    if cfg.logger == "file":
+        if checkpoint_dir is None:
+            raise ValueError("logger='file' writes beside the checkpoints: give a checkpoint_dir")
+        logger_interface: LoggerInterface = FileLogger(Path(checkpoint_dir) / "metrics")
+    elif cfg.logger == "console":
+        logger_interface = ConsoleLogger()
+    else:
+        logger_interface = NoopLogger()
+    return BuiltExperiment(
+        config=cfg, generator=generator, critic=critic, gen_tx=tx, critic_tx=tx,
+        step_config=step_config, trainer_config=trainer_config, scaler=scaler,
+        logger_interface=logger_interface, seed=seed, host_augmenter=host_augmenter,
+    )

@@ -18,12 +18,20 @@ One iteration, as in the JAX package:
   frozen, and its gradients are taken over the generator's parameters only
   (``torch.autograd.grad``), so no gradient reaches the critic's ``.grad``.
 
+With ``StepConfig.augment`` (an ``AugmentConfig``) the
+int16 batches are augmented on the device in f32 before the scaler and the
+cast, as ``_prepare_batches`` does in the JAX package: the sub-optimal
+batch and its mask share one coordinate field per sample (trilinear scan,
+nearest mask), the OPT batch is augmented as data only. The draws come
+from ``state.rng`` in this fixed order at the start of each step: the
+sub-optimal batch's, then the OPT batch's, then (gradient penalty) the
+penalty's ``eps``. ``build_preview_step`` re-derives a step's augmented
+sub-optimal batch from the generator state saved before it.
+
 The steps update the state in place and return ``(state, metrics)``, with
 metrics as detached 0-d tensors. ``StepConfig.dtype`` bf16 with networks
 built with ``dtype=torch.bfloat16`` is the JAX package's default training
-(parameters, optimizer state and BatchNorm statistics stay f32). There is
-no augmentation in the step: a ``StepConfig.augment`` other than None
-raises.
+(parameters, optimizer state and BatchNorm statistics stay f32).
 """
 
 from contextlib import contextmanager
@@ -33,6 +41,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models import losses
 from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE
@@ -52,7 +61,11 @@ class StepConfig:
     hu_loss_weight: float = 1.0
     hu_bounds: Tuple[float, float] = (350.0, 450.0)  # unscaled HU corridor
     scaler: Scaler = field(default_factory=FactorZeroCenterScaler)
-    augment: Optional[object] = None
+    # on-device spatial augmentation (``experiments/builder.py`` sets it for
+    # augment_backend="device"); None: the batches arrive as they train
+    # (host-augmented or not augmented). The JAX StepConfig defaults to
+    # AugmentConfig(); this one keeps the bare step its default.
+    augment: Optional[aug.AugmentConfig] = None
     # fixed GP interpolation eps for every sample (deterministic penalty for
     # parity tests); None draws it per sample from the state's generator
     gp_eps: Optional[float] = None
@@ -61,8 +74,10 @@ class StepConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.augment is not None:
-            raise NotImplementedError(f"on-device augmentation in the train step is {ROADMAP_NOTE}")
+        if self.augment is not None and type(self.augment) is not aug.AugmentConfig:
+            raise NotImplementedError(
+                f"augmentation {type(self.augment).__name__} (only the 3D AugmentConfig is ported) is {ROADMAP_NOTE}"
+            )
 
     @property
     def hu_bounds_scaled(self) -> Tuple[float, float]:
@@ -119,11 +134,16 @@ def _scaled(cfg: StepConfig, batch, device, dtype=torch.float32) -> torch.Tensor
     return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).to(dtype).unsqueeze(1)
 
 
-def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device):
-    """int16 -> f32, the scaler, ``cfg.dtype``, the channel dim (the mask is
-    neither scaled nor cast: it stays f32)."""
-    mask = torch.as_tensor(subopt_mask).to(device, torch.float32).unsqueeze(1)
-    return _scaled(cfg, opt, device, cfg.dtype), _scaled(cfg, subopt, device, cfg.dtype), mask
+def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device, draws=None):
+    """int16 -> f32, the augmentation (``draws`` = (sub-optimal, OPT) draws
+    when ``cfg.augment`` is set), the scaler, ``cfg.dtype``, the channel dim
+    (the mask is neither scaled nor cast: it stays f32)."""
+    opt, subopt, mask = (torch.as_tensor(b).to(device, torch.float32) for b in (opt, subopt, subopt_mask))
+    if cfg.augment is not None:
+        d_sub, d_opt = draws
+        subopt, mask = aug.augment_batch(subopt, mask, d_sub, cfg.augment)
+        opt, _ = aug.augment_batch(opt, None, d_opt, cfg.augment)
+    return _scaled(cfg, opt, device, cfg.dtype), _scaled(cfg, subopt, device, cfg.dtype), mask.unsqueeze(1)
 
 
 class TrainSteps(NamedTuple):
@@ -132,9 +152,18 @@ class TrainSteps(NamedTuple):
     generator_only_step: Callable  # generator update only
 
 
-def build_train_steps(cfg: StepConfig) -> TrainSteps:
+def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_opt: int):
+    """The step's augmentation draws, sub-optimal batch first (the order
+    ``build_preview_step`` relies on), or None without augmentation."""
+    if cfg.augment is None:
+        return None
+    return draw(rng, n_subopt, cfg.augment), draw(rng, n_opt, cfg.augment)
+
+
+def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
     """The three per-iteration steps, each ``(state, opt, subopt, mask) ->
-    (state, metrics)`` on raw int16 batches."""
+    (state, metrics)`` on raw int16 batches. ``draw(rng, batch, augment)``
+    makes a batch's augmentation draws (tests feed fixed ones)."""
     hu_lo, hu_hi = cfg.hu_bounds_scaled
     use_gp = cfg.weight_clip is None
 
@@ -179,7 +208,8 @@ def build_train_steps(cfg: StepConfig) -> TrainSteps:
 
     def begin(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         state.step += 1
-        return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device)
+        draws = _draw_augment(cfg, draw, state.rng, len(subopt_b), len(opt_b))
+        return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device, draws)
 
     def critic_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         opt_b, subopt_b, _ = begin(state, opt_b, subopt_b, subopt_mask)
@@ -199,6 +229,29 @@ def build_train_steps(cfg: StepConfig) -> TrainSteps:
         return state, update_generator(state, opt_hat, subopt_b, mask)
 
     return TrainSteps(critic_step, combined_step, generator_only_step)
+
+
+def build_preview_step(cfg: StepConfig):
+    """``preview(state, rng_state, subopt, mask)``: the augmented sub-optimal
+    batch a train step trained on, re-derived for image logging from
+    ``rng_state``, the ``state.rng.get_state()`` saved before that step
+    (the sub-optimal draws come first in a step). Returns the scaled batch,
+    the eval-mode reconstruction and attenuation, and the augmented mask,
+    NCDHW (the counterpart of the JAX ``build_preview_step``)."""
+    if cfg.augment is None:
+        raise ValueError("the preview re-derives on-device augmentation; StepConfig.augment is None")
+
+    def preview(state: GANTrainState, rng_state: torch.Tensor, subopt, mask):
+        rng = torch.Generator(device=state.device)
+        rng.set_state(rng_state)
+        subopt, mask = (torch.as_tensor(b).to(state.device, torch.float32) for b in (subopt, mask))
+        subopt, mask = aug.augment_batch(subopt, mask, aug.draw(rng, len(subopt), cfg.augment), cfg.augment)
+        x = _scaled(cfg, subopt, state.device, cfg.dtype)
+        with torch.no_grad(), _eval_mode(state.generator):
+            atten = state.generator(x)
+        return x, x - atten, atten, mask.unsqueeze(1)
+
+    return preview
 
 
 def schedule_branches(

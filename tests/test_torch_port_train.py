@@ -49,7 +49,7 @@ from contrast_gan_3d_tpu_torch.trainer.steps import (
     init_state,
     schedule_branches,
 )
-from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer
+from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, TrainerConfig
 from contrast_gan_3d_tpu_torch.utils.weights import critic_state_dict_from_jax, generator_state_dict_from_jax
 from tests.test_torch_port_models import TINY, _np_tree, carried_generator, randomize_norms
 
@@ -414,7 +414,7 @@ def test_trajectory_matches_jax(jax_train_steps):
     pair = Pair("wc", seed=1)
     jsteps = jax_train_steps(pair)
     trainer = Trainer(pair.tgen, pair.tcritic, pair.tx_port, pair.tx_port, pair.cfg,
-                      train_critic_every=1, train_generator_every=5, device="cpu")
+                      TrainerConfig(train_critic_every=1, train_generator_every=5), device="cpu")
     pattern = schedule_branches(1, 5, 0, 6)
     assert pattern == jax_steps.schedule_branches(1, 5, 0, 6) == ("combined",) + ("critic",) * 4 + ("combined",)
     for i, ((opt, sub, msk), branch) in enumerate(zip(batches(14, n=6), pattern)):
@@ -467,7 +467,7 @@ def test_schedule_branches_match_jax(c_every, g_every, start, length):
 def test_trainer_none_branch_only_advances_the_step():
     pair = Pair("wc")
     trainer = Trainer(pair.tgen, pair.tcritic, pair.tx_port, pair.tx_port, pair.cfg,
-                      train_critic_every=2, train_generator_every=4, device="cpu")
+                      TrainerConfig(train_critic_every=2, train_generator_every=4), device="cpu")
     before = {k: v.clone() for k, v in trainer.state.generator.state_dict().items()}
     (opt, sub, msk), = batches(17)
     patches = {OPT: {"data": opt}, LOW: {"data": sub[:1], "seg": msk[:1]}, HIGH: {"data": sub[1:], "seg": msk[1:]}}
