@@ -102,11 +102,42 @@ failure raises and exits non-zero):
     trainer goes on for 10 iterations under the profiler. Prints the
     logged patches/s beside the bare-step figure of phase 6, the
     ``TimeBudget`` shares, the peak memory and the profile;
-12. the host backend (the JAX package's default): the same run for 11
-    iterations with ``augment_backend="host"``, its ``data_wait`` share
-    and patches/s printed. The warm patches/s of both backends is the one
-    logged at iteration 5, which the lagged fetch measures over iterations
-    6-10.
+12. the host backend (the JAX package's default, through the native warp):
+    three times, a run of 11 iterations with ``augment_backend="host"``
+    beside a fresh device-augmented run of 11 iterations; each prints its
+    warm patches/s and its ``data_wait`` and ``dispatch`` shares, after a
+    line with the host's cores, ``warp_num_threads()``, the loaders' worker
+    threads and torch's intra-op threads. The host runs must call the
+    native warp and never its plain version (``warp_int16``). The warm
+    patches/s of both backends is the one logged at iteration 5, which the
+    lagged fetch measures over iterations 6-10;
+13. the native host ops (run before the training run): the build line
+    (compiler, ``-fopenmp`` or not, ``warp_num_threads()``, cores); the
+    native warp of four 128^3 int16 CT-like patches with rotation, scale
+    and elastic all on against its plain version ``warp_int16``: every
+    voxel within 1 HU, at least 99.9% exactly equal, masks equal wherever
+    no source coordinate lies within 1e-4 of a half-integer; the native
+    crop of 128^3 windows (inside and overhanging) from a 288x288x160x2
+    memmapped patient against the numpy crop, bit-identical; then ms per
+    warped 128^3 patch and per crop for each;
+14. serving from files: a corrector built with
+    ``CCTAContrastCorrector.from_checkpoint`` from the ``<step>.pt`` the
+    device run of phase 11 wrote (its generator equal to the trainer's
+    tensor for tensor); three 512x512x128 CT-like scans written with the
+    port's writers (.mhd compressed, .nii.gz, a preprocessed .npy
+    patient); ``correct_scans.main`` over them in f32, as the JAX command
+    runs (128^3 patches, 50% overlap, batch 8: 49 patches, 7 forwards, so
+    14 B3 and 14 B1 launches per volume, counted); with cuDNN held to its
+    deterministic algorithms, as the command holds it, every output read
+    back equals ``device_int16(corrector(scan))`` exactly, and the
+    command's, the sequential and the overlapped cohort's files are equal
+    byte for byte. Prints how far one scan corrected twice moves with
+    cuDNN free to choose, the device time by kernel of one correction
+    either way, and seconds per volume: in memory (the int16 result
+    fetched), sequential file to file, overlapped file to file;
+15. the peak device memory of one bf16 ``combined_step`` at
+    ``small_patch``'s mix, 40 + 20 + 20 patches of 128x128x32 (the
+    configuration for which the JAX builder turns remat on).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -119,6 +150,7 @@ import dataclasses
 import json
 import logging
 import math
+import os
 import pickle
 import re
 import statistics
@@ -134,11 +166,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from contrast_gan_3d_tpu_torch import correct_scans, native
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
+from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, warp_coords, warp_int16
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
 from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
+from contrast_gan_3d_tpu_torch.data.sampler import crop_pad_int16_reference
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.eval.utils import correct_patients, device_int16, load_patient_or_scan
 from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import load_config
 from contrast_gan_3d_tpu_torch.models import blocks
@@ -162,6 +198,7 @@ from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, TrainerConfig
+from contrast_gan_3d_tpu_torch.utils import io_utils
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
 # cores, TF32 and bf16 on them, and HBM3 bandwidth
@@ -1001,6 +1038,14 @@ FIT_PATIENT = (288, 288, 160)
 # 11 host iterations, so that its warm window (below) is whole
 FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 11
 FIT_PROFILE_ITERATIONS = 10
+FIT_HOST_REPEATS = 3
+# phase 13: the native warp at the training patch size; phase 14: the
+# serving-from-files cohort
+NATIVE_SHAPE, NATIVE_PATCHES, NATIVE_EQUAL_MIN = (128, 128, 128), 4, 0.999
+FILES_SHAPE, FILES_PATCH, FILES_OVERLAP = (512, 512, 128), (128, 128, 128), 0.5
+FILES_FORMATS = ("mhd", "nii.gz", "npy")
+# the default generator's parameter count (basic_3d)
+GEN_PARAMS = 1_035_297
 FIT_OVERRIDES = dict(log_every=5, validate_every=10, val_iterations=1, checkpoint_every=10, logger="console")
 LOG_LINE = re.compile(r"\[(train|validation) (\d+)\] (.*)")
 # the lagged fetch logs at iteration 5 the patches/s of iterations 6-10:
@@ -1171,146 +1216,179 @@ def _same_state(a, b, what):
         raise AssertionError(f"{what}: the generator state or the step differs")
 
 
-def fit_phase(bare_wc, device="cuda"):
-    """Phases 11 and 12 (module docstring): the CLI's ``main`` at full width.
-    ``bare_wc`` holds phase 6's bf16 weight-clip step times. Returns the
-    B1 / B3 launches of the three runs and the printed figures."""
+def fit_phase(bare_wc, tmp: Path, device="cuda"):
+    """Phases 11 and 12 (module docstring): the CLI's ``main`` at full width,
+    in ``tmp``. ``bare_wc`` holds phase 6's bf16 weight-clip step times.
+    Returns the B1 / B3 launches of the runs, the printed figures, and the
+    device run's checkpoint directory with its generator's state as that
+    run saved it last."""
     capture = LogCapture()
     console = logging.getLogger("contrast_gan_3d_tpu_torch.trainer.logger")
     console.setLevel(logging.INFO)
     console.addHandler(capture)
     results = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(40)
-        fold = []
-        for label, hu in ((0, 400), (-1, 250), (1, 600)):
-            for i in range(3):
-                vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
-                fold.append((str(write_patient(vol, mask, meta, f"synth_{label}_{i}", tmp / "patients")), label))
-        splits = tmp / "splits.pkl"
-        splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
-        confs = {}
-        for backend in ("device", "host"):
-            confs[backend] = tmp / f"fit_{backend}.py"
-            confs[backend].write_text(
-                "from dataclasses import replace\n\n\ndef config(base):\n"
-                f"    return replace(base, augment_backend={backend!r}, **{FIT_OVERRIDES!r})\n")
-        print(f"fit: wrote 9 patients of {FIT_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(40)
+    fold = []
+    for label, hu in ((0, 400), (-1, 250), (1, 600)):
+        for i in range(3):
+            vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
+            fold.append((str(write_patient(vol, mask, meta, f"synth_{label}_{i}", tmp / "patients")), label))
+    splits = tmp / "splits.pkl"
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    confs = {}
+    for backend in ("device", "host"):
+        confs[backend] = tmp / f"fit_{backend}.py"
+        confs[backend].write_text(
+            "from dataclasses import replace\n\n\ndef config(base):\n"
+            f"    return replace(base, augment_backend={backend!r}, **{FIT_OVERRIDES!r})\n")
+    print(f"fit: wrote 9 patients of {FIT_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        def run(backend, iterations):
-            args = ["--conf", str(confs[backend]), "--cval-splits", str(splits), "--checkpoint-root",
-                    str(tmp / "runs"), "--run-id", backend, "--iterations", str(iterations), "--device", device]
-            capture.records.clear()
-            t = time.perf_counter()
-            with b1_per_iteration() as per_it:
-                manager = train_cli.main(args)
-            torch.cuda.synchronize()
-            fold_run = manager.runs[0]
-            logs = list(capture.records)
-            for stage, it, values in logs:
-                if not all(np.isfinite(v) for v in values.values()):
-                    raise AssertionError(f"fit {backend}: non-finite {stage} scalars at {it}: {values}")
-            return fold_run, logs, per_it, time.perf_counter() - t
-
+    def run(backend, iterations, run_id=None):
+        args = ["--conf", str(confs[backend]), "--cval-splits", str(splits), "--checkpoint-root",
+                str(tmp / "runs"), "--run-id", run_id or backend, "--iterations", str(iterations), "--device", device]
+        capture.records.clear()
+        t = time.perf_counter()
+        with b1_per_iteration() as per_it:
+            manager = train_cli.main(args)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
-        s2d_conv3d_block.launches = 0
-        first, logs, per_it, seconds = run("device", FIT_ITERATIONS)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        trainer = first.trainer
-        run_dir = tmp / "runs" / "device"
-        want_per_it, want_total = expected_b1(0, FIT_ITERATIONS, FIT_OVERRIDES["validate_every"],
-                                              FIT_OVERRIDES["val_iterations"])
-        got_per_it = [n for _, n, _ in per_it]
-        if got_per_it != want_per_it or block_conv3x3x3.launches != want_total:
-            raise AssertionError(f"fit: B1 launches per iteration {got_per_it} (expected {want_per_it}), "
-                                 f"in all {block_conv3x3x3.launches} (expected {want_total})")
-        clip = trainer.step_cfg.weight_clip
-        biggest = max(p.abs().max().item() for p in trainer.state.critic.parameters())
-        if not biggest <= clip:
-            raise AssertionError(f"fit: critic parameter {biggest} beyond the clip {clip}")
-        periodic = FIT_OVERRIDES["checkpoint_every"] + 1  # named for the completed step count
-        files = {p.name for p in run_dir.iterdir()}
-        if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{FIT_ITERATIONS}.pt"} <= files:
-            raise AssertionError(f"fit: checkpoint files {sorted(files)}")
-        if not any(stage == "validation" for stage, _, _ in logs):
-            raise AssertionError("fit: no validation scalars logged")
+        fold_run = manager.runs[0]
+        logs = list(capture.records)
+        for stage, it, values in logs:
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"fit {backend}: non-finite {stage} scalars at {it}: {values}")
+        return fold_run, logs, per_it, time.perf_counter() - t
+
+    def stop_loaders(fold_run):
+        """The CLI leaves a fold's loaders running for in-process callers:
+        stop them, so no finished run's workers warp during the next."""
+        for loaders in (fold_run.train_loaders, fold_run.val_loaders or {}):
+            for loader in loaders.values():
+                loader.stop()
+
+    def warm(fold_run, logs, seconds):
+        """The warm patches/s and the time budget of a run."""
         pps = {it: v["patches_per_sec"] for stage, it, v in logs if stage == "train" and "patches_per_sec" in v}
-        shares = trainer.time_budget.shares()
-        n_patches = 12
-        crit, comb = bare_wc["critic_step_s"], bare_wc["combined_step_s"]
-        bare_schedule = n_patches / ((4 * crit + comb) / 5)
-        results["device"] = dict(patches_per_sec=pps, warm_patches_per_sec=pps[WARM_LOG], wall_s=seconds,
-                                 shares=shares, peak_memory_gib=peak_gib,
-                                 bare_combined_patches_per_sec=n_patches / comb,
-                                 bare_schedule_patches_per_sec=bare_schedule)
-        print(f"fit device (basic_3d bf16, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
-              f"{pps[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps)}; bare steps of phase 6: {n_patches / comb:.1f} patches/s per "
-              f"combined_step, {bare_schedule:.1f} over the 4 critic + 1 combined schedule; time budget "
-              f"{json.dumps({k: round(v, 4) for k, v in shares.items()})}; peak memory {peak_gib:.2f} GiB",
-              flush=True)
-        print(f"fit device: {trainer.time_budget.summary()}", flush=True)
+        return dict(patches_per_sec=pps, warm_patches_per_sec=pps[WARM_LOG], wall_s=seconds,
+                    shares=fold_run.trainer.time_budget.shares())
 
-        # a fresh trainer and fresh loaders restore what the run saved
-        cfg = load_config(str(confs["device"]), train_iterations=FIT_ITERATIONS)
-        built = build(cfg, checkpoint_dir=str(run_dir), device=device)
-        fresh = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
-                        built.trainer_config, seed=built.seed + 1, logger_interface=NoopLogger(), device=device)
-        _same_state(fresh.state, trainer.state, "fit restore")
-        loaders = create_loaders(fold, cfg.train_patch_size, cfg.train_batch_size, np.random.default_rng(0),
-                                 num_threads=cfg.num_workers[0], device=device)
-        saved = pickle.loads(ckpt_lib.data_state_path(run_dir, FIT_ITERATIONS).read_bytes())["loaders"]
-        if not ckpt_lib.maybe_restore_data_state(loaders, run_dir, FIT_ITERATIONS) or any(
-                loaders[k].get_state() != saved[k] for k in saved):
-            raise AssertionError("fit: the loaders' data-stream states were not restored as saved")
-        del fresh, built, loaders
-        torch.cuda.empty_cache()
-        print(f"fit restore: model, optimizers, schedules, generator state, step {FIT_ITERATIONS} and "
-              f"{len(saved)} data streams equal to what the run saved", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
+    s2d_conv3d_block.launches = 0
+    first, logs, per_it, seconds = run("device", FIT_ITERATIONS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer = first.trainer
+    run_dir = tmp / "runs" / "device"
+    want_per_it, want_total = expected_b1(0, FIT_ITERATIONS, FIT_OVERRIDES["validate_every"],
+                                          FIT_OVERRIDES["val_iterations"])
+    got_per_it = [n for _, n, _ in per_it]
+    if got_per_it != want_per_it or block_conv3x3x3.launches != want_total:
+        raise AssertionError(f"fit: B1 launches per iteration {got_per_it} (expected {want_per_it}), "
+                             f"in all {block_conv3x3x3.launches} (expected {want_total})")
+    clip = trainer.step_cfg.weight_clip
+    biggest = max(p.abs().max().item() for p in trainer.state.critic.parameters())
+    if not biggest <= clip:
+        raise AssertionError(f"fit: critic parameter {biggest} beyond the clip {clip}")
+    periodic = FIT_OVERRIDES["checkpoint_every"] + 1  # named for the completed step count
+    files = {p.name for p in run_dir.iterdir()}
+    if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{FIT_ITERATIONS}.pt"} <= files:
+        raise AssertionError(f"fit: checkpoint files {sorted(files)}")
+    if not any(stage == "validation" for stage, _, _ in logs):
+        raise AssertionError("fit: no validation scalars logged")
+    n_patches = 12
+    crit, comb = bare_wc["critic_step_s"], bare_wc["combined_step_s"]
+    bare_schedule = n_patches / ((4 * crit + comb) / 5)
+    results["device"] = dict(warm(first, logs, seconds), peak_memory_gib=peak_gib,
+                             bare_combined_patches_per_sec=n_patches / comb,
+                             bare_schedule_patches_per_sec=bare_schedule)
+    pps, shares = results["device"]["patches_per_sec"], results["device"]["shares"]
+    print(f"fit device (basic_3d bf16, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
+          f"{pps[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps)}; bare steps of "
+          f"phase 6: {n_patches / comb:.1f} patches/s per combined_step, {bare_schedule:.1f} over the 4 critic + "
+          f"1 combined schedule; time budget {json.dumps({k: round(v, 4) for k, v in shares.items()})}; peak "
+          f"memory {peak_gib:.2f} GiB", flush=True)
+    print(f"fit device: {trainer.time_budget.summary()}", flush=True)
+    stop_loaders(first)
 
-        before = block_conv3x3x3.launches
-        second, logs2, per_it2, seconds2 = run("device", FIT_RESUME_TO)
-        if second.trainer.start_iteration != FIT_ITERATIONS or second.trainer.iteration != FIT_RESUME_TO:
-            raise AssertionError(f"fit resume: ran {second.trainer.start_iteration} -> {second.trainer.iteration}")
-        want_per_it, want_total = expected_b1(FIT_ITERATIONS, FIT_RESUME_TO, FIT_OVERRIDES["validate_every"],
-                                              FIT_OVERRIDES["val_iterations"])
-        if [n for _, n, _ in per_it2] != want_per_it or block_conv3x3x3.launches - before != want_total:
-            raise AssertionError(f"fit resume: B1 launches {per_it2}, expected {want_per_it}")
-        print(f"fit resume: {FIT_ITERATIONS} -> {FIT_RESUME_TO} in {seconds2:.1f} s", flush=True)
+    # a fresh trainer and fresh loaders restore what the run saved
+    cfg = load_config(str(confs["device"]), train_iterations=FIT_ITERATIONS)
+    built = build(cfg, checkpoint_dir=str(run_dir), device=device)
+    fresh = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                    built.trainer_config, seed=built.seed + 1, logger_interface=NoopLogger(), device=device)
+    _same_state(fresh.state, trainer.state, "fit restore")
+    loaders = create_loaders(fold, cfg.train_patch_size, cfg.train_batch_size, np.random.default_rng(0),
+                             num_threads=cfg.num_workers[0], device=device)
+    saved = pickle.loads(ckpt_lib.data_state_path(run_dir, FIT_ITERATIONS).read_bytes())["loaders"]
+    if not ckpt_lib.maybe_restore_data_state(loaders, run_dir, FIT_ITERATIONS) or any(
+            loaders[k].get_state() != saved[k] for k in saved):
+        raise AssertionError("fit: the loaders' data-stream states were not restored as saved")
+    del fresh, built, loaders
+    torch.cuda.empty_cache()
+    print(f"fit restore: model, optimizers, schedules, generator state, step {FIT_ITERATIONS} and "
+          f"{len(saved)} data streams equal to what the run saved", flush=True)
 
-        # where the time of fit iterations goes: the resumed trainer and its
-        # loaders go on for a few iterations under the profiler, without
-        # validation or checkpoints (the loaders' start is inside the wall)
-        prof = second.trainer
-        prof.cfg = dataclasses.replace(prof.cfg, checkpoint_dir=None, val_every=None)
+    before = block_conv3x3x3.launches
+    second, logs2, per_it2, seconds2 = run("device", FIT_RESUME_TO)
+    if second.trainer.start_iteration != FIT_ITERATIONS or second.trainer.iteration != FIT_RESUME_TO:
+        raise AssertionError(f"fit resume: ran {second.trainer.start_iteration} -> {second.trainer.iteration}")
+    want_per_it, want_total = expected_b1(FIT_ITERATIONS, FIT_RESUME_TO, FIT_OVERRIDES["validate_every"],
+                                          FIT_OVERRIDES["val_iterations"])
+    if [n for _, n, _ in per_it2] != want_per_it or block_conv3x3x3.launches - before != want_total:
+        raise AssertionError(f"fit resume: B1 launches {per_it2}, expected {want_per_it}")
+    print(f"fit resume: {FIT_ITERATIONS} -> {FIT_RESUME_TO} in {seconds2:.1f} s", flush=True)
+    # what <FIT_RESUME_TO>.pt holds, for phase 14
+    ckpt_state = {k: v.detach().cpu().clone() for k, v in second.trainer.state.generator.state_dict().items()}
 
-        def window():
-            prof.cfg = dataclasses.replace(prof.cfg, train_iterations=prof.iteration + FIT_PROFILE_ITERATIONS)
-            prof.fit(second.train_loaders)
+    # where the time of fit iterations goes: the resumed trainer and its
+    # loaders go on for a few iterations under the profiler, without
+    # validation or checkpoints (the loaders' start is inside the wall)
+    prof = second.trainer
+    prof.cfg = dataclasses.replace(prof.cfg, checkpoint_dir=None, val_every=None)
 
-        profile(window, f"fit device, {FIT_PROFILE_ITERATIONS} iterations of a started run")
-        print(f"profile fit device: {prof.time_budget.summary()}", flush=True)
-        del first, second, trainer
-        torch.cuda.empty_cache()
+    def window():
+        prof.cfg = dataclasses.replace(prof.cfg, train_iterations=prof.iteration + FIT_PROFILE_ITERATIONS)
+        prof.fit(second.train_loaders)
 
-        before = block_conv3x3x3.launches
-        host, logs3, per_it3, seconds3 = run("host", FIT_HOST_ITERATIONS)
-        want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
-                                              FIT_OVERRIDES["val_iterations"])
-        if [n for _, n, _ in per_it3] != want_per_it or block_conv3x3x3.launches - before != want_total:
-            raise AssertionError(f"fit host: B1 launches {per_it3}, expected {want_per_it}")
-        pps3 = {it: v["patches_per_sec"] for stage, it, v in logs3 if stage == "train" and "patches_per_sec" in v}
-        shares3 = host.trainer.time_budget.shares()
-        results["host"] = dict(patches_per_sec=pps3, warm_patches_per_sec=pps3[WARM_LOG], wall_s=seconds3,
-                               shares=shares3)
-        print(f"fit host (augment_backend='host', {FIT_HOST_ITERATIONS} iterations, {seconds3:.1f} s with set-up): "
-              f"warm {pps3[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps3)}; data_wait share {shares3['data_wait']:.3f}; time budget "
-              f"{json.dumps({k: round(v, 4) for k, v in shares3.items()})}", flush=True)
-        print(f"fit host: {host.trainer.time_budget.summary()}", flush=True)
-        del host
+    profile(window, f"fit device, {FIT_PROFILE_ITERATIONS} iterations of a started run")
+    print(f"profile fit device: {prof.time_budget.summary()}", flush=True)
+    stop_loaders(second)
+    del first, second, trainer
+    torch.cuda.empty_cache()
+
+    # the host backend through the native warp, three times, each beside a
+    # fresh device-augmented run of the same length
+    print(f"fit host threads: {os.cpu_count()} cores, warp_num_threads {native.warp_num_threads()}, 3 train "
+          f"loaders x {cfg.num_workers[0]} workers + 3 validation loaders x {cfg.num_workers[1]}, torch intra-op "
+          f"{torch.get_num_threads()}", flush=True)
+    results["host"], results["device_beside_host"] = [], []
+    want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
+                                          FIT_OVERRIDES["val_iterations"])
+    for rep in range(FIT_HOST_REPEATS):
+        for backend in ("host", "device"):
+            before, warps, plain = block_conv3x3x3.launches, native.warp_augment_int16.calls, warp_int16.calls
+            fold_run, logs3, per_it3, seconds3 = run(backend, FIT_HOST_ITERATIONS, f"{backend}_{rep}")
+            if [n for _, n, _ in per_it3] != want_per_it or block_conv3x3x3.launches - before != want_total:
+                raise AssertionError(f"fit {backend} {rep}: B1 launches {per_it3}, expected {want_per_it}")
+            warps = native.warp_augment_int16.calls - warps
+            if backend == "host" and not (warps > 0 and warp_int16.calls == plain):
+                raise AssertionError(f"fit host {rep}: {warps} native warps, "
+                                     f"{warp_int16.calls - plain} plain (torch) warps")
+            r = dict(warm(fold_run, logs3, seconds3), native_warps=warps)
+            results["host" if backend == "host" else "device_beside_host"].append(r)
+            print(f"fit {backend} run {rep + 1}/{FIT_HOST_REPEATS} ({FIT_HOST_ITERATIONS} iterations, "
+                  f"{seconds3:.1f} s with set-up): warm {r['warm_patches_per_sec']:.1f} patches/s (iterations "
+                  f"6-10); data_wait {r['shares']['data_wait']:.3f}, dispatch {r['shares']['dispatch']:.3f}; "
+                  f"native warps {warps}; logged patches/s {json.dumps(r['patches_per_sec'])}; "
+                  f"{fold_run.trainer.time_budget.summary()}", flush=True)
+            stop_loaders(fold_run)
+            del fold_run
+    for key in ("host", "device_beside_host"):
+        rs = results[key]
+        print(f"fit {key}, {FIT_HOST_REPEATS} runs: warm patches/s "
+              f"{[round(r['warm_patches_per_sec'], 1) for r in rs]}, data_wait "
+              f"{[round(r['shares']['data_wait'], 3) for r in rs]}, dispatch "
+              f"{[round(r['shares']['dispatch'], 3) for r in rs]}", flush=True)
     console.removeHandler(capture)
     launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
                 "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
@@ -1319,7 +1397,233 @@ def fit_phase(bare_wc, device="cuda"):
         raise AssertionError(f"fit: B3 launches do not match B1's forwards: {launches}")
     print(f"fit: launches {launches}", flush=True)
     torch.cuda.empty_cache()
-    return launches, results
+    return launches, results, (run_dir, ckpt_state)
+
+
+def ct_like(rng, shape, phase):
+    """``smooth_ct`` with N(0, 20) HU noise, clipped to the HU range, int16."""
+    return np.clip(smooth_ct(shape, phase).numpy() + rng.normal(0, 20, shape), -1024, 1500).astype(np.int16)
+
+
+def native_phase(tmp: Path):
+    """Phase 13 (module docstring): the native warp and crop against their
+    plain versions, and their times on this host."""
+    info = native.build_info()
+    print(f"native: {json.dumps(info)}", flush=True)
+    log = native.build_log_path()
+    if log.exists():
+        print("native build: " + " | ".join(line for line in log.read_text().splitlines() if line), flush=True)
+    augmenter = HostAugmenter(AUG_ALWAYS, np.random.default_rng(50))
+    rng = np.random.default_rng(51)
+    cases, n, equal, worst, mask_diff, near = [], 0, 0, 0, 0, 0
+    for i in range(NATIVE_PATCHES):
+        scan = ct_like(rng, NATIVE_SHAPE, i)
+        seg = (rng.random(NATIVE_SHAPE) < 0.01).astype(np.int16)
+        affine, coarse, amp, _ = augmenter.sample_params(NATIVE_SHAPE)
+        got = native.warp_augment_int16(scan, seg, affine, coarse, amp)
+        want = warp_int16(scan, seg, affine, coarse, amp)
+        worst = max(worst, int(np.abs(got[0].astype(np.int32) - want[0]).max()))
+        n += scan.size
+        equal += int((got[0] == want[0]).sum())
+        frac = torch.remainder(warp_coords(NATIVE_SHAPE, affine, coarse, amp), 1.0)
+        safe = (~((frac - 0.5).abs() < AUG_HALF_TOL).any(-1)).numpy()
+        mask_diff += int((got[1] != want[1])[safe].sum())
+        near += int((~safe).sum())
+        cases.append((scan, seg, affine, coarse, amp))
+    print(f"native warp vs warp_int16 ({NATIVE_PATCHES} x 128^3 CT-like int16, rotation, scale and elastic on): "
+          f"max |native - plain| {worst} HU (tol 1), {equal / n:.6f} of voxels equal (min {NATIVE_EQUAL_MIN}); "
+          f"mask voxels that differ away from half-integers {mask_diff} ({near} voxels near one skipped)",
+          flush=True)
+    if not (worst <= 1 and equal / n >= NATIVE_EQUAL_MIN and mask_diff == 0):
+        raise AssertionError("the native warp disagrees with its plain version")
+
+    # the crop out of a memmapped patient, as the samplers take it
+    vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, 400)
+    patient = np.load(write_patient(vol, mask, meta, "native_crop", tmp / "native"), mmap_mode="r")
+    starts = [(80, 90, 16), (-40, 100, 60), (200, -30, 100), (-64, -64, -64), (250, 250, 120)]
+    for start in starts:
+        got = native.crop_pad_int16(patient, start, NATIVE_SHAPE)
+        if not np.array_equal(got, crop_pad_int16_reference(patient, start, NATIVE_SHAPE)):
+            raise AssertionError(f"the native crop at {start} differs from the numpy crop")
+    print(f"native crop vs numpy crop: {len(starts)} 128^3 windows of a {patient.shape} memmap, bit-identical",
+          flush=True)
+
+    def per_call_ms(fn, items, reps):
+        times = []
+        for _ in range(reps):
+            for item in items:
+                t = time.perf_counter()
+                fn(*item)
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    native.warp_augment_int16(*cases[0])  # warm
+    crops = [(patient, s, NATIVE_SHAPE) for s in starts]
+    out = dict(build=info, max_abs_err_hu=worst, equal_fraction=equal / n,
+               warp_ms=per_call_ms(native.warp_augment_int16, cases, 5),
+               plain_warp_ms=per_call_ms(warp_int16, cases, 2),
+               crop_ms=per_call_ms(native.crop_pad_int16, crops, 5),
+               plain_crop_ms=per_call_ms(crop_pad_int16_reference, crops, 5))
+    print(f"native: ms per warped 128^3 patch {out['warp_ms']:.2f} (plain warp_int16 {out['plain_warp_ms']:.2f}, "
+          f"torch intra-op threads {torch.get_num_threads()}); ms per 128^3 crop {out['crop_ms']:.3f} (numpy "
+          f"{out['plain_crop_ms']:.3f}); host medians", flush=True)
+    return out
+
+
+def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cuda"):
+    """Phase 14 (module docstring). The B1 / B3 counts are zeroed just
+    before ``correct_scans.main`` and read just after it."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(60)
+    scans_dir = tmp / "scans"
+    scans_dir.mkdir()
+    spacing = np.array([0.39, 0.39, 0.5])
+    scans = []
+    for i, fmt in enumerate(FILES_FORMATS):
+        vol = ct_like(rng, FILES_SHAPE, i)
+        origin = np.array([-100.0, -120.0, 40.0 + i])
+        if fmt == "mhd":
+            scans.append(scans_dir / f"scan_{i}.mhd")
+            io_utils.write_mhd(vol, scans[-1], spacing=spacing, origin=origin)
+        elif fmt == "nii.gz":
+            scans.append(scans_dir / f"scan_{i}.nii.gz")
+            io_utils.write_nifti(vol, scans[-1], spacing=spacing, origin=origin)
+        else:
+            mask = (rng.random(FILES_SHAPE) < 1e-4).astype(np.int16)
+            scans.append(write_patient(vol, mask, {"spacing": spacing, "offset": origin,
+                                                   "centerlines_world": np.zeros((0, 4), np.float32)},
+                                       f"scan_{i}", scans_dir))
+    print(f"serving files: wrote {[p.name for p in scans]} ({FILES_SHAPE} int16) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    corrector = CCTAContrastCorrector.from_checkpoint(ckpt_dir, inference_patch_size=FILES_PATCH,
+                                                      overlap=FILES_OVERLAP, batch_size=BATCH, device=device)
+    state = corrector.generator.state_dict()
+    if count_parameters(corrector.generator) != GEN_PARAMS or list(state) != list(ckpt_state) or not all(
+            torch.equal(v.cpu(), ckpt_state[k]) for k, v in state.items()):
+        raise AssertionError("the corrector from the checkpoint does not hold the trainer's generator")
+    print(f"serving files: from_checkpoint({ckpt_dir.name}) holds the trainer's generator tensor for tensor "
+          f"({len(state)} tensors, {count_parameters(corrector.generator):,} parameters)", flush=True)
+
+    # cuDNN left free to pick its algorithms: the same scan corrected twice
+    first_scan, _ = load_patient_or_scan(scans[0])
+    free = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        corrected = corrector(first_scan)
+        torch.cuda.synchronize()
+        free.append((time.perf_counter() - t, corrected))
+    nondeterministic = dict(voxels_f32=int((free[0][1] != free[1][1]).sum()),
+                            max_abs_hu=(free[0][1] - free[1][1]).abs().max().item(),
+                            voxels_int16=int((device_int16(free[0][1]) != device_int16(free[1][1])).sum()),
+                            seconds=free[1][0])
+    print(f"serving files: one scan corrected twice with cudnn.deterministic={torch.backends.cudnn.deterministic}: "
+          f"{json.dumps(nondeterministic)}", flush=True)
+    del free, corrected
+    profile(lambda: corrector(first_scan), f"serving files {FILES_SHAPE} f32 50% overlap, cuDNN free")
+
+    torch.cuda.synchronize()
+    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
+    s2d_conv3d_block.launches = 0
+    t = time.perf_counter()
+    # the command's defaults, spelled out: 128^3 patches, 50% overlap, batch 8
+    done = correct_scans.main([str(ckpt_dir), str(tmp / "out_command"), *map(str, scans), "--patch-size",
+                               *map(str, FILES_PATCH), "--overlap", str(FILES_OVERLAP), "--batch-size", str(BATCH),
+                               "--device", device])
+    torch.cuda.synchronize()
+    command_s = time.perf_counter() - t
+    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
+                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
+                "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
+    forwards = -(-num_patches(FILES_SHAPE, FILES_PATCH, FILES_OVERLAP) // BATCH)
+    want = 2 * forwards * len(scans)
+    print(f"serving files: correct_scans.main over {len(scans)} scans in {command_s:.2f} s (set-up included); "
+          f"{forwards} forwards per volume; launches {launches}", flush=True)
+    if (forwards != 7 or launches["block_conv3x3x3"] != want or launches["s2d_conv3d_block"] != want
+            or launches["block_conv3x3x3_v2"] or launches["block_conv3x3x3_backward"]):
+        raise AssertionError(f"serving files: expected {want} B1 and B3 launches (14 per volume), got {launches}")
+
+    # the rest with cuDNN's deterministic algorithms, as the command runs
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        in_memory = []
+        for src, out in zip(scans, done):
+            scan, _ = load_patient_or_scan(src)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            corrected = device_int16(corrector(scan)).cpu().numpy()
+            in_memory.append(time.perf_counter() - t)
+            written, _ = io_utils.read_image(out)
+            if written.shape != FILES_SHAPE or not np.array_equal(written, corrected):
+                diff = np.abs(written.astype(np.int32) - corrected) if written.shape == corrected.shape else None
+                raise AssertionError(f"serving files: {out.name} differs from device_int16(corrector(scan)): "
+                                     f"shape {written.shape}, voxels {None if diff is None else int((diff > 0).sum())}"
+                                     f", max {None if diff is None else int(diff.max())} HU")
+        profile(lambda: corrector(first_scan), f"serving files {FILES_SHAPE} f32 50% overlap, cudnn.deterministic")
+        timed = {}
+        for name, overlap_io in (("sequential", False), ("overlapped", True)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            correct_patients(corrector, tmp / f"out_{name}", scans, overlap_io=overlap_io)
+            torch.cuda.synchronize()
+            timed[name] = (time.perf_counter() - t) / len(scans)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    files = {}
+    for name in ("command", "sequential", "overlapped"):
+        files[name] = {p.name: p.read_bytes() for p in sorted((tmp / f"out_{name}").iterdir())}
+    if not files["command"] == files["sequential"] == files["overlapped"] or len(files["command"]) != 2 * len(scans):
+        raise AssertionError("serving files: the command's, the sequential and the overlapped files differ")
+    out = dict(launches=launches, forwards_per_volume=forwards, command_s=command_s,
+               nondeterministic_cudnn=nondeterministic, in_memory_s_per_volume=statistics.median(in_memory), sequential_s_per_volume=timed["sequential"],
+               overlapped_s_per_volume=timed["overlapped"])
+    print(f"serving files: every output equals device_int16(corrector(scan)); the command's, the sequential and "
+          f"the overlapped cohort's {len(files['command'])} files are equal byte for byte; seconds per "
+          f"{FILES_SHAPE} volume (f32, 50% overlap, cudnn.deterministic): in memory "
+          f"{out['in_memory_s_per_volume']:.3f} (int16 fetched), sequential file to file {timed['sequential']:.3f}, "
+          f"overlapped file to file {timed['overlapped']:.3f}", flush=True)
+    del corrector
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def small_patch_phase(device="cuda", **overrides):
+    """Phase 15 (module docstring): the peak device memory of bf16
+    ``combined_step`` at small_patch's 40 + 20 + 20 patches of 128x128x32."""
+    cfg = load_config("small_patch", **overrides)
+    built = build(cfg, device=device)
+    trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                      built.trainer_config, seed=built.seed, logger_interface=NoopLogger(), device=device)
+    mix = tuple(cfg.train_batch_size[k] for k in (OPT, LOW, HIGH))
+    patches = train_patches(np.random.default_rng(70), cfg.train_patch_size, mix, device)
+    opt, subopt, mask, _ = trainer._assemble(patches)
+    voxels = sum(mix) * math.prod(cfg.train_patch_size)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    seconds = []
+    for _ in range(2):
+        t = time.perf_counter()
+        _, metrics = trainer.steps.combined_step(trainer.state, opt, subopt, mask)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    if not all(math.isfinite(v.float().item()) for v in metrics.values()):
+        raise AssertionError(f"small_patch combined_step: non-finite losses {metrics}")
+    out = dict(mix=list(mix), patch=list(cfg.train_patch_size), voxels=voxels, dtype=cfg.compute_dtype,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, resident_gib=resident,
+               combined_step_s=seconds[-1])
+    print(f"small_patch: bf16 combined_step at {mix[0]} + {mix[1]} + {mix[2]} patches of "
+          f"{tuple(cfg.train_patch_size)} ({voxels / 1e6:.1f} M voxels): peak memory {out['peak_memory_gib']:.2f} GiB "
+          f"allocated, {out['peak_reserved_gib']:.2f} GiB reserved ({resident:.2f} GiB resident before the step); "
+          f"warm step {seconds[-1]:.3f} s", flush=True)
+    del trainer, built, patches, opt, subopt, mask
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1347,7 +1651,7 @@ def main() -> int:
 
     gen = seeded(ResnetGenerator(), 0)
     state = {k: v.clone() for k, v in gen.state_dict().items()}
-    if count_parameters(gen) != 1_035_297:
+    if count_parameters(gen) != GEN_PARAMS:
         raise AssertionError(f"default generator has {count_parameters(gen)} parameters")
     # the bf16 phases draw from their own stream, so the f32 phases see the
     # inputs they always saw
@@ -1394,24 +1698,35 @@ def main() -> int:
     print(f"train: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     augment_ms = augment_phase(dev)
-    fit_launches, fit_results = fit_phase(train[torch.bfloat16][1]["wc"])
-    print(f"fit: {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        native_results = native_phase(tmp)
+        print(f"native: {time.perf_counter() - t_start:.1f} s", flush=True)
+        fit_launches, fit_results, (ckpt_dir, ckpt_state) = fit_phase(train[torch.bfloat16][1]["wc"], tmp)
+        print(f"fit: {time.perf_counter() - t_start:.1f} s", flush=True)
+        files_launches, files_results = serving_files_phase(tmp, ckpt_dir, ckpt_state)
+        print(f"serving files: {time.perf_counter() - t_start:.1f} s", flush=True)
+    small_patch = small_patch_phase()
+    print(f"small_patch: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
     # the dx rows count B1's backward launches only
     for r, key in [(r, r["name"]) for r in rows] + [(r, "block_conv3x3x3_backward") for r in dx_rows]:
         dtype = dtype_of[r["dtype"]]
-        # the fit path is basic_3d, which trains in bf16
+        # the fit path is basic_3d, which trains in bf16; the correct_scans
+        # command serves in f32, as the JAX command does
         by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key],
-                   "fit": fit_launches[key] if dtype == torch.bfloat16 else 0}
+                   "fit": fit_launches[key] if dtype == torch.bfloat16 else 0,
+                   "serving_files": files_launches[key] if dtype == torch.float32 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
         "requests": {DTYPE_NAME[dt]: v[1] for dt, v in serve.items()},
         "serving_peak_memory_gib": {DTYPE_NAME[dt]: v[2] for dt, v in serve.items()},
         "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi,
-        "augment_6_plus_6_ms": augment_ms, "fit": fit_results,
+        "augment_6_plus_6_ms": augment_ms, "native": native_results, "fit": fit_results,
+        "serving_files": files_results, "small_patch": small_patch,
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,92 @@
+"""Correct scan files with a trained generator (the port's counterpart of the
+JAX package's ``scripts/correct_scans.py``):
+
+    python -m contrast_gan_3d_tpu_torch.correct_scans runs/exp1 out/ a.mhd b.nii.gz p.npy
+
+loads the latest ``<step>.pt`` in the checkpoint directory (or
+``--iteration``'s), builds the generator from it, and writes each corrected
+scan as ``<out_dir>/<name>.<format>`` (.mhd with a compressed .raw, .nii or
+.nii.gz), in f32 as the JAX command does, the host I/O overlapped with the
+correction. Runs on the card unless ``--device cpu``, with cuDNN held to
+its deterministic algorithms: its transpose convolutions otherwise may sum
+in another order from one call to the next, and a scan corrected twice, or
+by the overlapped and the sequential cohort, would not give the same file.
+The first SIGTERM or Ctrl-C finishes the volumes in flight and exits 0; a
+second one aborts.
+Reference ``.pt`` checkpoints, sharding over several cards and HDF5 output
+are not ported (ROADMAP).
+"""
+
+import argparse
+import logging
+import signal
+import sys
+import threading
+from pathlib import Path
+
+import torch
+
+from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.eval.utils import correct_patients
+from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.signals import install_graceful_stop
+
+logger = logging.getLogger("contrast_gan_3d_tpu_torch.correct_scans")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("checkpoint_dir", type=Path)
+    p.add_argument("out_dir", type=Path)
+    p.add_argument("scans", nargs="+", help="scan files or preprocessed patients")
+    p.add_argument("--iteration", type=int, default=None)
+    p.add_argument("--patch-size", type=int, nargs=3, default=(128, 128, 128))
+    p.add_argument("--overlap", type=float, default=0.5)
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="generator forward batch (the JAX command's choice for the direct layout)")
+    p.add_argument("--reference-pt", action="store_true", help="not ported (ROADMAP, A4)")
+    p.add_argument("--sharded", action="store_true", help="not ported (ROADMAP, A10)")
+    p.add_argument("--output-format", choices=("mhd", "nii", "nii.gz", "h5"), default="mhd",
+                   help="corrected-scan format (h5 is not ported: ROADMAP, A8)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> list:
+    """Run the command in-process; returns the paths written."""
+    args = parse_args(argv)
+    unported = {
+        "--reference-pt": (args.reference_pt, "from_reference_checkpoint (ROADMAP.md, A4)"),
+        "--sharded": (args.sharded, "sharded correction over several cards (ROADMAP.md, A10)"),
+        "--output-format h5": (args.output_format == "h5", "HDF5 output: no h5py on the card's machine "
+                                                           "(ROADMAP.md, A8)"),
+    }
+    for flag, (given, what) in unported.items():
+        if given:
+            raise NotImplementedError(f"{flag}: {what} is not ported yet; see ROADMAP.md")
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
+    device = resolve_device(args.device)
+    corrector = CCTAContrastCorrector.from_checkpoint(
+        args.checkpoint_dir, iteration=args.iteration, inference_patch_size=tuple(args.patch_size),
+        overlap=args.overlap, batch_size=args.batch_size, device=device,
+    )
+    stop = threading.Event()
+    previous = install_graceful_stop(lambda name: stop.set(), stop.is_set)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        done = correct_patients(corrector, args.out_dir, args.scans, suffix=f".{args.output_format}",
+                                stop_requested=stop.is_set)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for signum, handler in (previous or {}).items():
+            signal.signal(signum, handler)
+    if stop.is_set():
+        logger.warning("Stopped early: %d/%d scans corrected", len(done), len(args.scans))
+    return done
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

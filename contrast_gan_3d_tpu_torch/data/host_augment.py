@@ -4,12 +4,15 @@ host_augment.py``).
 
 The parameters are drawn from a ``np.random.Generator`` with the same
 calls in the same order as the JAX package, so the same seed gives the
-same transforms. The warp itself is the port's own samplers on CPU tensors
-(the JAX package calls its native AVX-512 warp): ``src = A @ (dst - c) + c
-+ amp * elastic(dst)``, the elastic field a half-pixel linear upsample of
-the coarse noise without antialiasing, as the native warp computes it. The
-scan rounds like the native warp, ``floor(v + 0.5)`` to int16; the mask is
-nearest, half to even.
+same transforms. ``HostAugmenter`` warps with the native C++ warp
+(``native.warp_augment_int16``), as the JAX package does: ``src = A @
+(dst - c) + c + amp * elastic(dst)``, the elastic field a half-pixel linear
+upsample of the coarse noise, the scan rounded as ``floor(v + 0.5)`` to
+int16, the mask nearest, half to even.
+
+``warp_int16`` is the warp's plain version, the same function on the
+port's samplers over CPU tensors. Nothing on the training path calls it:
+the tests and ``chip_smoke.py`` hold the native warp against it.
 """
 
 import threading
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from contrast_gan_3d_tpu_torch import native
 from contrast_gan_3d_tpu_torch.data.augment import AugmentConfig
 from contrast_gan_3d_tpu_torch.ops.resample import identity_grid, nearest_sample, resize_linear, trilinear_sample
 
@@ -34,6 +38,19 @@ def rotation_matrix_np(angles: np.ndarray) -> np.ndarray:
     return rz @ ry @ rx
 
 
+def warp_coords(shape, affine: np.ndarray, coarse: Optional[np.ndarray] = None,
+                amp: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The (X, Y, Z, 3) source coordinates of the warp, ``A @ (dst - c) + c
+    + amp * elastic(dst)``."""
+    center = (torch.tensor(shape, dtype=torch.float32) - 1.0) / 2.0
+    rel = identity_grid(shape) - center
+    coords = rel @ torch.from_numpy(np.asarray(affine, np.float32)).T + center
+    if coarse is not None:
+        field_ = resize_linear(torch.from_numpy(np.asarray(coarse, np.float32))[None], shape, antialias=False)[0]
+        coords = coords + field_ * torch.from_numpy(np.asarray(amp, np.float32))
+    return coords
+
+
 def warp_int16(
     scan: np.ndarray,
     seg: np.ndarray,
@@ -41,25 +58,24 @@ def warp_int16(
     coarse: Optional[np.ndarray] = None,
     amp: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Warp one (X, Y, Z) int16 scan and its mask: trilinear scan rounded
-    with floor(v + 0.5), nearest mask, clamp-to-edge."""
-    shape = scan.shape
-    center = (torch.tensor(shape, dtype=torch.float32) - 1.0) / 2.0
-    rel = identity_grid(shape) - center
-    coords = rel @ torch.from_numpy(np.asarray(affine, np.float32)).T + center
-    if coarse is not None:
-        field_ = resize_linear(torch.from_numpy(np.asarray(coarse, np.float32))[None], shape, antialias=False)[0]
-        coords = coords + field_ * torch.from_numpy(np.asarray(amp, np.float32))
-    coords = coords[None]
+    """The plain version of ``native.warp_augment_int16``: warp one (X, Y,
+    Z) int16 scan and its mask, trilinear scan rounded with floor(v + 0.5),
+    nearest mask, clamp-to-edge. Counts its calls in ``warp_int16.calls``."""
+    warp_int16.calls += 1
+    coords = warp_coords(scan.shape, affine, coarse, amp)[None]
     out = trilinear_sample(torch.from_numpy(scan.astype(np.float32))[None], coords)[0]
     out_seg = nearest_sample(torch.from_numpy(np.ascontiguousarray(seg))[None], coords)[0]
     return torch.floor(out + 0.5).to(torch.int16).numpy(), out_seg.numpy()
 
 
+warp_int16.calls = 0
+
+
 @dataclass
 class HostAugmenter:
-    """Per-sample random spatial transforms applied in the loader workers.
-    Thread-safe: the parameter draws are locked; the warp runs outside."""
+    """Per-sample random spatial transforms applied in the loader workers
+    through the native warp. Thread-safe: the parameter draws are locked;
+    the warp runs outside."""
 
     cfg: AugmentConfig
     rng: np.random.Generator
@@ -95,4 +111,4 @@ class HostAugmenter:
             affine, coarse, amp, any_transform = self.sample_params(scan.shape)
         if not any_transform:
             return scan, seg
-        return warp_int16(scan, seg, affine, coarse, amp)
+        return native.warp_augment_int16(scan, seg, affine, coarse, amp)

@@ -6,9 +6,9 @@ Per sample: a patient from a shuffled epoch order, a random crop of the
 centred on a random centerline point, then the optional host augmenter.
 With the same files and the same ``np.random.Generator`` seed the batches
 are bit-identical to the JAX sampler's: the draws are the same calls in
-the same order, and the crop is the JAX package's numpy crop. Patches stay
-int16; the scaler runs in the train step. The 2D sampler is not ported
-(ROADMAP).
+the same order, and the crop is the native crop the JAX package calls.
+Patches stay int16; the scaler runs in the train step. The 2D sampler is
+not ported (ROADMAP).
 """
 
 import threading
@@ -16,14 +16,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from contrast_gan_3d_tpu_torch import native
 from contrast_gan_3d_tpu_torch.data.preprocess import ROADMAP_NOTE, load_patient
 from contrast_gan_3d_tpu_torch.utils import geometry as geom
 
 
 def crop_pad_int16(volume: np.ndarray, start, patch_size) -> np.ndarray:
     """A zero-padded (px, py, pz, C) int16 window of the (W, H, D, C)
-    ``volume`` whose ``start`` may be negative or overhang it; only the
-    window's pages are read from a memmap."""
+    ``volume`` whose ``start`` may be negative or overhang it. A
+    C-contiguous int16 ndarray (a memmapped patient is one) goes through
+    the native crop, as in the JAX package, which reads only the window's
+    rows, so only their pages of a memmap; anything else takes the plain
+    version."""
+    if (isinstance(volume, np.ndarray) and volume.ndim == 4 and volume.dtype == np.int16
+            and volume.flags["C_CONTIGUOUS"]):
+        return native.crop_pad_int16(volume, start, patch_size)
+    return crop_pad_int16_reference(volume, start, patch_size)
+
+
+def crop_pad_int16_reference(volume: np.ndarray, start, patch_size) -> np.ndarray:
+    """The plain version of :func:`crop_pad_int16`, a numpy slice copy."""
     px, py, pz = (int(p) for p in patch_size)
     out = np.zeros((px, py, pz, volume.shape[3]), np.int16)
     src_sl, dst_sl = [], []

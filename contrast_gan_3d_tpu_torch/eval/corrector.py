@@ -4,16 +4,30 @@
 A user hands an int16 (W, H, D) volume to ``CCTAContrastCorrector``; the
 Gaussian-blended sliding window (``ops/sliding_window.py``) runs every patch
 through the generator on the device and returns the f32 corrected HU volume.
+``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``;
+``correct_file`` reads a scan file, corrects it and writes the result
+(``utils/io_utils.py``).
 """
 
-from typing import Tuple
+import logging
+from pathlib import Path
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
+from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
+from contrast_gan_3d_tpu_torch.models.utils import derive_generator_arch
 from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
+from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
+from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+INT16 = np.iinfo(np.int16)
 
 
 class CCTAContrastCorrector:
@@ -60,8 +74,60 @@ class CCTAContrastCorrector:
             dtype=dtype,
         )
 
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir,
+        generator: Optional[nn.Module] = None,
+        iteration: Optional[int] = None,
+        **kwargs,
+    ) -> "CCTAContrastCorrector":
+        """Build from a training checkpoint: ``<step>.pt`` (the latest in
+        ``checkpoint_dir``, or ``iteration``'s), or that file itself.
+
+        With no ``generator`` the architecture is read from the weights
+        (``derive_generator_arch``) and updated with the meta sidecar's
+        ``tconv_placement`` and ``norm``; the generator is built at f32, as
+        the JAX package builds it, and loads the weights strictly. The
+        corrector's ``dtype`` then only casts the patches: with
+        ``dtype=torch.bfloat16`` the scaled patches are rounded to bf16 and
+        the f32 generator casts them back, computing in f32, as flax's f32
+        modules do with bf16 inputs. ``kwargs`` go to the constructor."""
+        payload = ckpt_lib.load_generator(checkpoint_dir, iteration=iteration)
+        if generator is None:
+            gen_kwargs = derive_generator_arch(payload["state_dict"])
+            gen_kwargs.update(payload["meta"].get("generator", {}))
+            generator = ResnetGenerator(**gen_kwargs)
+            logger.info("Auto-derived generator architecture: %s", gen_kwargs)
+        generator.load_state_dict(payload["state_dict"], strict=True)
+        logger.info("Loaded generator from '%s' @ iteration %s", checkpoint_dir, payload["step"])
+        return cls(generator, **kwargs)
+
     @torch.inference_mode()
     def __call__(self, volume) -> torch.Tensor:
         """Correct one (W, H, D) HU volume (int16/float); f32 HU out, on
         ``self.device``."""
         return self.correct_volume(volume)
+
+    def correct_file(self, scan_path, out_path=None, meta=None) -> np.ndarray:
+        """Load a scan file (``io_utils.load_scan``), correct it, and write
+        it to ``out_path`` if given; returns the f32 corrected volume."""
+        volume, file_meta = io_utils.load_scan(scan_path)
+        corrected = self(volume).cpu().numpy()
+        if out_path is not None:
+            self.save(corrected, out_path, meta or file_meta)
+        return corrected
+
+    @staticmethod
+    def save(corrected, out_path, meta: dict):
+        """Write a corrected volume: rounded half to even and clipped to
+        int16 (an int16 volume is written as it is), then ``save_scan`` with
+        the meta's offset, spacing and direction."""
+        out_path = Path(out_path)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        if isinstance(corrected, torch.Tensor):
+            corrected = corrected.cpu().numpy()
+        vol = corrected if corrected.dtype == np.int16 else \
+            np.clip(np.round(corrected), INT16.min, INT16.max).astype(np.int16)
+        io_utils.save_scan(vol, meta.get("offset"), meta.get("spacing"), out_path, direction=meta.get("direction"))
+        logger.info("Saved corrected scan to '%s'", out_path)

@@ -6,10 +6,18 @@ What the JAX builder chooses automatically, the port resolves so:
 - ``generator_layout="auto"`` -> "direct" (logged once); "packed" raises;
 - ``cycle_length`` None or 1 -> per-iteration dispatch (the same math as a
   fused cycle); K > 1 raises;
-- ``remat`` None or False -> off; True raises;
+- ``remat`` None or False -> off; True raises. The JAX builder turns remat
+  on above 30 M voxels per iteration (``small_patch``, ``rmsprop`` and
+  ``gp_layernorm``: 40 + 20 + 20 patches of 128x128x32, 41.9 M voxels).
+  The port keeps it off: ``small_patch``'s bf16 ``combined_step`` peaks at
+  8.28 GiB allocated on an NVIDIA H100 80GB HBM3 at 700 W
+  (``chip_smoke.py``'s small_patch phase), a tenth of the card, and the
+  math is the same either way;
 - ``dp_devices`` / ``sp_devices`` set -> raise;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
   ``HostAugmenter`` for the train loaders;
+- ``logger="file"`` -> ``scalars.jsonl`` under ``<checkpoint_dir>/metrics``,
+  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``);
 - the 2D family and the layer-norm critic raise (ROADMAP).
 
 The networks' initial weights are drawn on the CPU from the config's seed
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from contrast_gan_3d_tpu_torch import config as paths
 from contrast_gan_3d_tpu_torch.data.augment import AugmentConfig
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
@@ -140,9 +149,9 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
         checkpoint_dir=checkpoint_dir,
     )
     if cfg.logger == "file":
-        if checkpoint_dir is None:
-            raise ValueError("logger='file' writes beside the checkpoints: give a checkpoint_dir")
-        logger_interface: LoggerInterface = FileLogger(Path(checkpoint_dir) / "metrics")
+        # beside the checkpoints, or under the project's logs directory
+        out_dir = Path(checkpoint_dir) / "metrics" if checkpoint_dir else paths.LOGS_DIR / cfg.name / "metrics"
+        logger_interface: LoggerInterface = FileLogger(out_dir)
     elif cfg.logger == "console":
         logger_interface = ConsoleLogger()
     else:

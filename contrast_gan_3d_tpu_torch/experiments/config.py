@@ -14,8 +14,9 @@ from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from contrast_gan_3d_tpu_torch.constants import MAX_HU, MIN_HU
+
 # reference constants.py (the JAX package's constants.py)
-MIN_HU, MAX_HU = -1024, 1500
 MAX_HU_DELTA = 600
 DESIRED_HU_BOUNDS = (350, 450)
 TRAIN_PATCH_SIZE = (128, 128, 128)

@@ -50,6 +50,10 @@ class ResnetGenerator(nn.Module):
             raise NotImplementedError(f"ndim={ndim} (the 2D family) is {ROADMAP_NOTE}")
         self.n_resnet_blocks = n_resnet_blocks
         self.n_updownsample_blocks = n_updownsample_blocks
+        # what the weights cannot encode: the trainer's checkpoint meta
+        # sidecar records these, and ``from_checkpoint`` rebuilds from them
+        self.tconv_placement = tconv_placement
+        self.norm = norm
         c0 = init_channels_out
 
         self.first = ConvBlock(

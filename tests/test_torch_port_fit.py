@@ -561,6 +561,18 @@ def test_builder_resolves_the_automatic_choices(tmp_path):
         builder.build(dataclasses.replace(cfg, augment_backend="gpu"), device="cpu")
 
 
+def test_file_logger_without_a_checkpoint_dir_writes_under_the_logs_dir(tmp_path, monkeypatch):
+    """As the JAX builder: ``<LOGS_DIR>/<name>/metrics``."""
+    from contrast_gan_3d_tpu_torch import config as paths
+
+    monkeypatch.setattr(paths, "LOGS_DIR", tmp_path / "logs")
+    cfg = dataclasses.replace(config.basic_3d(), logger="file")
+    built = builder.build(cfg, device="cpu")
+    assert isinstance(built.logger_interface, FileLogger) and built.trainer_config.checkpoint_dir is None
+    built.logger_interface.log_scalars({"D": 0.5}, 1)
+    assert '"D": 0.5' in (tmp_path / "logs" / "basic_3d" / "metrics" / "scalars.jsonl").read_text()
+
+
 OVERRIDE = '''
 from dataclasses import replace
 
