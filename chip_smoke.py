@@ -137,7 +137,29 @@ failure raises and exits non-zero):
     fetched), sequential file to file, overlapped file to file;
 15. the peak device memory of one bf16 ``combined_step`` at
     ``small_patch``'s mix, 40 + 20 + 20 patches of 128x128x32 (the
-    configuration for which the JAX builder turns remat on).
+    configuration for which the JAX builder turns remat on);
+16-21. the 2D family at ``conf_2d``'s full width (6 ResNet blocks, width
+    16, a 16-channel critic), where no block-conv stage runs (each phase
+    zeroes the B1 / B2 / B3 counts before it and asserts them still 0
+    after): 16, the generator and critic on the card against the CPU,
+    forward and gradients, f32 (activation signs aligned) and bf16 (three
+    ways); 17, 2D serving of a 512x512x128 volume in batches of 128 slices,
+    f32 and bf16, cuDNN free and held deterministic, and the card against
+    the CPU on 128x128x24 (0.5 HU); 18, the native 2D warp against
+    ``warp2d_int16``; 19, the 2D device augmentation on the card against
+    the CPU and its time per 256 + 256 batch; 20, bare ``conf_2d`` and
+    ``gradient_penalty_2d`` steps at 256 + 128 + 128 slices of 128^2, f32
+    and bf16, with a profile, and the f32 train parity gate at 64^2; 21, the
+    CLI's ``main`` on conf_2d (host augmentation, then one device run), a
+    profile of a started run, unprofiled windows with four loader threads
+    per label and with one, and a resume bit-equal to two uninterrupted
+    runs under torch's deterministic algorithms, then how far the 2D
+    networks' gradients repeat without them (no gate);
+22. reference ``.pt`` files written by the port, 3D and 2D, corrected
+    through ``from_reference_checkpoint`` and (3D) ``correct_scans
+    --reference-pt``, each equal to the module built directly;
+23. phase 15 for ``gp_layernorm`` (its layer-norm critic), beside
+    ``small_patch``'s.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -169,7 +191,8 @@ import torch.nn.functional as F
 from contrast_gan_3d_tpu_torch import correct_scans, native
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
-from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, warp_coords, warp_int16
+from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D, warp2d_int16, warp_coords, \
+    warp_int16
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
 from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
 from contrast_gan_3d_tpu_torch.data.sampler import crop_pad_int16_reference
@@ -191,7 +214,13 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import (
     weight_grad,
 )
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import s2d_conv3d
-from contrast_gan_3d_tpu_torch.ops.resample import nearest_sample, trilinear_sample
+from contrast_gan_3d_tpu_torch.ops.resample import (
+    bilinear_sample,
+    identity_grid,
+    nearest_sample,
+    nearest_sample_2d,
+    trilinear_sample,
+)
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
@@ -199,6 +228,7 @@ from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, TrainerConfig
 from contrast_gan_3d_tpu_torch.utils import io_utils
+from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint, save_reference_checkpoint
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
 # cores, TF32 and bf16 on them, and HBM3 bandwidth
@@ -308,6 +338,18 @@ def compare(got, ref, tol, what):
     if not rel <= tol:
         raise AssertionError(f"{what}: relative error {rel:.3e} > {tol:.1e}")
     return err, rel
+
+
+def zero_counts():
+    """Every wrapper's launch counts to 0 (just before a path runs)."""
+    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
+    s2d_conv3d_block.launches = 0
+
+
+def read_counts() -> dict:
+    return {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
+            "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
+            "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
 
 
 # (wrapper, plain, conv weight over x's spatial order (Z, ., .)); B2 runs
@@ -569,8 +611,7 @@ def path_phase(gen, rng, dtype):
     vols = [rng.integers(-1024, 1500, shape).astype(np.int16) for shape, _ in requests]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_conv3x3x3.launches = block_conv3x3x3_v2.launches = 0
-    s2d_conv3d_block.launches = 0
+    zero_counts()
     results = []
     for vol, (shape, overlap) in zip(vols, requests):
         before = block_conv3x3x3.launches
@@ -587,9 +628,7 @@ def path_phase(gen, rng, dtype):
         delta = (out.cpu() - torch.from_numpy(vol).float()).abs().max().item()
         if not delta < 600.0 + 1e-2:
             raise AssertionError(f"correction of {delta} HU exceeds the 600 HU bound")
-    launches = {"block_conv3x3x3": block_conv3x3x3.launches,
-                "s2d_conv3d_block": s2d_conv3d_block.launches,
-                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches}
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for r in results:
         print(f"path {DTYPE_NAME[dtype]}: {r}", flush=True)
@@ -689,10 +728,13 @@ def train_patches(rng, patch, mix, dev):
     }
 
 
-def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, **trainer_kw):
+def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, gen_kw=None, critic_kw=None,
+                 **trainer_kw):
+    """A seeded trainer of ``mode``; ``gen_kw`` / ``critic_kw`` change the
+    networks (default: basic_3d's)."""
     spec = TRAIN_MODES[mode]
-    gen = seeded(ResnetGenerator(dtype=dtype), seed)
-    critic = seeded(PatchGANDiscriminator(norm=spec["norm"], dtype=dtype), seed + 1)
+    gen = seeded(ResnetGenerator(dtype=dtype, **(gen_kw or {})), seed)
+    critic = seeded(PatchGANDiscriminator(norm=spec["norm"], dtype=dtype, **(critic_kw or {})), seed + 1)
     tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
     cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, dtype=dtype, **trainer_kw)
     schedule = TrainerConfig(train_critic_every=spec["critic_every"], train_generator_every=spec["generator_every"])
@@ -721,8 +763,7 @@ def train_phase(rng, dtype):
     n_patches = sum(TRAIN_MIX)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
-    s2d_conv3d_block.launches = 0
+    zero_counts()
     results, trainers = {}, {}
     for mode, spec in TRAIN_MODES.items():
         trainer = make_trainer(mode, seed=10, dtype=dtype)
@@ -761,9 +802,8 @@ def train_phase(rng, dtype):
                              train_patches_per_sec=n_patches / timed["combined_step"])
         trainers[mode] = trainer
         print(f"train {DTYPE_NAME[dtype]} {mode}: {json.dumps(results[mode])}", flush=True)
-    bwd = block_conv3x3x3.backward_launches
-    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
-                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches, "block_conv3x3x3_backward": bwd}
+    launches = read_counts()
+    bwd = launches["block_conv3x3x3_backward"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     results["peak_memory_gib"] = peak_gib
     print(f"train {DTYPE_NAME[dtype]}: launches {launches} (B1 backward {bwd}); peak memory {peak_gib:.2f} GiB",
@@ -836,7 +876,7 @@ class ActivationSigns:
             raise AssertionError(f"{self.i} activations on the CPU, {len(self.masks)} on the card")
 
 
-def train_parity_phase(rng):
+def train_parity_phase(rng, patch=PARITY_PATCH, label="32^3", **nets):
     """One step from one state on the card and on the CPU (module docstring,
     phase 7), per mode and branch, the card first. Every comparison takes
     one network's gradients against an identical other network, on the
@@ -849,15 +889,17 @@ def train_parity_phase(rng):
     included, must land within 2 lr of the card's per weight (the most two
     first Adam steps can differ); the number of weights apart by more than
     lr is printed. A third run, on the CPU without the card's signs, gives
-    the unaligned gradient difference, printed only."""
-    patches = train_patches(rng, PARITY_PATCH, PARITY_MIX, "cpu")
+    the unaligned gradient difference, printed only. ``patch`` and ``nets``
+    (``gen_kw``, ``critic_kw`` of ``make_trainer``) set the networks: the
+    2D family's at 64^2 in phase 20."""
+    patches = train_patches(rng, patch, PARITY_MIX, "cpu")
     for mode, spec in TRAIN_MODES.items():
         for step in ("generator_only_step", "critic_step", "combined_step"):
             runs, card_critic, updates, signs = {}, None, {}, ActivationSigns()
             for run, dev, sign_mode in (("cuda", "cuda", "record"), ("cpu", "cpu", "replay"),
                                         ("unaligned", "cpu", None)):
                 # gp: a fixed interpolation eps, as the two devices draw differently
-                trainer = make_trainer(mode, seed=20, device=dev, gp_eps=0.3 if mode == "gp" else None)
+                trainer = make_trainer(mode, seed=20, device=dev, gp_eps=0.3 if mode == "gp" else None, **nets)
                 critic, hook = trainer.state.critic, None
                 if dev == "cpu" and step == "combined_step":
                     def take_card_critic(optimizer, args, kwargs, critic=critic, run=run):
@@ -903,7 +945,7 @@ def train_parity_phase(rng):
             loss_rel = {k: abs(m_cuda[k] - v) / max(abs(v), 1e-7) for k, v in m_cpu.items()}
             moved = max((c_cuda[n] - c_cpu[n]).abs().max().item() for n in c_cpu)
             apart = sum(int(((c_cuda[n] - c_cpu[n]).abs() > spec["lr"]).sum()) for n in c_cpu)
-            print(f"train parity {mode} {step} (32^3, batch 2+1+1): worst gradient {worst} "
+            print(f"train parity {mode} {step} ({label}, batch 2+1+1): worst gradient {worst} "
                   f"{grad_rel[worst]:.2e} of max|cpu| over {len(grad_rel)} tensors "
                   f"(activation signs taken from the card: {signs.flips}, at most {signs.worst:.2e} of "
                   f"max|x| from the kink; unaligned: {free_worst} {free_rel[free_worst]:.2e}); losses "
@@ -1274,8 +1316,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
-    s2d_conv3d_block.launches = 0
+    zero_counts()
     first, logs, per_it, seconds = run("device", FIT_ITERATIONS)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     trainer = first.trainer
@@ -1390,9 +1431,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
               f"{[round(r['shares']['data_wait'], 3) for r in rs]}, dispatch "
               f"{[round(r['shares']['dispatch'], 3) for r in rs]}", flush=True)
     console.removeHandler(capture)
-    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
-                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
-                "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
+    launches = read_counts()
     if launches["s2d_conv3d_block"] != launches["block_conv3x3x3"] - launches["block_conv3x3x3_backward"]:
         raise AssertionError(f"fit: B3 launches do not match B1's forwards: {launches}")
     print(f"fit: launches {launches}", flush=True)
@@ -1524,8 +1563,7 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
     profile(lambda: corrector(first_scan), f"serving files {FILES_SHAPE} f32 50% overlap, cuDNN free")
 
     torch.cuda.synchronize()
-    block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
-    s2d_conv3d_block.launches = 0
+    zero_counts()
     t = time.perf_counter()
     # the command's defaults, spelled out: 128^3 patches, 50% overlap, batch 8
     done = correct_scans.main([str(ckpt_dir), str(tmp / "out_command"), *map(str, scans), "--patch-size",
@@ -1533,9 +1571,7 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
                                "--device", device])
     torch.cuda.synchronize()
     command_s = time.perf_counter() - t
-    launches = {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
-                "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
-                "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
+    launches = read_counts()
     forwards = -(-num_patches(FILES_SHAPE, FILES_PATCH, FILES_OVERLAP) // BATCH)
     want = 2 * forwards * len(scans)
     print(f"serving files: correct_scans.main over {len(scans)} scans in {command_s:.2f} s (set-up included); "
@@ -1590,10 +1626,11 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
     return launches, out
 
 
-def small_patch_phase(device="cuda", **overrides):
-    """Phase 15 (module docstring): the peak device memory of bf16
-    ``combined_step`` at small_patch's 40 + 20 + 20 patches of 128x128x32."""
-    cfg = load_config("small_patch", **overrides)
+def small_patch_phase(device="cuda", name="small_patch", **overrides):
+    """Phases 15 and 23 (module docstring): the peak device memory of bf16
+    ``combined_step`` at ``name``'s 40 + 20 + 20 patches of 128x128x32
+    (small_patch's, or gp_layernorm's with its layer-norm critic)."""
+    cfg = load_config(name, **overrides)
     built = build(cfg, device=device)
     trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
                       built.trainer_config, seed=built.seed, logger_interface=NoopLogger(), device=device)
@@ -1617,11 +1654,565 @@ def small_patch_phase(device="cuda", **overrides):
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, resident_gib=resident,
                combined_step_s=seconds[-1])
-    print(f"small_patch: bf16 combined_step at {mix[0]} + {mix[1]} + {mix[2]} patches of "
+    print(f"{name}: bf16 combined_step at {mix[0]} + {mix[1]} + {mix[2]} patches of "
           f"{tuple(cfg.train_patch_size)} ({voxels / 1e6:.1f} M voxels): peak memory {out['peak_memory_gib']:.2f} GiB "
           f"allocated, {out['peak_reserved_gib']:.2f} GiB reserved ({resident:.2f} GiB resident before the step); "
           f"warm step {seconds[-1]:.3f} s", flush=True)
     del trainer, built, patches, opt, subopt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- the 2D family, reference checkpoints, the layer-norm critic -------------
+# (phases 16-23)
+
+CONF_2D = load_config("conf_2d")
+GEN_2D, CRITIC_2D = CONF_2D.generator_args, CONF_2D.critic_args
+SLICE = CONF_2D.train_patch_size  # 128^2
+MIX_2D = tuple(CONF_2D.train_batch_size[k] for k in (OPT, LOW, HIGH))  # 256 + 128 + 128
+SERVE_2D_SHAPE, SERVE_2D_REPS = (512, 512, 128), 3
+SERVE_2D_PARITY_SHAPE = (128, 128, 24)
+MODEL_2D_PARITY = (2, 128, 128)  # the models phase: batch and slice
+TRAIN_2D_PARITY_PATCH = (64, 64)
+NATIVE_2D_SLICES = 64
+FIT_2D_PATIENT = (512, 512, 24)
+FIT_2D_ITERATIONS, FIT_2D_DEVICE_ITERATIONS = 15, 11
+# resumed (4, then to 7) against uninterrupted (7), twice: one loader
+# thread each, so the batches are defined
+RESUME_2D = (4, 7)
+REF_3D_SHAPE, REF_2D_SHAPE = (256, 256, 128), (512, 512, 32)
+
+
+def no_block_conv(launches: dict, what: str) -> dict:
+    """The 2D family has no space-to-depth stage: B1, B2 and B3 launch no
+    time on its paths."""
+    if any(launches.values()):
+        raise AssertionError(f"{what}: block-conv launches on a 2D path: {launches}")
+    return launches
+
+
+def bf16_three_way(card16: dict, cpu16: dict, cpu32: dict, what: str):
+    """The train parity bf16 phase's rule per tensor: the card's bf16
+    relative L2 distance from CPU f32 at most twice the CPU bf16 run's (on
+    that tensor, or its median over the tensors where that is larger) plus
+    1e-3. Returns the tensor nearest its limit: (name, card error, CPU
+    error, share of the limit)."""
+    errs = {n: (_rel_l2(card16[n], ref), _rel_l2(cpu16[n], ref)) for n, ref in cpu32.items() if ref.norm() > 0}
+    median16 = statistics.median(e[1] for e in errs.values())
+    share = {n: e[0] / (2 * max(e[1], median16) + BF16_PARITY_FLOOR) for n, e in errs.items()}
+    worst = max(share, key=share.get)
+    if not share[worst] <= 1.0:
+        raise AssertionError(f"{what}: {worst} card bf16 {errs[worst][0]:.2e} from CPU f32, CPU bf16 "
+                             f"{errs[worst][1]:.2e} (median {median16:.2e})")
+    return worst, *errs[worst], share[worst]
+
+
+def models_2d_phase(rng):
+    """Phase 16: conf_2d's generator and critic at full width, train mode,
+    one forward and the gradients of sum(out * r) over every parameter, on
+    the card against the CPU: f32 with the activation signs aligned (output
+    1e-4 of max, gradients 1e-3 of max per tensor), bf16 by the three-way
+    rule (relative L2 per tensor). No block-conv launch."""
+    b, *hw = MODEL_2D_PARITY
+    x = torch.from_numpy(rng.normal(0, 0.5, (b, 1, *hw)).astype(np.float32))
+    out = {}
+    zero_counts()
+    for net, cls, kw, seed in (("generator", ResnetGenerator, GEN_2D, 80),
+                               ("critic", PatchGANDiscriminator, CRITIC_2D, 81)):
+        state = seeded(cls(**kw), seed).state_dict()
+        runs, signs = {}, ActivationSigns()
+        for run, dev, dtype, sign_mode in (("card_f32", "cuda", torch.float32, "record"),
+                                           ("cpu_f32", "cpu", torch.float32, "replay"),
+                                           ("card_bf16", "cuda", torch.bfloat16, None),
+                                           ("cpu_bf16", "cpu", torch.bfloat16, None)):
+            m = cls(**kw, dtype=dtype)
+            m.load_state_dict(state, strict=True)
+            m.to(dev).train()
+            with signs.run(sign_mode):
+                y = m(x.to(dev))
+            r = torch.from_numpy(np.random.default_rng(82).normal(size=tuple(y.shape)).astype(np.float32))
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad((y.float() * r.to(dev)).sum(), params)
+            runs[run] = (y.detach().float().cpu(), {n: g.detach().float().cpu() for n, g in zip(names, grads)})
+        (y32, g32), (yc, gc) = runs["card_f32"], runs["cpu_f32"]
+        y_rel = (y32 - yc).abs().max().item() / yc.abs().max().item()
+        g_rel = _rel_diffs(g32, gc)
+        worst = max(g_rel, key=g_rel.get)
+        tensors = {run: {"output": y, **g} for run, (y, g) in runs.items()}
+        worst16 = bf16_three_way(tensors["card_bf16"], tensors["cpu_bf16"], tensors["cpu_f32"], f"2D models {net}")
+        print(f"2D models {net} ({b} x {tuple(hw)}, full width): f32 output {y_rel:.2e} of max, worst gradient "
+              f"{worst} {g_rel[worst]:.2e} of max|cpu| (activation signs taken from the card: {signs.flips}); "
+              f"bf16 nearest its limit {worst16[0]}: card {worst16[1]:.2e}, cpu {worst16[2]:.2e} relative L2 "
+              f"({worst16[3]:.2f} of the limit)", flush=True)
+        if not (y_rel <= 1e-4 and g_rel[worst] <= PARITY_GRAD_TOL):
+            raise AssertionError(f"2D models {net}: the card's f32 disagrees with the CPU")
+        out[net] = dict(f32_output_rel=y_rel, f32_worst_gradient_rel=g_rel[worst], bf16_nearest_limit=list(worst16))
+    out["launches"] = no_block_conv(read_counts(), "2D models")
+    return out
+
+
+def serving_2d_phase(rng):
+    """Phase 17: conf_2d's generator corrects one 512x512x128 volume in
+    batches of 128 slices (the corrector's default on the card), median of
+    3 warm runs, f32 and bf16, and f32 again with cuDNN held to its
+    deterministic algorithms (what a repeatable file needs); one 128x128x24
+    volume on the card against the CPU: f32 within 0.5 HU, bf16 within
+    twice the CPU's bf16 distance from CPU f32 plus 0.5 HU."""
+    state = seeded(ResnetGenerator(**GEN_2D), 83).state_dict()
+    vol = ct_like(rng, SERVE_2D_SHAPE, 0.3)
+    small = ct_like(rng, SERVE_2D_PARITY_SHAPE, 1.1)
+    out, correctors = {}, {}
+    zero_counts()
+    for dtype in DTYPES:
+        gen = ResnetGenerator(**GEN_2D, dtype=dtype)
+        gen.load_state_dict(state, strict=True)
+        corrector = correctors[dtype] = CCTAContrastCorrector(gen, inference_patch_size=SLICE, device="cuda")
+        if corrector.batch_size != 128:
+            raise AssertionError(f"the 2D corrector's batch on the card is {corrector.batch_size}, not 128")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        corrected = corrector(vol)
+        torch.cuda.synchronize()
+        if tuple(corrected.shape) != vol.shape or not torch.isfinite(corrected).all():
+            raise AssertionError("2D serving: wrong shape or non-finite values")
+        delta = (corrected.cpu() - torch.from_numpy(vol).float()).abs().max().item()
+        if not delta < 600.0 + 1e-2:
+            raise AssertionError(f"2D serving: a correction of {delta} HU exceeds the 600 HU bound")
+        out[DTYPE_NAME[dtype]] = dict(seconds=warm_seconds(lambda: corrector(vol), SERVE_2D_REPS),
+                                      peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    free = [correctors[torch.float32](vol) for _ in range(2)]
+    out["nondeterministic_cudnn"] = dict(voxels_f32=int((free[0] != free[1]).sum()),
+                                         max_abs_hu=(free[0] - free[1]).abs().max().item())
+    del free
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        again = [device_int16(correctors[torch.float32](vol)) for _ in range(2)]
+        out["float32_deterministic_seconds"] = warm_seconds(lambda: correctors[torch.float32](vol), SERVE_2D_REPS)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not torch.equal(again[0], again[1]):
+        raise AssertionError("2D serving: two deterministic corrections differ")
+    del again
+    profile(lambda: correctors[torch.bfloat16](vol), f"serving 2D {SERVE_2D_SHAPE} bfloat16, batch 128")
+    card = {dt: correctors[dt](small).cpu() for dt in DTYPES}
+    cpu = {}
+    for dtype in DTYPES:
+        gen = ResnetGenerator(**GEN_2D, dtype=dtype)
+        gen.load_state_dict(state, strict=True)
+        cpu[dtype] = CCTAContrastCorrector(gen, inference_patch_size=SLICE, device="cpu")(small)
+    f32_diff = (card[torch.float32] - cpu[torch.float32]).abs().max().item()
+    d16 = {"card_bf16-cpu_f32": (card[torch.bfloat16] - cpu[torch.float32]).abs().max().item(),
+           "cpu_bf16-cpu_f32": (cpu[torch.bfloat16] - cpu[torch.float32]).abs().max().item()}
+    limit = 2 * d16["cpu_bf16-cpu_f32"] + PATH_TOL_HU
+    out.update(launches=no_block_conv(read_counts(), "2D serving"), parity_f32_hu=f32_diff, parity_bf16_hu=d16)
+    print(f"serving 2D {SERVE_2D_SHAPE} (conf_2d generator, batch 128 slices): f32 "
+          f"{out['float32']['seconds']:.4f} s, bf16 {out['bfloat16']['seconds']:.4f} s per volume (median of "
+          f"{SERVE_2D_REPS} warm), f32 with cudnn.deterministic {out['float32_deterministic_seconds']:.4f} s; peak "
+          f"memory f32 {out['float32']['peak_memory_gib']:.2f} / bf16 {out['bfloat16']['peak_memory_gib']:.2f} "
+          f"GiB; cuDNN free, one volume twice: {json.dumps(out['nondeterministic_cudnn'])}; parity "
+          f"{SERVE_2D_PARITY_SHAPE}: f32 max|cuda - cpu| {f32_diff:.4f} HU (tol {PATH_TOL_HU}), bf16 "
+          f"{json.dumps(d16)} (limit {limit:.4f}); launches {out['launches']}", flush=True)
+    if not (f32_diff <= PATH_TOL_HU and d16["card_bf16-cpu_f32"] <= limit):
+        raise AssertionError("2D serving: the card disagrees with the CPU")
+    del correctors, card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def ct_slices(rng, n):
+    """``n`` CT-like int16 slices: z slices of ``ct_like`` volumes."""
+    per = 8
+    vols = [ct_like(rng, (*SLICE, per), 0.7 * i) for i in range(-(-n // per))]
+    return np.concatenate([np.moveaxis(v, -1, 0) for v in vols])[:n]
+
+
+def native_2d_phase():
+    """Phase 18: the native 2D warp against its plain version
+    ``warp2d_int16`` on 64 CT-like 128^2 slices with conf_2d's rotation and
+    mirror always drawn: every pixel within 1 HU, at least 99.9% equal,
+    masks equal wherever no source coordinate lies within 1e-4 of a
+    half-integer; then ms per warped slice each way."""
+    rng = np.random.default_rng(84)
+    augmenter = HostAugmenter2D(aug.Augment2DConfig(p_rotation=1.0, p_mirror=1.0), np.random.default_rng(85))
+    scans = ct_slices(rng, NATIVE_2D_SLICES)
+    cases, n, equal, worst, mask_diff, near = [], 0, 0, 0, 0, 0
+    center = (torch.tensor(SLICE, dtype=torch.float32) - 1) / 2
+    for scan in scans:
+        seg = (rng.random(SLICE) < 0.01).astype(np.int16)
+        affine, _ = augmenter.sample_params()
+        got, want = native.warp_augment2d_int16(scan, seg, affine), warp2d_int16(scan, seg, affine)
+        worst = max(worst, int(np.abs(got[0].astype(np.int32) - want[0]).max()))
+        n += scan.size
+        equal += int((got[0] == want[0]).sum())
+        coords = (identity_grid(SLICE) - center) @ torch.from_numpy(affine).T + center
+        safe = (~((torch.remainder(coords, 1.0) - 0.5).abs() < AUG_HALF_TOL).any(-1)).numpy()
+        mask_diff += int((got[1] != want[1])[safe].sum())
+        near += int((~safe).sum())
+        cases.append((scan, seg, affine))
+
+    def per_call_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            for item in cases:
+                t = time.perf_counter()
+                fn(*item)
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    out = dict(max_abs_err_hu=worst, equal_fraction=equal / n, mask_diff=mask_diff,
+               warp_ms=per_call_ms(native.warp_augment2d_int16, 5), plain_warp_ms=per_call_ms(warp2d_int16, 1))
+    print(f"native 2D warp vs warp2d_int16 ({NATIVE_2D_SLICES} CT-like 128^2 slices, rotation and mirror): max "
+          f"|native - plain| {worst} HU (tol 1), {equal / n:.6f} of pixels equal (min {NATIVE_EQUAL_MIN}); mask "
+          f"pixels that differ away from half-integers {mask_diff} ({near} near one skipped); ms per slice native "
+          f"{out['warp_ms']:.4f}, plain {out['plain_warp_ms']:.3f} (host medians)", flush=True)
+    if not (worst <= 1 and equal / n >= NATIVE_EQUAL_MIN and mask_diff == 0):
+        raise AssertionError("the native 2D warp disagrees with its plain version")
+    return out
+
+
+def augment_2d_phase(dev):
+    """Phase 19: the 2D device augmentation (rotation and mirror always on)
+    on the card against the CPU from one draw set: coordinates within 1e-4
+    pixel; on the card's coordinates a noise slice within 1e-5 of max|x| and
+    the mask equal; each device on its own coordinates the mask equal away
+    from half-integers and smooth CT-like slices within 1e-5 of max|x|.
+    Then the CUDA-event time of a 256 + 256 batch at 128^2 (conf_2d's
+    probabilities)."""
+    cfg = aug.Augment2DConfig(p_rotation=1.0, p_mirror=1.0)
+    g = torch.Generator().manual_seed(86)
+    b = 8
+    draws = aug.draw(g, b, cfg)
+    noise = (torch.rand((b, *SLICE), generator=g) * 2524 - 1024).round()
+    seg = (torch.rand((b, *SLICE), generator=g) < 0.01).float()
+    ct = torch.stack([smooth_ct((*SLICE, 8), 0.4 * i)[..., i] for i in range(b)])
+    coords = {"card": aug.coords_from_draws_2d(draws.to(dev), SLICE, cfg),
+              "cpu": aug.coords_from_draws_2d(draws, SLICE, cfg)}
+    card = (bilinear_sample(noise.to(dev), coords["card"]).cpu(), nearest_sample_2d(seg.to(dev), coords["card"]).cpu(),
+            bilinear_sample(ct.to(dev), coords["card"]).cpu())
+    coords["card"] = coords["card"].cpu()
+    coord_err = (coords["card"] - coords["cpu"]).abs().max().item()
+    same_rel = (card[0] - bilinear_sample(noise, coords["card"])).abs().max().item() / noise.abs().max().item()
+    same_mask = int((card[1] != nearest_sample_2d(seg, coords["card"])).sum())
+    safe = ~((torch.remainder(coords["cpu"], 1.0) - 0.5).abs() < AUG_HALF_TOL).any(-1)
+    own_mask = int((card[1] != nearest_sample_2d(seg, coords["cpu"]))[safe].sum())
+    ct_rel = (card[2] - bilinear_sample(ct, coords["cpu"])).abs().max().item() / ct.abs().max().item()
+    rng = torch.Generator(device=dev).manual_seed(87)
+    n_opt, n_sub = MIX_2D[0], MIX_2D[1] + MIX_2D[2]
+    sub = torch.randint(-1024, 1500, (n_sub, *SLICE), device=dev).float()
+    mask = (torch.rand((n_sub, *SLICE), device=dev) < 0.001).float()
+    opt = torch.randint(-1024, 1500, (n_opt, *SLICE), device=dev).float()
+    step_cfg = aug.Augment2DConfig()
+
+    def step_augment():
+        aug.augment_batch(sub, mask, aug.draw(rng, n_sub, step_cfg), step_cfg)
+        aug.augment_batch(opt, None, aug.draw(rng, n_opt, step_cfg), step_cfg)
+
+    ms = median_ms(step_augment)
+    out = dict(coord_err=coord_err, noise_rel=same_rel, ct_rel=ct_rel, ms_256_plus_256=ms)
+    print(f"augment 2D parity ({b} x 128^2, rotation and mirror on): coordinates {coord_err:.2e} pixel (tol "
+          f"{AUG_COORD_TOL:.0e}); on the card's coordinates: noise slice {same_rel:.2e} of max|x| (tol "
+          f"{AUG_SCAN_TOL:.0e}), mask pixels that differ {same_mask}; each on its own: mask pixels that differ "
+          f"away from half-integers {own_mask}, smooth CT-like slices {ct_rel:.2e} of max|x|; device augmentation "
+          f"of a {n_sub} + {n_opt} batch at 128^2: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+    if not (coord_err <= AUG_COORD_TOL and same_rel <= AUG_SCAN_TOL and same_mask == 0 and own_mask == 0
+            and ct_rel <= AUG_SCAN_TOL):
+        raise AssertionError("the 2D device augmentation disagrees with the CPU")
+    del sub, mask, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_2d_phase(rng, dtype):
+    """Phase 20: conf_2d (weight clip) and gradient_penalty_2d (gradient
+    penalty) built by the port's ``build`` in ``dtype`` at full width, on
+    256 + 128 + 128 int16 slices of 128^2 on the card, through
+    ``Trainer.train_step`` for 6 iterations of the presets' schedule
+    (critic every 1, generator every 5): finite losses, the critic within
+    the clip, then the warm median seconds of ``critic_step`` and
+    ``combined_step``, slices/s = 512 / combined seconds, and the peak
+    memory. No block-conv launch. Returns the results and the weight-clip
+    trainer with its batch for the profile."""
+    patches = train_patches(rng, SLICE, MIX_2D, "cuda")
+    n = sum(MIX_2D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    results, keep = {}, None
+    for name in ("conf_2d", "gradient_penalty_2d"):
+        built = build(load_config(name, compute_dtype=DTYPE_NAME[dtype]), device="cuda")
+        trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                          built.trainer_config, seed=built.seed, logger_interface=NoopLogger(), device="cuda")
+        for i in range(6):
+            metrics, _ = trainer.train_step(patches, i)
+            values = {k: v.float().item() for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"train 2D {name} iteration {i}: non-finite loss {values}")
+            clip = trainer.step_cfg.weight_clip
+            if clip is not None and not max(p.abs().max().item() for p in trainer.state.critic.parameters()) <= clip:
+                raise AssertionError(f"train 2D {name}: critic beyond the clip after iteration {i}")
+        opt, subopt, mask, _ = trainer._assemble(patches)
+        timed = {k: warm_seconds(lambda: getattr(trainer.steps, k)(trainer.state, opt, subopt, mask))
+                 for k in ("critic_step", "combined_step")}
+        results[name] = dict(critic_step_s=timed["critic_step"], combined_step_s=timed["combined_step"],
+                             train_slices_per_sec=n / timed["combined_step"], last_losses=values)
+        print(f"train 2D {DTYPE_NAME[dtype]} {name} ({MIX_2D[0]} + {MIX_2D[1]} + {MIX_2D[2]} slices of 128^2): "
+              f"{json.dumps(results[name])}", flush=True)
+        if name == "conf_2d":
+            keep = trainer, (opt, subopt, mask)
+        else:
+            del trainer
+    results["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    results["launches"] = no_block_conv(read_counts(), "train 2D")
+    print(f"train 2D {DTYPE_NAME[dtype]}: peak memory {results['peak_memory_gib']:.2f} GiB", flush=True)
+    return results, keep
+
+
+def fit_2d_phase(tmp: Path):
+    """Phase 21: the CLI's ``main`` on conf_2d at full width (bf16, 256 +
+    128 + 128 slices of 128^2, 512^2 validation, host augmentation through
+    the native 2D warp): nine synthetic 512x512x24 patients, 15 iterations
+    (logs every 5, one validation at 10 with one iteration, a checkpoint
+    every 10), 10 more iterations of it under the profiler, then windows of
+    10 with four loader threads per label and with one, alternated, twice
+    each, none profiled (the dispatch seconds per iteration of each), then
+    one device-augmented run of 11. Checks: finite losses,
+    the clip, the checkpoint files, native 2D warps and no plain ones, no
+    block-conv launch. Then resume: 4 iterations and a resume to 7 against
+    two uninterrupted runs of 7, each with one loader thread (so the
+    batches are defined) and torch's deterministic algorithms: the two
+    uninterrupted runs must be bit-equal, and the resumed run bit-equal to
+    them in every network tensor, every optimizer state tensor, the
+    schedules, the generator state and the step. Prints the warm slices/s
+    (iterations 6-10), ``TimeBudget``'s shares and the peak memory."""
+    capture = LogCapture()
+    console = logging.getLogger("contrast_gan_3d_tpu_torch.trainer.logger")
+    console.setLevel(logging.INFO)
+    console.addHandler(capture)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(88)
+    fold = []
+    for label, hu in ((0, 400), (-1, 250), (1, 600)):
+        for i in range(3):
+            vol, mask, meta = synthetic_patient(rng, FIT_2D_PATIENT, hu)
+            fold.append((str(write_patient(vol, mask, meta, f"slices_{label}_{i}", tmp / "patients_2d")), label))
+    splits = tmp / "splits_2d.pkl"
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    confs = {}
+    for name, extra in (("host", {}), ("device", dict(augment_backend="device")),
+                        ("resume", dict(num_workers=(1, 1), validate_every=None, checkpoint_every=1000))):
+        confs[name] = tmp / f"fit_2d_{name}.py"
+        confs[name].write_text(
+            "from dataclasses import replace\n\nfrom contrast_gan_3d_tpu_torch.experiments.config import conf_2d\n\n\n"
+            f"def config(base):\n    return replace(conf_2d(), **{dict(FIT_OVERRIDES, **extra)!r})\n")
+    print(f"fit 2D: wrote 9 patients of {FIT_2D_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(conf, iterations, run_id):
+        args = ["--conf", str(confs[conf]), "--cval-splits", str(splits), "--checkpoint-root", str(tmp / "runs_2d"),
+                "--run-id", run_id, "--iterations", str(iterations), "--device", "cuda"]
+        capture.records.clear()
+        t = time.perf_counter()
+        manager = train_cli.main(args)
+        torch.cuda.synchronize()
+        fold_run = manager.runs[0]
+        for loaders in (fold_run.train_loaders, fold_run.val_loaders or {}):
+            for loader in loaders.values():
+                loader.stop()
+        logs = list(capture.records)
+        for stage, it, values in logs:
+            if not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"fit 2D {run_id}: non-finite {stage} scalars at {it}: {values}")
+        return fold_run.trainer, logs, time.perf_counter() - t
+
+    out = {}
+    zero_counts()
+    for conf, iterations in (("host", FIT_2D_ITERATIONS), ("device", FIT_2D_DEVICE_ITERATIONS)):
+        warps, plain = native.warp_augment2d_int16.calls, warp2d_int16.calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, logs, seconds = run(conf, iterations, conf)
+        warps = native.warp_augment2d_int16.calls - warps
+        if conf == "host" and not (warps > 0 and warp2d_int16.calls == plain):
+            raise AssertionError(f"fit 2D host: {warps} native 2D warps, {warp2d_int16.calls - plain} plain ones")
+        if conf == "device" and not (warps == 0 and isinstance(trainer.step_cfg.augment, aug.Augment2DConfig)):
+            raise AssertionError("fit 2D device: the run did not augment on the device")
+        clip = trainer.step_cfg.weight_clip
+        if not max(p.abs().max().item() for p in trainer.state.critic.parameters()) <= clip:
+            raise AssertionError("fit 2D: critic beyond the clip")
+        pps = {it: v["patches_per_sec"] for stage, it, v in logs if stage == "train" and "patches_per_sec" in v}
+        out[conf] = dict(slices_per_sec=pps, warm_slices_per_sec=pps[WARM_LOG], wall_s=seconds, native_2d_warps=warps,
+                         shares=trainer.time_budget.shares(), peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"fit 2D {conf} (conf_2d bf16, {iterations} iterations, {seconds:.1f} s with set-up): warm "
+              f"{pps[WARM_LOG]:.1f} slices/s (iterations 6-10); logged slices/s {json.dumps(pps)}; time budget "
+              f"{json.dumps({k: round(v, 4) for k, v in out[conf]['shares'].items()})}; peak memory "
+              f"{out[conf]['peak_memory_gib']:.2f} GiB; native 2D warps {warps}", flush=True)
+        print(f"fit 2D {conf}: {trainer.time_budget.summary()}", flush=True)
+        if conf == "host":
+            run_dir = tmp / "runs_2d" / "host"
+            periodic = FIT_OVERRIDES["checkpoint_every"] + 1
+            files = {p.name for p in run_dir.iterdir()}
+            if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{iterations}.pt"} <= files:
+                raise AssertionError(f"fit 2D: checkpoint files {sorted(files)}")
+            if not any(stage == "validation" for stage, _, _ in logs):
+                raise AssertionError("fit 2D: no validation scalars logged")
+            # where the time of 2D fit iterations goes: the trainer goes on
+            # for a few iterations under the profiler, its loaders restarted
+            trainer.cfg = dataclasses.replace(trainer.cfg, checkpoint_dir=None, val_every=None)
+
+            def window(threads, seed, trainer=trainer):
+                loaders = create_loaders(fold, CONF_2D.train_patch_size, CONF_2D.train_batch_size,
+                                         np.random.default_rng(seed), num_threads=threads,
+                                         augmenter=HostAugmenter2D(aug.Augment2DConfig(), np.random.default_rng(seed)),
+                                         p_centerline_3d=0.0, device="cuda")
+                trainer.cfg = dataclasses.replace(trainer.cfg,
+                                                  train_iterations=trainer.iteration + FIT_PROFILE_ITERATIONS)
+                try:
+                    trainer.fit(loaders)
+                finally:
+                    for loader in loaders.values():
+                        loader.stop()
+                return trainer.time_budget.total["dispatch"] / FIT_PROFILE_ITERATIONS
+
+            threads = CONF_2D.num_workers[0]
+            profile(lambda: window(threads, 1), f"fit 2D host, {FIT_PROFILE_ITERATIONS} iterations of a started run")
+            print(f"profile fit 2D host: {trainer.time_budget.summary()}", flush=True)
+            # how the loaders' threads weigh on the dispatch: conf_2d's four
+            # per label against one, each window twice, alternated, none
+            # under the profiler
+            per_iteration = {threads: [], 1: []}
+            for rep in range(2):
+                for n in (threads, 1):
+                    per_iteration[n].append(window(n, 10 + 2 * rep + (n == 1)))
+                    print(f"fit 2D host, {n} loader thread(s) per label, {FIT_PROFILE_ITERATIONS} iterations: "
+                          f"{trainer.time_budget.summary()}", flush=True)
+            out["dispatch_s_per_iteration_by_loader_threads"] = per_iteration
+            print(f"fit 2D host: dispatch s per iteration by loader threads per label (two windows each, no "
+                  f"profiler) {json.dumps(per_iteration)}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    out["launches"] = no_block_conv(read_counts(), "fit 2D")
+
+    # with cudnn.deterministic alone two uninterrupted runs already differ
+    # after the first step (the generator's weights by about 2 lr, where a
+    # gradient element near 0 flips sign), so a wrong resume would hide in
+    # that noise: torch's deterministic algorithms make the runs repeat
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        run("resume", RESUME_2D[0], "resumed")
+        resumed, _, _ = run("resume", RESUME_2D[1], "resumed")
+        if resumed.start_iteration != RESUME_2D[0] or resumed.iteration != RESUME_2D[1]:
+            raise AssertionError(f"fit 2D resume: ran {resumed.start_iteration} -> {resumed.iteration}")
+        straight = [run("resume", RESUME_2D[1], f"straight_{i}")[0] for i in range(2)]
+    finally:
+        torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(deterministic)
+    console.removeHandler(capture)
+    _same_state(straight[1].state, straight[0].state, "fit 2D: two uninterrupted runs")
+    _same_state(resumed.state, straight[0].state, "fit 2D resume")
+    tensors = sum(len(getattr(resumed.state, m).state_dict()) for m in ("generator", "critic"))
+    moments = sum(len(st) for o in ("gen_opt", "critic_opt")
+                  for st in getattr(resumed.state, o).optimizer.state_dict()["state"].values())
+    out["resume"] = dict(equal=True, network_tensors=tensors, optimizer_tensors=moments)
+    print(f"fit 2D resume ({RESUME_2D[0]} -> {RESUME_2D[1]} against {RESUME_2D[1]} uninterrupted, twice, one loader "
+          f"thread, torch deterministic algorithms): the two uninterrupted runs and the resumed one are bit-equal in "
+          f"all {tensors} tensors of both networks, all {moments} optimizer state tensors, the schedules, the "
+          f"generator state and the step", flush=True)
+    del resumed, straight
+    torch.cuda.empty_cache()
+    return out
+
+
+def repeat_2d_probe():
+    """Why phase 21's resume runs under torch's deterministic algorithms:
+    two identical forward and backward calls of conf_2d's generator and
+    critic (64 slices of 128^2, train mode), f32 and bf16, with
+    cudnn.deterministic alone and with the deterministic algorithms.
+    Returns how many gradient tensors differ between the two calls in each
+    case; no gate."""
+    x = torch.from_numpy(np.random.default_rng(94).normal(0, 0.5, (64, 1, *SLICE)).astype(np.float32)).cuda()
+    out = {}
+    cudnn, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in DTYPES:
+            for net, cls, kw in (("generator", ResnetGenerator, GEN_2D), ("critic", PatchGANDiscriminator, CRITIC_2D)):
+                for mode in ("cudnn", "algorithms"):
+                    torch.use_deterministic_algorithms(mode == "algorithms")
+                    m = seeded(cls(**kw, dtype=dtype), 95).cuda().train()
+                    a, b = (torch.autograd.grad(m(x).float().mean(), list(m.parameters())) for _ in range(2))
+                    differ = sum(not torch.equal(u, v) for u, v in zip(a, b))
+                    out[f"{DTYPE_NAME[dtype]} {net} {mode}"] = f"{differ}/{len(a)}"
+    finally:
+        torch.use_deterministic_algorithms(algorithms)
+        torch.backends.cudnn.deterministic = cudnn
+    print(f"repeat 2D (two identical gradient calls, 64 x 128^2, cudnn.deterministic alone or torch's deterministic "
+          f"algorithms): gradient tensors that differ {json.dumps(out)}", flush=True)
+    return out
+
+
+def reference_ckpt_phase(tmp: Path):
+    """Phase 22: reference ``.pt`` files written by the port's
+    ``save_reference_checkpoint`` (3D: the default generator with the torch
+    transpose-conv placement and the default critic; 2D: conf_2d's, torch
+    placement), read back by ``from_reference_checkpoint``: with cuDNN
+    held to its deterministic algorithms, the correction equals the one
+    from the module built directly (3D: 256x256x128 at 128^3, 50% overlap,
+    batch 8, f32; 2D: 512x512x32 in batches of 128 slices), and
+    ``correct_scans --reference-pt`` over a .mhd of the 3D volume writes
+    ``device_int16`` of it (the command takes 3D patches only, as the JAX
+    one). The B1 / B3 launches of ``from_reference_checkpoint``'s and the
+    command's corrections are counted."""
+    rng = np.random.default_rng(89)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for ndim, gen_kw, critic_kw, shape, patch in (
+                (3, {}, {}, REF_3D_SHAPE, FILES_PATCH), (2, GEN_2D, CRITIC_2D, REF_2D_SHAPE, SLICE)):
+            gen = seeded(ResnetGenerator(**gen_kw, tconv_placement="torch"), 90 + ndim)
+            critic = seeded(PatchGANDiscriminator(**critic_kw), 92 + ndim)
+            path = tmp / f"reference_{ndim}d.pt"
+            save_reference_checkpoint(path, gen.state_dict(), critic.state_dict(), iteration=500)
+            loaded = load_reference_checkpoint(path)
+            if loaded["critic_arch"]["ndim"] != ndim or any(
+                    not torch.equal(v, critic.state_dict()[k]) for k, v in loaded["critic"].items()):
+                raise AssertionError(f"reference {ndim}D: the critic did not read back as written")
+            vol = ct_like(rng, shape, 0.5 * ndim)
+            kw = dict(inference_patch_size=patch, overlap=FILES_OVERLAP, batch_size=BATCH if ndim == 3 else 128)
+            direct = device_int16(CCTAContrastCorrector(gen, device="cuda", **kw)(vol)).cpu()
+            if ndim == 3:
+                scan = tmp / "reference_scan.mhd"
+                io_utils.write_mhd(vol, scan, spacing=(0.4, 0.4, 0.5), origin=(0.0, 0.0, 0.0))
+            zero_counts()
+            ref = CCTAContrastCorrector.from_reference_checkpoint(path, device="cuda", **kw)
+            if ref.generator.tconv_placement != "torch":
+                raise AssertionError("from_reference_checkpoint built another placement")
+            got = device_int16(ref(vol)).cpu()
+            if not torch.equal(got, direct):
+                raise AssertionError(f"reference {ndim}D: from_reference_checkpoint corrects "
+                                     f"{int((got != direct).sum())} voxels otherwise")
+            r = dict(voxels=int(got.numel()))
+            if ndim == 3:
+                written = correct_scans.main([str(path), str(tmp / "reference_out"), str(scan), "--reference-pt",
+                                              "--patch-size", *map(str, patch), "--overlap", str(FILES_OVERLAP),
+                                              "--batch-size", str(BATCH), "--device", "cuda"])
+                if not np.array_equal(io_utils.read_image(written[0])[0], direct.numpy()):
+                    raise AssertionError("reference 3D: correct_scans --reference-pt wrote another volume")
+                r["correct_scans"] = "equal"
+                r["launches"] = launches = read_counts()
+                want = 4 * -(-num_patches(shape, patch, FILES_OVERLAP) // BATCH)  # 2 per forward, 2 corrections
+                if launches["block_conv3x3x3"] != want or launches["s2d_conv3d_block"] != want:
+                    raise AssertionError(f"reference 3D: launches {launches}, expected {want} each")
+            else:
+                r["launches"] = launches = no_block_conv(read_counts(), "reference 2D")
+            out[f"{ndim}d"] = r
+            print(f"reference {ndim}D ({shape}): from_reference_checkpoint equals the module built directly"
+                  + (" and so does correct_scans --reference-pt" if ndim == 3 else "")
+                  + f" ({r['voxels']} voxels, cudnn.deterministic); launches {launches}", flush=True)
+            del gen, critic, ref
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     torch.cuda.empty_cache()
     return out
 
@@ -1709,6 +2300,39 @@ def main() -> int:
     small_patch = small_patch_phase()
     print(f"small_patch: {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # the 2D family (no block-conv stage), reference checkpoints and the
+    # layer-norm critic: phases 16-23
+    rng2d = np.random.default_rng(2)
+    models_2d = models_2d_phase(rng2d)
+    serving_2d = serving_2d_phase(rng2d)
+    print(f"2D models and serving: {time.perf_counter() - t_start:.1f} s", flush=True)
+    native_2d = native_2d_phase()
+    augment_2d = augment_2d_phase(dev)
+    train_2d = {}
+    for dtype in DTYPES:
+        results, (wc2d, batch2d) = train_2d_phase(rng2d, dtype)
+        train_2d[DTYPE_NAME[dtype]] = results
+        profile(lambda: wc2d.steps.combined_step(wc2d.state, *batch2d),
+                f"train 2D conf_2d combined_step {DTYPE_NAME[dtype]}", top=25)
+        del wc2d, batch2d
+        torch.cuda.empty_cache()
+    print("train 2D: " + "; ".join(f"{dt} {name} critic_step {r[name]['critic_step_s']:.4f} s, combined_step "
+                                   f"{r[name]['combined_step_s']:.4f} s, {r[name]['train_slices_per_sec']:.1f} slices/s"
+                                   for dt, r in train_2d.items() for name in ("conf_2d", "gradient_penalty_2d")),
+          flush=True)
+    train_parity_phase(rng2d, patch=TRAIN_2D_PARITY_PATCH, label="2D 64^2", gen_kw=GEN_2D, critic_kw=CRITIC_2D)
+    print(f"train 2D: {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_2d_") as tmp:
+        fit_2d = fit_2d_phase(Path(tmp))
+        repeat_2d = repeat_2d_probe()
+        print(f"fit 2D: {time.perf_counter() - t_start:.1f} s", flush=True)
+        reference = reference_ckpt_phase(Path(tmp))
+    gp_layernorm = small_patch_phase(name="gp_layernorm")
+    print(f"gp_layernorm bf16 combined_step: peak {gp_layernorm['peak_memory_gib']:.2f} GiB, "
+          f"{gp_layernorm['combined_step_s']:.3f} s; small_patch: peak {small_patch['peak_memory_gib']:.2f} GiB, "
+          f"{small_patch['combined_step_s']:.3f} s", flush=True)
+    print(f"2D, reference checkpoints, gp_layernorm: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
     # the dx rows count B1's backward launches only
@@ -1716,9 +2340,14 @@ def main() -> int:
         dtype = dtype_of[r["dtype"]]
         # the fit path is basic_3d, which trains in bf16; the correct_scans
         # command serves in f32, as the JAX command does
+        # the reference-checkpoint corrections run in f32; the 2D paths,
+        # in both dtypes, launch no block conv (each phase asserts it)
         by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key],
                    "fit": fit_launches[key] if dtype == torch.bfloat16 else 0,
-                   "serving_files": files_launches[key] if dtype == torch.float32 else 0}
+                   "serving_files": files_launches[key] if dtype == torch.float32 else 0,
+                   "reference_ckpt": reference["3d"]["launches"][key] if dtype == torch.float32 else 0,
+                   "models_2d": models_2d["launches"][key], "serving_2d": serving_2d["launches"][key],
+                   "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key]}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -1726,7 +2355,9 @@ def main() -> int:
         "serving_peak_memory_gib": {DTYPE_NAME[dt]: v[2] for dt, v in serve.items()},
         "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi,
         "augment_6_plus_6_ms": augment_ms, "native": native_results, "fit": fit_results,
-        "serving_files": files_results, "small_patch": small_patch,
+        "serving_files": files_results, "small_patch": small_patch, "models_2d": models_2d,
+        "serving_2d": serving_2d, "native_2d": native_2d, "augment_2d": augment_2d, "train_2d": train_2d,
+        "fit_2d": fit_2d, "repeat_2d": repeat_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm,
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ JAX package's ``scripts/correct_scans.py``):
     python -m contrast_gan_3d_tpu_torch.correct_scans runs/exp1 out/ a.mhd b.nii.gz p.npy
 
 loads the latest ``<step>.pt`` in the checkpoint directory (or
-``--iteration``'s), builds the generator from it, and writes each corrected
+``--iteration``'s), or with ``--reference-pt`` the reference ``<iteration>.pt``
+file given in its place, builds the generator from it, and writes each corrected
 scan as ``<out_dir>/<name>.<format>`` (.mhd with a compressed .raw, .nii or
 .nii.gz), in f32 as the JAX command does, the host I/O overlapped with the
 correction. Runs on the card unless ``--device cpu``, with cuDNN held to
@@ -13,8 +14,7 @@ in another order from one call to the next, and a scan corrected twice, or
 by the overlapped and the sequential cohort, would not give the same file.
 The first SIGTERM or Ctrl-C finishes the volumes in flight and exits 0; a
 second one aborts.
-Reference ``.pt`` checkpoints, sharding over several cards and HDF5 output
-are not ported (ROADMAP).
+Sharding over several cards and HDF5 output are not ported (ROADMAP).
 """
 
 import argparse
@@ -44,19 +44,22 @@ def parse_args(argv=None):
     p.add_argument("--overlap", type=float, default=0.5)
     p.add_argument("--batch-size", type=int, default=8,
                    help="generator forward batch (the JAX command's choice for the direct layout)")
-    p.add_argument("--reference-pt", action="store_true", help="not ported (ROADMAP, A4)")
+    p.add_argument("--reference-pt", action="store_true",
+                   help="checkpoint is a reference torch .pt file (architecture read from its state_dict)")
     p.add_argument("--sharded", action="store_true", help="not ported (ROADMAP, A10)")
     p.add_argument("--output-format", choices=("mhd", "nii", "nii.gz", "h5"), default="mhd",
                    help="corrected-scan format (h5 is not ported: ROADMAP, A8)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.reference_pt and args.iteration is not None:
+        p.error("--iteration applies to checkpoint dirs; a --reference-pt file is one iteration")
+    return args
 
 
 def main(argv=None) -> list:
     """Run the command in-process; returns the paths written."""
     args = parse_args(argv)
     unported = {
-        "--reference-pt": (args.reference_pt, "from_reference_checkpoint (ROADMAP.md, A4)"),
         "--sharded": (args.sharded, "sharded correction over several cards (ROADMAP.md, A10)"),
         "--output-format h5": (args.output_format == "h5", "HDF5 output: no h5py on the card's machine "
                                                            "(ROADMAP.md, A8)"),
@@ -67,10 +70,12 @@ def main(argv=None) -> list:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     device = resolve_device(args.device)
-    corrector = CCTAContrastCorrector.from_checkpoint(
-        args.checkpoint_dir, iteration=args.iteration, inference_patch_size=tuple(args.patch_size),
-        overlap=args.overlap, batch_size=args.batch_size, device=device,
-    )
+    kwargs = dict(inference_patch_size=tuple(args.patch_size), overlap=args.overlap, batch_size=args.batch_size,
+                  device=device)
+    if args.reference_pt:
+        corrector = CCTAContrastCorrector.from_reference_checkpoint(args.checkpoint_dir, **kwargs)
+    else:
+        corrector = CCTAContrastCorrector.from_checkpoint(args.checkpoint_dir, iteration=args.iteration, **kwargs)
     stop = threading.Event()
     previous = install_graceful_stop(lambda name: stop.set(), stop.is_set)
     deterministic = torch.backends.cudnn.deterministic

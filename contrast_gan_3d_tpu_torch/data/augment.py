@@ -1,21 +1,25 @@
-"""Spatial augmentation on the device (counterpart of the 3D part of
+"""Spatial augmentation on the device (counterpart of
 ``contrast_gan_3d_tpu/data/augment.py``): per-sample rotation (p=0.2,
 +-30 deg per axis), isotropic scaling (p=0.2, 0.7-1.4) and elastic
 deformation (p=0.1, amplitude (0, 0.25) of the patch extent / 4), composed
 into ONE coordinate field per sample; the scan is resampled trilinearly,
-the mask nearest, both clamp-to-edge.
+the mask nearest, both clamp-to-edge. The 2D family's ``Augment2DConfig``
+is an in-plane rotation (p=0.5, +-2 pi) and a mirror (p=0.5, each axis
+50/50) of each (X, Y) slice, resampled bilinearly (``(B, X, Y)`` batches).
 
 The JAX package draws from a JAX PRNG key, which torch cannot reproduce.
 So the work is split in two:
 - :func:`draw`: every random number of a batch, from an explicit
-  ``torch.Generator``, into an :class:`AugmentDraws`;
-- :func:`coords_from_draws`: the deterministic field, which the parity
-  tests feed with draws rebuilt from a JAX key.
+  ``torch.Generator``, into an :class:`AugmentDraws` (2D:
+  :class:`AugmentDraws2D`);
+- :func:`coords_from_draws` (2D: :func:`coords_from_draws_2d`): the
+  deterministic field, which the parity tests feed with draws rebuilt from
+  a JAX key.
 
 The elastic field is ``jax.image.resize(coarse, ..., "linear")`` exactly:
 the triangle kernel, antialiased on axes that shrink below
 ``elastic_grid`` (``ops/resample.resize_weights``), so any patch shape
-matches. The 2D ``Augment2DConfig`` path is not ported (ROADMAP).
+matches.
 """
 
 import math
@@ -25,8 +29,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from contrast_gan_3d_tpu_torch.ops.resample import (
+    bilinear_sample,
     identity_grid,
     nearest_sample,
+    nearest_sample_2d,
     resize_linear,
     rotation_matrix,
     trilinear_sample,
@@ -50,6 +56,21 @@ class AugmentConfig:
     p_rotation: float = 0.2
 
 
+@dataclass(frozen=True)
+class Augment2DConfig(AugmentConfig):
+    """conf_2D augmentation (reference ``conf_2D.py:30-56``): rotation only
+    (+-360 deg, p=0.5) plus axis mirroring (p=0.5 per sample, each axis
+    50/50 — batchgenerators' MirrorTransform)."""
+
+    do_elastic: bool = False
+    do_scale: bool = False
+    do_rotation: bool = True
+    angle: float = 2 * math.pi
+    p_rotation: float = 0.5
+    do_mirror: bool = True
+    p_mirror: float = 0.5
+
+
 class AugmentDraws(NamedTuple):
     """The random numbers of one batch of B samples. A gate is a (B,) bool;
     the transforms whose gate is off leave the sample as it is."""
@@ -66,12 +87,27 @@ class AugmentDraws(NamedTuple):
         return AugmentDraws(*(t.to(device) for t in self))
 
 
-def draw(generator: torch.Generator, batch: int, cfg: AugmentConfig) -> AugmentDraws:
+class AugmentDraws2D(NamedTuple):
+    """The random numbers of one batch of B 2D samples, each (B,)."""
+
+    rot_gate: torch.Tensor     # bool
+    angle: torch.Tensor        # radians
+    mirror_gate: torch.Tensor  # bool
+    flip_x: torch.Tensor       # bool, mirrors x where the mirror gate is on
+    flip_y: torch.Tensor       # bool
+
+    def to(self, device) -> "AugmentDraws2D":
+        return AugmentDraws2D(*(t.to(device) for t in self))
+
+
+def draw(generator: torch.Generator, batch: int, cfg: AugmentConfig):
     """All of a batch's draws, on the generator's device, in this fixed
     order (every draw is made whatever ``cfg`` switches off, so the stream
     does not depend on it): the rotation gates, the angles, the scale
     gates, the scales, the elastic gates, the elastic magnitudes, the
-    coarse noise."""
+    coarse noise. For an ``Augment2DConfig``: the rotation gates, the
+    angles, the mirror gates, the x flips, the y flips
+    (:class:`AugmentDraws2D`)."""
     dev = generator.device
 
     def uniform(shape, lo, hi):
@@ -80,6 +116,10 @@ def draw(generator: torch.Generator, batch: int, cfg: AugmentConfig) -> AugmentD
     def gate(p):
         return torch.rand((batch,), generator=generator, device=dev) < p
 
+    if isinstance(cfg, Augment2DConfig):
+        rot_gate = gate(cfg.p_rotation)
+        angle = uniform((batch,), -cfg.angle, cfg.angle)
+        return AugmentDraws2D(rot_gate, angle, gate(cfg.p_mirror), gate(0.5), gate(0.5))
     rot_gate = gate(cfg.p_rotation)
     angles = uniform((batch, 3), -cfg.angle, cfg.angle)
     scale_gate = gate(cfg.p_scale)
@@ -121,13 +161,33 @@ def coords_from_draws(draws: AugmentDraws, shape: Sequence[int], cfg: AugmentCon
     return coords
 
 
-def augment_batch(
-    data: torch.Tensor, seg: Optional[torch.Tensor], draws: AugmentDraws, cfg: AugmentConfig = AugmentConfig()
-):
+def coords_from_draws_2d(draws: AugmentDraws2D, shape: Sequence[int], cfg: Augment2DConfig) -> torch.Tensor:
+    """(B, X, Y, 2) sampling coordinates, the JAX ``_augment2d_one`` per
+    sample: ``rel @ R.T`` for the gated angle, then ``* (mx, my)``."""
+    dev = draws.angle.device
+    shape = tuple(int(s) for s in shape)
+    center = (torch.tensor(shape, dtype=torch.float32, device=dev) - 1.0) / 2.0
+    rel = (identity_grid(shape, dev) - center).unsqueeze(0)  # (1, X, Y, 2)
+    B = draws.angle.shape[0]
+    if cfg.do_rotation:
+        a = torch.where(draws.rot_gate, draws.angle, 0.0)
+        c, s = torch.cos(a), torch.sin(a)
+        rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)  # (B, 2, 2)
+        rel = (rel.reshape(1, -1, 2) @ rot.transpose(1, 2)).reshape(B, *shape, 2)
+    if cfg.do_mirror:
+        flips = torch.stack([draws.flip_x, draws.flip_y], -1) & draws.mirror_gate[:, None]
+        rel = rel * torch.where(flips, -1.0, 1.0).reshape(B, 1, 1, 2)
+    return (rel + center).expand(B, *shape, 2)
+
+
+def augment_batch(data: torch.Tensor, seg: Optional[torch.Tensor], draws, cfg: AugmentConfig = AugmentConfig()):
     """Augment a (B, X, Y, Z) f32 scan batch and its (B, X, Y, Z) mask batch
     (or ``seg=None``: data only, as for the OPT stream) with one coordinate
-    field per sample: (data, seg) resampled."""
-    if data.dim() != 4:
-        raise NotImplementedError("augmentation of 2D batches (Augment2DConfig) is not ported yet (ROADMAP)")
+    field per sample: (data, seg) resampled. (B, X, Y) batches take the 2D
+    path (``Augment2DConfig`` and :class:`AugmentDraws2D`): bilinear scan,
+    nearest mask."""
+    if data.dim() == 3:
+        coords = coords_from_draws_2d(draws, data.shape[1:], cfg)
+        return bilinear_sample(data, coords), None if seg is None else nearest_sample_2d(seg, coords)
     coords = coords_from_draws(draws, data.shape[1:], cfg)
     return trilinear_sample(data, coords), None if seg is None else nearest_sample(seg, coords)

@@ -1,14 +1,17 @@
-"""Random 3D patch sampling from memory-mapped patients (counterpart of the
-3D ``CCTAPatchSampler`` in ``contrast_gan_3d_tpu/data/sampler.py``).
+"""Random patch sampling from memory-mapped patients (counterpart of
+``CCTAPatchSampler`` in ``contrast_gan_3d_tpu/data/sampler.py``).
 
-Per sample: a patient from a shuffled epoch order, a random crop of the
+Per 3D sample: a patient from a shuffled epoch order, a random crop of the
 (virtually) centre-padded scan and mask, or with ``p_centerline_3d`` a crop
 centred on a random centerline point, then the optional host augmenter.
+Per 2D sample (a 2-element patch shape, the 2D family): half the time the
+axial slice through a random centerline point, centre-padded to the patch
+and cropped around the point; otherwise a random slice, padded, randomly
+cropped (reference ``CCTADataLoader.py:51-69``).
 With the same files and the same ``np.random.Generator`` seed the batches
 are bit-identical to the JAX sampler's: the draws are the same calls in
-the same order, and the crop is the native crop the JAX package calls.
-Patches stay int16; the scaler runs in the train step. The 2D sampler is
-not ported (ROADMAP).
+the same order, and the 3D crop is the native crop the JAX package calls.
+Patches stay int16; the scaler runs in the train step.
 """
 
 import threading
@@ -17,8 +20,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from contrast_gan_3d_tpu_torch import native
-from contrast_gan_3d_tpu_torch.data.preprocess import ROADMAP_NOTE, load_patient
+from contrast_gan_3d_tpu_torch.data.preprocess import load_patient
 from contrast_gan_3d_tpu_torch.utils import geometry as geom
+
+
+def _pad_to(volume: np.ndarray, target: Sequence[int]) -> np.ndarray:
+    """Centre-pad the leading len(target) dims up to ``target`` with zeros."""
+    pads = []
+    for i, t in enumerate(target):
+        missing = max(0, t - volume.shape[i])
+        pads.append((missing // 2, missing - missing // 2))
+    pads += [(0, 0)] * (volume.ndim - len(target))
+    if any(p != (0, 0) for p in pads):
+        volume = np.pad(volume, pads)
+    return volume
 
 
 def crop_pad_int16(volume: np.ndarray, start, patch_size) -> np.ndarray:
@@ -49,8 +64,9 @@ def crop_pad_int16_reference(volume: np.ndarray, start, patch_size) -> np.ndarra
 
 
 class CCTAPatchSampler:
-    """Random 3D patch sampler over one ScanType's patient list; infinite,
-    or one pass (``infinite=False``, the last batch may be short)."""
+    """Random 3D or 2D patch sampler over one ScanType's patient list;
+    infinite, or one pass (``infinite=False``, the last batch may be
+    short)."""
 
     def __init__(
         self,
@@ -60,7 +76,7 @@ class CCTAPatchSampler:
         rng: Optional[np.random.Generator] = None,
         shuffle: bool = True,
         infinite: bool = True,
-        augmenter=None,  # HostAugmenter
+        augmenter=None,  # HostAugmenter (3D) or HostAugmenter2D
         p_centerline_3d: float = 0.0,
     ):
         if not paths:
@@ -68,8 +84,9 @@ class CCTAPatchSampler:
         self.paths = list(paths)
         self._path_strs = [str(p) for p in self.paths]
         self.patch_shape = tuple(int(p) for p in patch_shape)
-        if len(self.patch_shape) != 3:
-            raise NotImplementedError(f"the 2D patch sampler is {ROADMAP_NOTE}")
+        if len(self.patch_shape) not in (2, 3):
+            raise ValueError(f"patch_shape must have 2 or 3 dims, got {self.patch_shape}")
+        self.is_2d = len(self.patch_shape) == 2
         self.batch_size = int(batch_size)
         self.p_centerline_3d = float(p_centerline_3d)
         self.rng = rng or np.random.default_rng()
@@ -160,6 +177,32 @@ class CCTAPatchSampler:
             start = bbox[:, 0] - pad_off
         return crop_pad_int16(data_and_seg, start, target)
 
+    def _sample_2d(self, data_and_seg: np.ndarray, meta: Dict) -> np.ndarray:
+        """A (pw, ph, 2) slice patch: 50% through a random centerline point,
+        cropped around it; 50% a random z slice, randomly cropped."""
+        W, H, D = data_and_seg.shape[:3]
+        pw, ph = self.patch_shape
+        with self._rng_lock:
+            along_centerline = self.rng.random() < 0.5 and len(meta.get("centerlines_world", ())) > 0
+            idx = int(self.rng.integers(0, len(meta["centerlines_world"]))) if along_centerline else 0
+        if along_centerline:
+            x, y, z = geom.world_to_image_coords(np.asarray(meta["centerlines_world"])[idx, :3], meta["offset"],
+                                                  meta["spacing"])
+            z = int(np.clip(z, 0, D - 1))
+            # a scan smaller than the patch is padded first and the point
+            # shifts with the pad, so the vessel stays inside
+            off = [max(pw - W, 0) // 2, max(ph - H, 0) // 2]
+            sl = _pad_to(np.asarray(data_and_seg[:, :, z]), (pw, ph))
+            bbox = geom.get_patch_bounds((pw, ph), sl.shape[:2], np.array([x + off[0], y + off[1]]))
+            return sl[bbox[0, 0] : bbox[0, 1], bbox[1, 0] : bbox[1, 1]]
+        with self._rng_lock:
+            z = int(self.rng.integers(0, D))
+        sl = _pad_to(np.asarray(data_and_seg[:, :, z]), (pw, ph))
+        with self._rng_lock:
+            sx = int(self.rng.integers(0, sl.shape[0] - pw + 1))
+            sy = int(self.rng.integers(0, sl.shape[1] - ph + 1))
+        return sl[sx : sx + pw, sy : sy + ph]
+
     def _load_patient_cached(self, path: str):
         with self._patients_lock:
             hit = self._patients.get(path)
@@ -171,7 +214,7 @@ class CCTAPatchSampler:
 
     def sample_one(self, path: str) -> Tuple[np.ndarray, str]:
         data_and_seg, meta = self._load_patient_cached(path)
-        patch = self._sample_3d(data_and_seg, meta)
+        patch = (self._sample_2d if self.is_2d else self._sample_3d)(data_and_seg, meta)
         if self.augmenter is not None:
             scan, seg = self.augmenter(patch[..., 0], patch[..., 1])
             patch = np.stack([scan, seg], axis=-1)

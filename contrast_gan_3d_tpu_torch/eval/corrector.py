@@ -1,10 +1,13 @@
 """Full-volume CCTA contrast corrector (counterpart of
-``contrast_gan_3d_tpu/eval/corrector.py``; 3D, direct layout).
+``contrast_gan_3d_tpu/eval/corrector.py``; direct layout).
 
-A user hands an int16 (W, H, D) volume to ``CCTAContrastCorrector``; the
-Gaussian-blended sliding window (``ops/sliding_window.py``) runs every patch
-through the generator on the device and returns the f32 corrected HU volume.
-``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``;
+A user hands an int16 (W, H, D) volume to ``CCTAContrastCorrector``. With a
+3D ``inference_patch_size`` the Gaussian-blended sliding window
+(``ops/sliding_window.py``) runs every patch through the generator on the
+device; with a 2D one (the 2D family) the axial slices go through it in
+batches. Either way the f32 corrected HU volume comes back.
+``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``,
+``from_reference_checkpoint`` from a reference ``<iteration>.pt``;
 ``correct_file`` reads a scan file, corrects it and writes the result
 (``utils/io_utils.py``).
 """
@@ -24,6 +27,7 @@ from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -39,6 +43,16 @@ class CCTAContrastCorrector:
     ``dtype``: the patches' dtype on the way into the generator, as the JAX
     corrector's; bf16 serving passes ``torch.bfloat16`` here and builds the
     generator with ``dtype=torch.bfloat16``. The blend stays f32.
+
+    A 2-element ``inference_patch_size`` selects the 2D corrector (its
+    values are not used, as in JAX): the (W, H, D) volume is scaled in f32
+    and its D axial slices run through the 2D generator as ``(b, 1, W, H)``
+    batches of ``b = min(batch_size, ceil(D / 8) * 8)``, the tail padded
+    with zero slices; each batch's attenuation is subtracted in f32 and the
+    result unscaled. The slices enter the generator in f32, as the JAX 2D
+    path feeds them (a bf16 generator's first block casts them), so
+    ``dtype`` does not apply. ``batch_size`` None means the JAX choice: 8
+    for 3D; for 2D 128 on the card and 8 on the CPU.
     """
 
     def __init__(
@@ -46,15 +60,16 @@ class CCTAContrastCorrector:
         generator: nn.Module,
         inference_patch_size: Tuple[int, ...] = (128, 128, 128),
         overlap: float = 0.5,
-        batch_size: int = 8,
+        batch_size: Optional[int] = None,
         scaler: Scaler = FactorZeroCenterScaler(),
         layout: str = "direct",
         device="cuda",
         dtype: torch.dtype = torch.float32,
     ):
         self.device = resolve_device(device)
-        if len(inference_patch_size) != 3:
-            raise NotImplementedError("the 2D corrector is not ported yet; see ROADMAP.md")
+        if len(inference_patch_size) not in (2, 3):
+            raise ValueError(f"inference_patch_size must have 2 or 3 values, got {inference_patch_size}")
+        self.is_2d = len(inference_patch_size) == 2
         if layout != "direct":
             raise NotImplementedError(
                 f"layout={layout!r} is not ported yet (only 'direct'); see ROADMAP.md"
@@ -63,7 +78,12 @@ class CCTAContrastCorrector:
         self.scaler = scaler
         self.inference_patch_size = tuple(inference_patch_size)
         self.overlap = overlap
+        if batch_size is None:
+            batch_size = (128 if self.device.type == "cuda" else 8) if self.is_2d else 8
         self.batch_size = batch_size
+        if self.is_2d:
+            self.correct_volume = self._correct_2d
+            return
         self.correct_volume = make_volume_corrector(
             self.generator,
             patch_size=self.inference_patch_size,
@@ -102,6 +122,51 @@ class CCTAContrastCorrector:
         generator.load_state_dict(payload["state_dict"], strict=True)
         logger.info("Loaded generator from '%s' @ iteration %s", checkpoint_dir, payload["step"])
         return cls(generator, **kwargs)
+
+    @classmethod
+    def from_reference_checkpoint(
+        cls,
+        pt_path,
+        n_resnet_blocks: Optional[int] = None,
+        n_updownsample_blocks: Optional[int] = None,
+        init_channels_out: Optional[int] = None,
+        ndim: Optional[int] = None,
+        dtype: torch.dtype = torch.float32,
+        **kwargs,
+    ) -> "CCTAContrastCorrector":
+        """Build from a reference ``<iteration>.pt`` (the torch checkpoint of
+        reference ``trainer/Trainer.py:321-327``; ``utils/
+        reference_checkpoint.py``), so users of the reference correct volumes
+        with the checkpoints they have. The architecture comes from the
+        file's state dict; explicit values that disagree raise. The
+        generator is built with ``tconv_placement="torch"``, the reference's
+        transpose-conv window, and with ``dtype``, which also goes to the
+        corrector, as in JAX. A 2D file wants a 2-element
+        ``inference_patch_size``. ``kwargs`` go to the constructor."""
+        payload = load_reference_checkpoint(pt_path, n_resnet_blocks, n_updownsample_blocks)
+        arch = payload["generator_arch"]
+        for name, given in (("init_channels_out", init_channels_out), ("ndim", ndim)):
+            if given is not None and given != arch[name]:
+                raise ValueError(f"{name}={given} does not match the checkpoint (found {arch[name]})")
+        generator = ResnetGenerator(**arch, tconv_placement="torch", dtype=dtype)
+        generator.load_state_dict(payload["generator"], strict=True)
+        logger.info("Ported reference checkpoint '%s' @ iteration %d", pt_path, payload["iteration"])
+        return cls(generator, dtype=dtype, **kwargs)
+
+    def _correct_2d(self, volume) -> torch.Tensor:
+        """Axial-slice batched 2D correction: (W, H, D) -> (W, H, D) f32 HU."""
+        volume = torch.as_tensor(volume)
+        W, H, D = volume.shape
+        slices = self.scaler(volume.to(self.device, torch.float32)).permute(2, 0, 1).unsqueeze(1)
+        bs = min(self.batch_size, -(-D // 8) * 8)
+        pad = (-D) % bs
+        if pad:
+            slices = torch.cat([slices, slices.new_zeros((pad, 1, W, H))])
+        out = torch.empty_like(slices)
+        for b0 in range(0, len(slices), bs):
+            batch = slices[b0 : b0 + bs]
+            out[b0 : b0 + bs] = batch - self.generator(batch).float()
+        return self.scaler.unscale(out[:D, 0].permute(1, 2, 0).contiguous())
 
     @torch.inference_mode()
     def __call__(self, volume) -> torch.Tensor:

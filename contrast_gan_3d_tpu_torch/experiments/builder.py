@@ -7,18 +7,22 @@ What the JAX builder chooses automatically, the port resolves so:
 - ``cycle_length`` None or 1 -> per-iteration dispatch (the same math as a
   fused cycle); K > 1 raises;
 - ``remat`` None or False -> off; True raises. The JAX builder turns remat
-  on above 30 M voxels per iteration (``small_patch``, ``rmsprop`` and
-  ``gp_layernorm``: 40 + 20 + 20 patches of 128x128x32, 41.9 M voxels).
-  The port keeps it off: ``small_patch``'s bf16 ``combined_step`` peaks at
-  8.28 GiB allocated on an NVIDIA H100 80GB HBM3 at 700 W
-  (``chip_smoke.py``'s small_patch phase), a tenth of the card, and the
-  math is the same either way;
+  on above 30 M voxels per iteration in 3D (``small_patch``, ``rmsprop``
+  and ``gp_layernorm``: 40 + 20 + 20 patches of 128x128x32, 41.9 M
+  voxels), never in 2D. The port keeps it off: ``small_patch``'s bf16
+  ``combined_step`` peaks at 8.28 GiB allocated on an NVIDIA H100 80GB
+  HBM3 at 700 W (``chip_smoke.py``'s small_patch phase), a tenth of the
+  card, and the math is the same either way;
 - ``dp_devices`` / ``sp_devices`` set -> raise;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
-  ``HostAugmenter`` for the train loaders;
+  ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
+  JAX builder falls back to the device augmentation where its native
+  library does not build; the port's builds or raises;
+- ``is_2d`` (the 2D family) -> both networks with ``ndim=2``, and an
+  ``Augment2DConfig`` (rotation and mirror); the JAX package's 2D file
+  logger differs from its 3D one only in its image files, unported here;
 - ``logger="file"`` -> ``scalars.jsonl`` under ``<checkpoint_dir>/metrics``,
-  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``);
-- the 2D family and the layer-norm critic raise (ROADMAP).
+  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``).
 
 The networks' initial weights are drawn on the CPU from the config's seed
 (torch initialises a module when it is built, where the JAX package draws
@@ -36,14 +40,19 @@ import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch import config as paths
-from contrast_gan_3d_tpu_torch.data.augment import AugmentConfig
-from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter
+from contrast_gan_3d_tpu_torch.data.augment import Augment2DConfig, AugmentConfig
+from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
 from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
-from contrast_gan_3d_tpu_torch.trainer.logger import ConsoleLogger, FileLogger, LoggerInterface, NoopLogger
+from contrast_gan_3d_tpu_torch.trainer.logger import (
+    ConsoleLogger,
+    FileLogger,
+    LoggerInterface,
+    NoopLogger,
+)
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig
 from contrast_gan_3d_tpu_torch.trainer.trainer import TrainerConfig
@@ -67,16 +76,12 @@ class BuiltExperiment:
     scaler: FactorZeroCenterScaler
     logger_interface: LoggerInterface
     seed: int
-    host_augmenter: Optional[HostAugmenter] = None
+    host_augmenter: Optional[HostAugmenter] = None  # or HostAugmenter2D
 
 
 def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
     unported = []
-    if cfg.is_2d or len(cfg.train_patch_size) != 3:
-        unported.append("the 2D family")
-    if cfg.critic_args.get("norm", "batch") not in ("batch", None):
-        unported.append(f"critic norm {cfg.critic_args['norm']!r}")
     if cfg.generator_args.get("layout", cfg.generator_layout) == "packed":
         unported.append("the packed generator layout (A7)")
     if cfg.cycle_length is not None and cfg.cycle_length > 1:
@@ -100,6 +105,7 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
     _check_portable(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
+    ndim = 2 if cfg.is_2d else 3
     layout = cfg.generator_args.get("layout", cfg.generator_layout)
     if layout == "auto" and not _warned_layout:
         _warned_layout = True
@@ -108,9 +114,9 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
     seed = DEFAULT_SEED if cfg.seed is None else cfg.seed
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        generator = ResnetGenerator(**{**dict(dtype=dtype), **gen_args, "layout": "direct"})
-        critic = PatchGANDiscriminator(**{**dict(dtype=dtype), **{k: v for k, v in cfg.critic_args.items()
-                                                                   if k != "remat"}})
+        generator = ResnetGenerator(**{**dict(ndim=ndim, dtype=dtype), **gen_args, "layout": "direct"})
+        critic = PatchGANDiscriminator(**{**dict(ndim=ndim, dtype=dtype), **{k: v for k, v in cfg.critic_args.items()
+                                                                             if k != "remat"}})
     generator.to(device)
     critic.to(device)
     tx = partial(make_optimizer, cfg.optimizer, lr=cfg.lr, betas=cfg.betas, milestones=cfg.milestones,
@@ -118,15 +124,18 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
     scaler = FactorZeroCenterScaler(*cfg.HU_norm_range, cfg.max_HU_delta)
 
     augment = host_augmenter = None
-    if cfg.augment:
+    if cfg.augment and cfg.is_2d:
+        augment = Augment2DConfig(do_rotation=cfg.do_rotation, angle=float(np.deg2rad(cfg.rotation_deg)),
+                                  p_rotation=cfg.p_rotation)
+    elif cfg.augment:
         augment = AugmentConfig(
             do_elastic=cfg.do_elastic, deformation_scale=cfg.deformation_scale, p_elastic=cfg.p_elastic,
             do_scale=cfg.do_scale, scale_range=cfg.scale_range, p_scale=cfg.p_scale,
             do_rotation=cfg.do_rotation, angle=float(np.deg2rad(cfg.rotation_deg)), p_rotation=cfg.p_rotation,
         )
-        if cfg.augment_backend == "host":
-            host_augmenter = HostAugmenter(augment, np.random.default_rng(seed))
-            augment = None  # the warp happens in the loaders' workers
+    if augment is not None and cfg.augment_backend == "host":
+        host_augmenter = (HostAugmenter2D if cfg.is_2d else HostAugmenter)(augment, np.random.default_rng(seed))
+        augment = None  # the warp happens in the loaders' workers
 
     step_config = StepConfig(
         weight_clip=cfg.weight_clip,

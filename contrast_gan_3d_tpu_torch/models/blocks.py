@@ -1,17 +1,19 @@
 """Conv building blocks (counterpart of ``contrast_gan_3d_tpu/models/blocks.py``),
-3D, NCDHW tensors.
+2D or 3D (``ndim``), NCHW / NCDHW tensors.
 
-``ConvBlock`` = conv / transpose conv + BatchNorm (or none) + activation,
-with a bias only when unnormalized; ``ResNetBlock`` = two ConvBlocks +
-optional dropout + skip. Weights use torch's layouts: conv ``(O, I, kx, ky,
-kz)``, transpose conv ``(I, O, kx, ky, kz)`` (``utils/weights.py`` maps the
-JAX kernels onto them).
+``ConvBlock`` = conv / transpose conv + BatchNorm, LayerNorm or none +
+activation, with a bias only when unnormalized; ``ResNetBlock`` = two
+ConvBlocks + optional dropout + skip. Weights use torch's layouts: conv
+``(O, I, *k)``, transpose conv ``(I, O, *k)`` (``utils/weights.py`` maps the
+JAX kernels onto them). Only 3D stride-1 SAME convs take space-to-depth
+(``S2DConv``, B3 -> B1), as in the JAX block: the 2D family's convs are
+cuDNN's.
 
 ``dtype`` is the compute dtype, as the JAX modules' ``dtype``: parameters
 stay f32; each conv casts its input, weight and bias to ``dtype``, its
-output, the bias add, the BatchNorm multiply-add and the activation stay
-in it (bf16 in, bf16 out). No ``torch.autocast``: its op lists would put
-the rounding points elsewhere.
+output, the bias add, the norm's output and the activation stay in it
+(bf16 in, bf16 out). No ``torch.autocast``: its op lists would put the
+rounding points elsewhere.
 """
 
 from typing import Optional
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.norm import BatchNorm
+from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, LayerNorm
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, s2d_conv3d_block
 
 
@@ -55,7 +57,7 @@ class S2DConv(nn.Conv3d):
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """The conv's bias added after the conv, in y's dtype (flax adds it so)."""
-    return y if bias is None else y + bias.view(-1, 1, 1, 1)
+    return y if bias is None else y + bias.view((-1,) + (1,) * (y.dim() - 2))
 
 
 def _same_tconv_offset(k: int, s: int) -> int:
@@ -67,7 +69,7 @@ def _same_tconv_offset(k: int, s: int) -> int:
 
 
 class ConvBlock(nn.Module):
-    """conv -> norm -> activation (3D)."""
+    """conv -> norm -> activation over ``ndim`` (2 or 3) spatial dims."""
 
     def __init__(
         self,
@@ -85,17 +87,24 @@ class ConvBlock(nn.Module):
         s2d: Optional[int] = None,
         tconv_placement: str = "same",
         dtype: torch.dtype = torch.float32,
+        ndim: int = 3,
     ):
         super().__init__()
+        if ndim not in (2, 3):
+            raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         if padding_mode not in ("reflect", "zeros"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}: expected 'zeros' | 'reflect'")
-        if norm not in ("batch", None):
+        if norm == "instance":
             raise NotImplementedError(f"norm={norm!r} is {ROADMAP_NOTE}")
+        if norm not in ("batch", "layer", None):
+            raise ValueError(f"Unknown norm {norm!r}")
         if activation not in ("relu", "leaky_relu", "tanh", None):
             raise ValueError(f"Unknown activation {activation!r}")
         use_bias = norm is None
         self.transpose = transpose
+        self.ndim = ndim
         self.dtype = dtype
+        conv_cls = {2: nn.Conv2d, 3: nn.Conv3d}[ndim]
         self.activation = activation
         self.negative_slope = negative_slope
         if transpose:
@@ -106,20 +115,25 @@ class ConvBlock(nn.Module):
                 self.tconv_offset = _same_tconv_offset(kernel_size, stride)
             else:
                 raise ValueError(f"unknown tconv_placement {tconv_placement!r}")
-            self.conv = nn.ConvTranspose3d(
+            self.conv = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}[ndim](
                 in_channels, features, kernel_size, stride=stride, bias=use_bias
             )
-        elif s2d is not None and stride == 1 and padding == (kernel_size - 1) // 2:
+        elif s2d is not None and ndim == 3 and stride == 1 and padding == (kernel_size - 1) // 2:
             self.conv = S2DConv(
                 in_channels, features, kernel_size, padding_mode=padding_mode,
                 f=s2d, bias=use_bias, dtype=dtype,
             )
         else:
-            self.conv = nn.Conv3d(
+            self.conv = conv_cls(
                 in_channels, features, kernel_size, stride=stride, padding=padding,
                 padding_mode=padding_mode, bias=use_bias,
             )
-        self.norm = BatchNorm(features, dtype=dtype) if norm == "batch" else None
+        if norm == "batch":
+            self.norm = BatchNorm(features, dtype=dtype)
+        elif norm == "layer":
+            self.norm = LayerNorm(dtype=dtype)
+        else:
+            self.norm = None
         self.dropout = nn.Dropout(dropout_prob) if dropout_prob > 0 else None
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,11 +142,11 @@ class ConvBlock(nn.Module):
         x, w = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
             # full transpose conv, then the size-preserving window
-            n = x.shape[2:]
             s = self.conv.stride[0]
             lo = self.tconv_offset
-            y = torch.conv_transpose3d(x, w, stride=s)
-            y = y[:, :, lo : lo + s * n[0], lo : lo + s * n[1], lo : lo + s * n[2]]
+            tconv = torch.conv_transpose3d if self.ndim == 3 else torch.conv_transpose2d
+            y = tconv(x, w, stride=s)
+            y = y[(slice(None), slice(None)) + tuple(slice(lo, lo + s * n) for n in x.shape[2:])]
         else:
             y = self.conv._conv_forward(x, w, None)
         return _add_bias(y, None if self.conv.bias is None else self.conv.bias.to(self.dtype))
@@ -153,7 +167,7 @@ class ConvBlock(nn.Module):
 
 
 class ResNetBlock(nn.Module):
-    """Two 3^3 ConvBlocks with a residual skip: block0 has no activation,
+    """Two 3^ndim ConvBlocks with a residual skip: block0 has no activation,
     dropout sits between the blocks, the skip wraps both."""
 
     def __init__(
@@ -164,15 +178,16 @@ class ResNetBlock(nn.Module):
         padding_mode: str = "zeros",
         norm: Optional[str] = "batch",
         dtype: torch.dtype = torch.float32,
+        ndim: int = 3,
     ):
         super().__init__()
         self.block0 = ConvBlock(
             features, features, kernel_size, padding=1, padding_mode=padding_mode,
-            norm=norm, activation=None, dropout_prob=dropout_prob, dtype=dtype,
+            norm=norm, activation=None, dropout_prob=dropout_prob, dtype=dtype, ndim=ndim,
         )
         self.block1 = ConvBlock(
             features, features, kernel_size, padding=1, padding_mode=padding_mode,
-            norm=norm, activation="relu", dtype=dtype,
+            norm=norm, activation="relu", dtype=dtype, ndim=ndim,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

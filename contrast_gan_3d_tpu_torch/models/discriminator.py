@@ -1,11 +1,11 @@
-"""3D PatchGAN critic (counterpart of
-``contrast_gan_3d_tpu/models/discriminator.py``), NCDHW tensors.
+"""3D / 2D PatchGAN critic (counterpart of
+``contrast_gan_3d_tpu/models/discriminator.py``), NCDHW or NCHW tensors.
 
 k=4, s=2, p=1 zero-padded ``ConvBlock``s with LeakyReLU(0.2): an
 unnormalized first block (so it carries a bias), then
 ``discriminator_depth`` blocks of ``min(2^(n+1), 8) * init_channels_out``
-channels with ``norm`` ("batch" or None, the gradient-penalty preset's
-choice), then a k=4, s=1, p=1 conv to a 1-channel logit map: patch-wise
+channels with ``norm`` ("batch", None for the gradient-penalty presets,
+"layer" for ``gp_layernorm``), then a k=4, s=1, p=1 conv to a 1-channel logit map: patch-wise
 realism scores with no global pooling. Module names ``first``,
 ``middle_{n}`` and ``last`` follow the flax ones. The default config has
 176,873 parameters. ``dtype`` is every block's compute dtype
@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE, ConvBlock
+from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock
 
 
 class PatchGANDiscriminator(nn.Module):
@@ -32,18 +32,17 @@ class PatchGANDiscriminator(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if ndim != 3:
-            raise NotImplementedError(f"ndim={ndim} (the 2D family) is {ROADMAP_NOTE}")
         self.discriminator_depth = discriminator_depth
         c0 = init_channels_out
-        block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope, dtype=dtype)
+        block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope, dtype=dtype, ndim=ndim)
         self.first = ConvBlock(1, c0, kernel_size, stride=2, norm=None, **block)
         c_in = c0
         for n in range(discriminator_depth):
             c_out = min(2 ** (n + 1), 8) * c0
             self.add_module(f"middle_{n}", ConvBlock(c_in, c_out, kernel_size, stride=2, norm=norm, **block))
             c_in = c_out
-        self.last = ConvBlock(c_in, 1, kernel_size, stride=1, padding=1, norm=None, activation=None, dtype=dtype)
+        self.last = ConvBlock(c_in, 1, kernel_size, stride=1, padding=1, norm=None, activation=None, dtype=dtype,
+                              ndim=ndim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.first(x)

@@ -1,5 +1,6 @@
 """BatchNorm with the JAX package's semantics (counterpart of
-``contrast_gan_3d_tpu/models/norm.py``), channels at dim 1 (NCDHW).
+``contrast_gan_3d_tpu/models/norm.py``), channels at dim 1 (NCDHW or
+NCHW), and the per-sample ``LayerNorm`` of the layer-norm critic.
 
 - eval: normalize with the running statistics;
 - train: normalize with the biased batch variance ``E[x^2] - E[x]^2``
@@ -82,3 +83,25 @@ def frozen_batch_stats(module: nn.Module):
     finally:
         for m, flag in zip(norms, saved):
             m.update_stats = flag
+
+
+class LayerNorm(nn.Module):
+    """Per-sample normalisation over the whole ``(C, *spatial)`` map with no
+    affine parameters: the JAX ``ConvBlock``'s ``norm="layer"``, flax
+    ``LayerNorm(reduction_axes=(1, ..., ndim), use_bias=False,
+    use_scale=False)`` (reference ``gp_layernorm.py:10-13``). As flax
+    computes it: x promoted to f32, ``var = max(E[x^2] - E[x]^2, 0)``, ``y =
+    (x - mean) * rsqrt(var + eps)`` in f32, then cast to ``dtype`` (None:
+    x's dtype); eps is flax's 1e-6."""
+
+    def __init__(self, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(1, x.dim()))
+        xf = x.float()
+        mean = xf.mean(axes, keepdim=True)
+        var = torch.clamp(xf.square().mean(axes, keepdim=True) - mean.square(), min=0.0)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(self.dtype or x.dtype)

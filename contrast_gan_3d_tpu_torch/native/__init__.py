@@ -1,6 +1,7 @@
 """The host data ops in C++ (the port's copy of ``contrast_gan_3d_tpu/native``):
-the sampler's zero-filled crop and the fused affine + elastic warp of the
-host augmentation, which run in the loaders' worker threads.
+the sampler's zero-filled crop, the fused affine + elastic warp of the 3D
+host augmentation and the 2D family's rotate + mirror slice warp, which run
+in the loaders' worker threads.
 
 ``csrc/hostops.cpp`` (a verbatim copy of the JAX package's source) is
 compiled at first use with ``g++ -O3 -march=native -shared -fPIC -fopenmp``
@@ -13,9 +14,9 @@ Where the compiler has no OpenMP the build is retried without
 ``-fopenmp`` and :func:`warp_num_threads` reports 1. A failed build raises
 with the compiler's output; nothing falls back to another warp.
 
-Bound: ``crop_pad_int16``, ``warp_augment_int16`` and ``warp_num_threads``.
-The 2D warp and ``trilinear_f32`` stay unbound until their consumers are
-ported (ROADMAP).
+Bound: ``crop_pad_int16``, ``warp_augment_int16``, ``warp_augment2d_int16``
+and ``warp_num_threads``. ``trilinear_f32`` stays unbound until its
+consumer, the ostia labelling, is ported (ROADMAP, A14).
 """
 
 import ctypes
@@ -112,6 +113,13 @@ def load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
             ]
+            lib.warp_augment2d_int16.restype = None
+            lib.warp_augment2d_int16.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_long, ctypes.c_long,
+                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
             _LIB = lib
     return _LIB
 
@@ -190,3 +198,27 @@ def warp_augment_int16(scan: np.ndarray, seg: np.ndarray, affine: np.ndarray,
 
 
 warp_augment_int16.calls = 0
+
+
+def warp_augment2d_int16(scan: np.ndarray, seg: np.ndarray, affine: np.ndarray):
+    """The 2D warp of one (W, H) int16 slice and mask pair: ``src = A @ (dst
+    - c) + c`` (a rotation with the mirror folded into the 2x2 ``A``); the
+    scan bilinear, rounded as floor(v + 0.5), the mask nearest (half to
+    even), both clamped to the edge, as ``ops/resample.bilinear_sample`` /
+    ``nearest_sample_2d``. Counts its calls in
+    ``warp_augment2d_int16.calls``."""
+    lib = load()
+    scan = np.ascontiguousarray(scan, np.int16)
+    seg = np.ascontiguousarray(seg, np.int16)
+    affine = np.ascontiguousarray(affine, np.float32)
+    if affine.shape != (2, 2) or scan.ndim != 2 or seg.shape != scan.shape:
+        raise ValueError(f"warp_augment2d_int16: scan {scan.shape}, seg {seg.shape}, affine {affine.shape}")
+    out_scan, out_seg = np.empty_like(scan), np.empty_like(seg)
+    lib.warp_augment2d_int16(scan.ctypes.data, seg.ctypes.data, *(int(d) for d in scan.shape),
+                             affine.ctypes.data, out_scan.ctypes.data, out_seg.ctypes.data)
+    with _COUNT_LOCK:
+        warp_augment2d_int16.calls += 1
+    return out_scan, out_seg
+
+
+warp_augment2d_int16.calls = 0

@@ -1,5 +1,5 @@
-"""Point samplers for the spatial augmentation (counterpart of the 3D part
-of ``contrast_gan_3d_tpu/ops/resample.py``).
+"""Point samplers for the spatial augmentation (counterpart of the 3D and
+2D parts of ``contrast_gan_3d_tpu/ops/resample.py``).
 
 ``trilinear_sample`` is true clamp-to-edge: clamped integer corners, the
 fraction against the clamped base clamped to [0, 1], eight gathers by flat
@@ -10,7 +10,11 @@ host warp). Neither goes through ``F.grid_sample``: its normalisation to
 mask voxel at half-integer coordinates.
 
 Every sampler takes a batch: ``volume`` (B, X, Y, Z) or (B, X, Y, Z, C)
-and ``coords`` (B, ..., 3) in voxel units; sample b reads volume b.
+and ``coords`` (B, ..., 3) in voxel units; sample b reads volume b. The 2D
+samplers (``bilinear_sample``, ``nearest_sample_2d``) take (B, X, Y) or
+(B, X, Y, C) images and (B, ..., 2) coordinates, with the same
+conventions: clamped corners, ``f = clip(x - floor_clamped(x), 0, 1)``,
+half-to-even rounding.
 ``resize_weights`` is ``jax.image.resize``'s linear (triangle) kernel as a
 (n_in, n_out) matrix, antialiased on shrinking axes as JAX does.
 """
@@ -21,7 +25,8 @@ import torch
 
 
 def identity_grid(shape: Sequence[int], device=None) -> torch.Tensor:
-    """(X, Y, Z, 3) f32 grid of voxel coordinates."""
+    """(*shape, len(shape)) f32 grid of voxel coordinates: (X, Y, Z, 3),
+    or (X, Y, 2) for a slice."""
     axes = [torch.arange(s, dtype=torch.float32, device=device) for s in shape]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
 
@@ -130,3 +135,48 @@ def resize_linear(x: torch.Tensor, shape: Sequence[int], antialias: bool = True)
         w = resize_weights(n_in, n_out, antialias, device=x.device).to(x.dtype)
         x = torch.movedim(torch.tensordot(x, w, dims=([axis], [0])), -1, axis)
     return x
+
+
+def _flat_2d(image: torch.Tensor):
+    """(B, X, Y[, C]) -> ((B*X*Y, C) view, (B, X, Y), has_channels)."""
+    has_channels = image.dim() == 4
+    if not has_channels:
+        image = image.unsqueeze(-1)
+    B, X, Y, C = image.shape
+    return image.reshape(-1, C), (B, X, Y), has_channels
+
+
+def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Clamp-to-edge bilinear samples of each image at its (B, ..., 2)
+    coords, blended in the JAX ``bilinear_sample`` order."""
+    flat, (B, X, Y), has_channels = _flat_2d(image)
+    base = (torch.arange(B, device=coords.device) * (X * Y)).reshape((B,) + (1,) * (coords.dim() - 2))
+    corners, fracs = [], []
+    for axis, n in enumerate((X, Y)):
+        x = coords[..., axis]
+        i0 = torch.floor(x).long().clamp(0, n - 1)
+        corners.append((i0, torch.clamp(i0 + 1, max=n - 1)))
+        fracs.append(torch.clamp(x - i0, 0.0, 1.0).unsqueeze(-1))
+    (x0, x1), (y0, y1) = corners
+    fx, fy = fracs
+
+    def gather(ix, iy):
+        return flat[base + ix * Y + iy]
+
+    out = (
+        gather(x0, y0) * (1 - fx) * (1 - fy)
+        + gather(x1, y0) * fx * (1 - fy)
+        + gather(x0, y1) * (1 - fx) * fy
+        + gather(x1, y1) * fx * fy
+    )
+    return out if has_channels else out[..., 0]
+
+
+def nearest_sample_2d(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour samples of each image (masks), half to even,
+    clamped to the image."""
+    flat, (B, X, Y), has_channels = _flat_2d(image)
+    base = (torch.arange(B, device=coords.device) * (X * Y)).reshape((B,) + (1,) * (coords.dim() - 2))
+    ix, iy = (torch.round(coords[..., a]).long().clamp(0, n - 1) for a, n in enumerate((X, Y)))
+    out = flat[base + ix * Y + iy]
+    return out if has_channels else out[..., 0]

@@ -94,7 +94,8 @@ class TrainManager:
         loader_kw = dict(to_device=True, device=self.device)
         train_loaders = create_loaders(train_fold, cfg.train_patch_size, cfg.train_batch_size, host_rng,
                                        num_threads=cfg.num_workers[0], prefetch=cfg.prefetch_depth,
-                                       augmenter=built.host_augmenter, p_centerline_3d=cfg.p_centerline_3d,
+                                       augmenter=built.host_augmenter,
+                                       p_centerline_3d=0.0 if cfg.is_2d else cfg.p_centerline_3d,
                                        **loader_kw)
         val_loaders = None
         if cfg.validate_every is not None and val_fold:

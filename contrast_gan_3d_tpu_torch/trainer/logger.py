@@ -1,9 +1,9 @@
 """Experiment logging (counterpart of ``contrast_gan_3d_tpu/trainer/
 logger.py``): ``LoggerInterface`` with scalar and image hooks, the no-op
 and console loggers, and ``FileLogger`` for scalars
-(``<out_dir>/scalars.jsonl``). Image files need matplotlib and the wandb
-and TensorBoard backends their packages, none of which the card's machine
-has: they are not ported (ROADMAP)."""
+(``<out_dir>/scalars.jsonl``), of 2D runs too. Image files need matplotlib
+and the wandb and TensorBoard backends their packages, none of which the
+card's machine has: they are not ported (ROADMAP)."""
 
 import json
 import logging

@@ -2,10 +2,10 @@
 ``contrast_gan_3d_tpu/trainer/steps.py``), eager PyTorch.
 
 One iteration, as in the JAX package:
-- batches arrive as raw int16 ``(B, X, Y, Z)`` patches; the step casts them
-  to f32, applies the scaler, casts to ``StepConfig.dtype`` (the networks'
-  compute dtype; the mask stays f32) and adds the channel dim at dim 1
-  (NCDHW);
+- batches arrive as raw int16 ``(B, X, Y, Z)`` patches, or ``(B, X, Y)``
+  slices for the 2D family; the step casts them to f32, applies the
+  scaler, casts to ``StepConfig.dtype`` (the networks' compute dtype; the
+  mask stays f32) and adds the channel dim at dim 1 (NCDHW / NCHW);
 - the generator runs ONE forward per iteration, in train mode (its
   BatchNorm running statistics update once), and its graph is kept across
   the critic update (the JAX step's ``jax.vjp``);
@@ -18,8 +18,8 @@ One iteration, as in the JAX package:
   frozen, and its gradients are taken over the generator's parameters only
   (``torch.autograd.grad``), so no gradient reaches the critic's ``.grad``.
 
-With ``StepConfig.augment`` (an ``AugmentConfig``) the
-int16 batches are augmented on the device in f32 before the scaler and the
+With ``StepConfig.augment`` (an ``AugmentConfig``, or an
+``Augment2DConfig`` for 2D slices) the int16 batches are augmented on the device in f32 before the scaler and the
 cast, as ``_prepare_batches`` does in the JAX package: the sub-optimal
 batch and its mask share one coordinate field per sample (trilinear scan,
 nearest mask), the OPT batch is augmented as data only. The draws come
@@ -74,9 +74,10 @@ class StepConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.augment is not None and type(self.augment) is not aug.AugmentConfig:
+        if self.augment is not None and type(self.augment) not in (aug.AugmentConfig, aug.Augment2DConfig):
             raise NotImplementedError(
-                f"augmentation {type(self.augment).__name__} (only the 3D AugmentConfig is ported) is {ROADMAP_NOTE}"
+                f"augmentation {type(self.augment).__name__} (the port's AugmentConfig and Augment2DConfig are "
+                f"ported) is {ROADMAP_NOTE}"
             )
 
     @property
@@ -129,8 +130,8 @@ def init_state(
 
 
 def _scaled(cfg: StepConfig, batch, device, dtype=torch.float32) -> torch.Tensor:
-    """int16 (B, X, Y, Z) -> scaled (B, 1, X, Y, Z) on ``device``: the scaler
-    in f32, then ``dtype``."""
+    """int16 (B, *spatial) -> scaled (B, 1, *spatial) on ``device``: the
+    scaler in f32, then ``dtype``."""
     return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).to(dtype).unsqueeze(1)
 
 
@@ -237,7 +238,7 @@ def build_preview_step(cfg: StepConfig):
     ``rng_state``, the ``state.rng.get_state()`` saved before that step
     (the sub-optimal draws come first in a step). Returns the scaled batch,
     the eval-mode reconstruction and attenuation, and the augmented mask,
-    NCDHW (the counterpart of the JAX ``build_preview_step``)."""
+    NCDHW or NCHW (the counterpart of the JAX ``build_preview_step``)."""
     if cfg.augment is None:
         raise ValueError("the preview re-derives on-device augmentation; StepConfig.augment is None")
 
@@ -314,7 +315,7 @@ def build_val_steps(cfg: StepConfig):
     """Eval-mode steps ``(state, batch, w)``, w a (B,) 0/1 validity vector:
     ``val_opt_step`` scores the critic on real (OPT) data;
     ``val_subopt_step`` runs the generator on sub-optimal data and returns
-    (realism, ZNCC similarity, corrected batch, attenuation), NCDHW. As in
+    (realism, ZNCC similarity, corrected batch, attenuation), NCDHW / NCHW. As in
     the JAX val steps the scaled batch stays f32 whatever ``cfg.dtype``:
     the networks' first blocks cast it, and the corrected batch is f32."""
 

@@ -7,10 +7,13 @@ of numpy arrays with flax paths such as ``first/Conv_0/kernel``,
 or, for the critic, ``middle_0/BatchNorm_0/scale`` and ``last/Conv_0/bias``.
 The mapping is layout-only:
 
-- conv kernels ``(kx, ky, kz, I, O)`` -> ``(O, I, kx, ky, kz)``;
-- transpose-conv kernels: spatial flip, then ``(I, O, kx, ky, kz)`` — torch's
+- conv kernels ``(*k, I, O)`` -> ``(O, I, *k)``, 3D ``k = (kx, ky, kz)``
+  or 2D ``(kx, ky)``;
+- transpose-conv kernels: spatial flip, then ``(I, O, *k)`` — torch's
   transpose conv correlates with the flipped kernel (the window placement
   is the module's ``tconv_placement``, not a weight property);
+- a LayerNorm has no variables (no affine), so ``norm="layer"`` blocks
+  carry only their conv;
 - BatchNorm ``scale``/``bias`` params and ``mean``/``var`` stats ->
   ``weight``/``bias``/``running_mean``/``running_var``.
 """
@@ -31,13 +34,15 @@ _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
 def _conv_kernel(k: np.ndarray) -> np.ndarray:
-    """(kx, ky, kz, I, O) -> (O, I, kx, ky, kz)."""
-    return k.transpose(4, 3, 0, 1, 2)
+    """(*k, I, O) -> (O, I, *k)."""
+    nd = k.ndim - 2
+    return k.transpose(nd + 1, nd, *range(nd))
 
 
 def _tconv_kernel(k: np.ndarray) -> np.ndarray:
-    """(kx, ky, kz, I, O) -> spatially flipped (I, O, kx, ky, kz)."""
-    return k[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+    """(*k, I, O) -> spatially flipped (I, O, *k)."""
+    nd = k.ndim - 2
+    return k[(slice(None, None, -1),) * nd].transpose(nd, nd + 1, *range(nd))
 
 
 def _walk(tree: Mapping, path=()):

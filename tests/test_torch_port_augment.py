@@ -39,6 +39,7 @@ from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter
 from contrast_gan_3d_tpu_torch.ops import resample as rs
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, build_preview_step, build_train_steps
+from tests.test_torch_port_2d import jax_draws_2d
 from tests.test_torch_port_train import Pair, assert_metrics_close, batches
 
 ALWAYS = dict(p_elastic=1.0, p_scale=1.0, p_rotation=1.0)
@@ -175,9 +176,16 @@ def test_augment_batch_matches_jax(rng, probs):
 
 
 def test_2d_batches_point_to_roadmap():
-    cfg = aug.AugmentConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aug.augment_batch(torch.zeros(2, 8, 8), None, aug.draw(torch.Generator(), 2, cfg), cfg)
+    """(B, X, Y) batches once raised here; they now take the 2D path
+    (``Augment2DConfig``), which matches JAX's 2D ``augment_batch`` on the
+    same draws (the full parity is in ``tests/test_torch_port_2d.py``)."""
+    jcfg, cfg = jax_aug.Augment2DConfig(p_rotation=1.0, p_mirror=1.0), aug.Augment2DConfig(p_rotation=1.0, p_mirror=1.0)
+    data = np.random.default_rng(0).normal(0, 100, (2, 8, 8)).astype(np.float32)
+    key = jax.random.key(1)
+    want, _ = jax_aug.augment_batch(jnp.asarray(data), jnp.asarray(data), key, jcfg)
+    got, none = aug.augment_batch(_t(data), None, jax_draws_2d(key, 2, jcfg), cfg)
+    assert none is None and got.shape == (2, 8, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5 * np.abs(data).max())
 
 
 # --- the train step and the preview ----------------------------------------
@@ -245,9 +253,13 @@ def test_preview_is_the_batch_the_step_trained_on():
 
 
 def test_step_config_takes_only_the_3d_augment_config():
+    """The port's own configs (the 3D one and, since the 2D family,
+    ``Augment2DConfig``); anything else, such as the JAX package's, raises."""
     assert StepConfig(augment=aug.AugmentConfig()).augment == aug.AugmentConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StepConfig(augment=jax_aug.AugmentConfig())
+    assert StepConfig(augment=aug.Augment2DConfig()).augment == aug.Augment2DConfig()
+    for other in (jax_aug.AugmentConfig(), jax_aug.Augment2DConfig()):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            StepConfig(augment=other)
 
 
 # --- the host augmenter -----------------------------------------------------

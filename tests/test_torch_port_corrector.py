@@ -106,8 +106,16 @@ def test_corrector_defaults_to_cuda_and_raises_without_it(carried):
 
 @pytest.mark.parametrize("kw", [dict(layout="packed"), dict(inference_patch_size=(16, 16))])
 def test_corrector_unported_options_point_to_roadmap(carried, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CCTAContrastCorrector(carried[2], device="cpu", **kw)
+    """``layout="packed"`` still raises. A 2-element patch size (the 2D
+    corrector) raised until it was ported; it now selects the slice
+    corrector, batch 8 on the CPU as in JAX (parity in
+    ``tests/test_torch_port_2d.py``)."""
+    if "layout" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            CCTAContrastCorrector(carried[2], device="cpu", **kw)
+        return
+    corrector = CCTAContrastCorrector(carried[2], device="cpu", **kw)
+    assert corrector.is_2d and corrector.batch_size == 8
 
 
 # packages the card's machine does not have: the port must not need them

@@ -145,5 +145,19 @@ def test_generator_output_shape_matches_jax(dims, n):
 
 @pytest.mark.parametrize("kw", [dict(layout="packed"), dict(ndim=2), dict(norm="layer")])
 def test_unported_options_point_to_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResnetGenerator(**kw)
+    """``layout="packed"`` still raises. ``ndim=2`` (the 2D family) and
+    ``norm="layer"`` raised until they were ported; they now build and
+    match the JAX generator (2D in depth: ``tests/test_torch_port_2d.py``)."""
+    if kw.get("layout") == "packed":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ResnetGenerator(**kw)
+        return
+    ndim = kw.get("ndim", 3)
+    cfg = dict(TINY, **kw)
+    jgen, variables, tgen = carried_generator(cfg, 8, shape=(1,) + (16,) * ndim + (1,))
+    x = np.random.default_rng(9).normal(0, 0.5, (2,) + (16,) * ndim + (1,)).astype(np.float32)
+    want = jgen.apply(variables, jnp.asarray(x), train=False)
+    tgen.eval()
+    with torch.no_grad():
+        got = torch.movedim(tgen(torch.movedim(torch.from_numpy(x), -1, 1)), 1, -1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

@@ -229,8 +229,22 @@ def test_frozen_batch_stats_keeps_running_statistics():
 
 @pytest.mark.parametrize("kw", [dict(ndim=2), dict(norm="layer")])
 def test_unported_critic_options_point_to_roadmap(kw):
+    """``ndim=2`` and ``norm="layer"`` raised until they were ported; the
+    critic now builds with them and matches the JAX critic in train mode
+    (more in ``tests/test_torch_port_2d.py``). ``"instance"`` still
+    raises."""
+    shape = (2,) + (32,) * kw.get("ndim", 3) + (1,)
+    jc = JaxCritic(**CRITIC, **kw)
+    variables = _np_tree(jc.init(jax.random.key(11), jnp.zeros(shape), train=False))
+    tc = PatchGANDiscriminator(**CRITIC, **kw)
+    tc.load_state_dict(critic_state_dict_from_jax(variables), strict=True)
+    x = np.random.default_rng(12).normal(0, 0.5, shape).astype(np.float32)
+    want, _ = jc.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    with torch.no_grad():
+        got = torch.movedim(tc(torch.movedim(_t(x), -1, 1)), 1, -1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PatchGANDiscriminator(**kw)
+        PatchGANDiscriminator(norm="instance")
 
 
 # --- losses ---------------------------------------------------------------
