@@ -2,6 +2,7 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --only cycle c3   # a partial run: no result lines
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -58,7 +59,9 @@ failure raises and exits non-zero):
 7. where the time goes: device time by kernel over one 512x512x128
    correction and over one warm weight-clip ``combined_step``, in each
    dtype, under ``torch.profiler``, the steps also by
-   ``convolution_backward`` input shapes;
+   ``convolution_backward`` input shapes; the busy share is the union of
+   the kernels' intervals over the wall time (kernels that overlap count
+   once);
 8. train parity, f32: default widths, 32^3 patches, batch 2 + 1 + 1, one
    step from one state on the card and on the CPU (weight clip and
    gradient penalty with a fixed eps), for each of
@@ -92,10 +95,13 @@ failure raises and exits non-zero):
     ``write_patient``, a splits pickle and an override file, then the
     port's CLI ``main`` in-process on ``basic_3d`` with device
     augmentation for 15 iterations (logs every 5, validation at 10 with
-    one iteration, a checkpoint every 10, console logger). Checks: finite
-    logged losses, the critic within the clip, the periodic checkpoint
-    with its meta and data sidecars (named for the completed step count,
-    11), B1 launches per iteration as the schedule predicts; a fresh
+    one iteration, a checkpoint every 10, console logger), which resolves
+    ``cycle_length`` to 5: cycles at 0, 5 and 10, the first eager, then a
+    capture and replays. Checks: finite logged losses, the critic within
+    the clip, the periodic checkpoint with its meta and data sidecars
+    (named for the completed step count: the cycle from 10 ends at 15),
+    B1 launches per cycle as the schedule predicts (through the replays);
+    a fresh
     trainer restores the model, optimizers, generator state and step
     equal to the first run's end, and fresh loaders the saved data-stream
     states; a second ``main`` to 20 iterations resumes at 15, and its
@@ -103,14 +109,16 @@ failure raises and exits non-zero):
     logged patches/s beside the bare-step figure of phase 6, the
     ``TimeBudget`` shares, the peak memory and the profile;
 12. the host backend (the JAX package's default, through the native warp):
-    three times, a run of 11 iterations with ``augment_backend="host"``
-    beside a fresh device-augmented run of 11 iterations; each prints its
-    warm patches/s and its ``data_wait`` and ``dispatch`` shares, after a
-    line with the host's cores, ``warp_num_threads()``, the loaders' worker
-    threads and torch's intra-op threads. The host runs must call the
-    native warp and never its plain version (``warp_int16``). The warm
-    patches/s of both backends is the one logged at iteration 5, which the
-    lagged fetch measures over iterations 6-10;
+    three times, a run of 15 iterations with ``augment_backend="host"``
+    beside a fresh device-augmented run of 15 iterations, each at K = 5 and
+    again at ``cycle_length=1``; each prints its warm patches/s, its
+    ``data_wait`` and ``dispatch`` shares and its peak memory (the first
+    repeat also profiles 10 more iterations of each), after a line with the
+    host's cores, ``warp_num_threads()``, the loaders' worker threads and
+    torch's intra-op threads. The host runs must call the native warp and
+    never its plain version (``warp_int16``). The warm patches/s is the one
+    logged at boundary 5, which the lagged fetch measures between its reads
+    at boundaries 5 and 10;
 13. the native host ops (run before the training run): the build line
     (compiler, ``-fopenmp`` or not, ``warp_num_threads()``, cores); the
     native warp of four 128^3 int16 CT-like patches with rotation, scale
@@ -150,21 +158,34 @@ failure raises and exits non-zero):
     the CPU and its time per 256 + 256 batch; 20, bare ``conf_2d`` and
     ``gradient_penalty_2d`` steps at 256 + 128 + 128 slices of 128^2, f32
     and bf16, with a profile, and the f32 train parity gate at 64^2; 21, the
-    CLI's ``main`` on conf_2d (host augmentation, then one device run), a
-    profile of a started run, unprofiled windows with four loader threads
-    per label and with one, and a resume bit-equal to two uninterrupted
-    runs under torch's deterministic algorithms, then how far the 2D
-    networks' gradients repeat without them (no gate);
+    CLI's ``main`` on conf_2d in 5-iteration cycles (host augmentation,
+    then one device run), a profile of a started run, unprofiled windows
+    with four loader threads per label and with one, and a resume (4 -> 7,
+    cycles realigned) bit-equal to two uninterrupted runs under torch's
+    deterministic algorithms;
 22. reference ``.pt`` files written by the port, 3D and 2D, corrected
     through ``from_reference_checkpoint`` and (3D) ``correct_scans
     --reference-pt``, each equal to the module built directly;
 23. phase 15 for ``gp_layernorm`` (its layer-norm critic), beside
-    ``small_patch``'s.
+    ``small_patch``'s; both also report the peak memory of their preset's
+    5-iteration cycle as a CUDA graph (eager, capture + replay, replay);
+24. fused schedule cycles, ``basic_3d``, ``gradient_penalty`` and
+    ``conf_2d`` at full width, bf16, device augmentation, an lr milestone
+    inside a cycle: ``fit`` in 4 cycles of 5 replayed as CUDA graphs
+    against eager per-iteration dispatch, bit-equal after every cycle,
+    launches per cycle, the logged scalars, two replays drawing different
+    augmentations; then seconds per cycle, graph against eager, the
+    ``replay()`` call, busy shares, peak memory (``cycle_phase``);
+25. C3: the reflect pad's backward, ``F.pad``'s against ``reflect_pad``'s,
+    and two identical gradient calls of the 3D and 2D generators (and the
+    2D critic) under ``cudnn.deterministic`` alone: the generators'
+    gradients bit-equal (``c3_phase``).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import collections
 import contextlib
 import ctypes
@@ -213,7 +234,7 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import (
     s2d_conv3d_block,
     weight_grad,
 )
-from contrast_gan_3d_tpu_torch.ops.s2d_conv import s2d_conv3d
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import reflect_pad, s2d_conv3d
 from contrast_gan_3d_tpu_torch.ops.resample import (
     bilinear_sample,
     identity_grid,
@@ -226,7 +247,7 @@ from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
-from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, TrainerConfig
+from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, SCAN_TYPES, Trainer, TrainerConfig
 from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint, save_reference_checkpoint
 
@@ -679,12 +700,27 @@ def parity_bf16_phase(gen16, state, rng):
                              f"(limit {limit})")
 
 
+def busy_us(intervals) -> float:
+    """Microseconds of the union of (start, end) device intervals: kernels
+    that overlap (two streams, a graph's parallel branches) count once."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
 def profile(fn, label, top=15):
     """Device time by kernel over one warm call of ``fn`` under
-    torch.profiler, and the device's busy share of the wall time (the
-    profiler's own cost is inside that wall time); then the device time of
-    each ``aten::convolution_backward`` by input shapes, which names the
-    layer behind a backward kernel (none in a forward-only call)."""
+    torch.profiler, and the device's busy share of the wall time: the union
+    of the kernels' intervals over the wall time (the profiler's own cost
+    is inside that wall time); then the device time of each
+    ``aten::convolution_backward`` by input shapes, which names the layer
+    behind a backward kernel (none in a forward-only call). Returns
+    {wall_ms, busy_ms, busy_share}, the busy figures None where the
+    profiler recorded no device time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -693,23 +729,27 @@ def profile(fn, label, top=15):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = collections.Counter()
+    by_name, intervals = collections.Counter(), []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
-    if not busy_us:
-        print(f"profile {label}: the profiler recorded no device time (not measured)", flush=True)
-        return
-    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-          f"({100 * busy_us / wall_us:.1f}%), {sum(1 for _ in by_name)} kernel names", flush=True)
+            intervals.append((e.time_range.start, e.time_range.end))
+    kernel_us, busy = sum(by_name.values()), busy_us(intervals)
+    if not kernel_us:
+        print(f"profile {label}: wall {wall_us / 1e3:.1f} ms; the profiler recorded no device time (busy not "
+              f"measured)", flush=True)
+        return dict(wall_ms=wall_us / 1e3, busy_ms=None, busy_share=None)
+    print(f"profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / wall_us:.1f}%; kernel time summed {kernel_us / 1e3:.1f} ms), "
+          f"{sum(1 for _ in by_name)} kernel names", flush=True)
     for name, us in by_name.most_common(top):
-        print(f"  {us / 1e3:9.2f} ms {100 * us / busy_us:5.1f}%  {name[:110]}", flush=True)
+        print(f"  {us / 1e3:9.2f} ms {100 * us / kernel_us:5.1f}%  {name[:110]}", flush=True)
     rows = [e for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::convolution_backward"]
     for e in sorted(rows, key=lambda e: -e.device_time_total):
         # input shapes: grad_output, input, weight
         print(f"  convolution_backward {e.device_time_total / 1e3:9.2f} ms x{e.count} "
               f"{e.input_shapes[:3]}", flush=True)
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, busy_share=busy / wall_us)
 
 
 def train_patches(rng, patch, mix, dev):
@@ -1077,9 +1117,11 @@ AUG_FIELD_TOL, AUG_COORD_TOL, AUG_SCAN_TOL, AUG_HALF_TOL = 1e-6, 1e-4, 1e-5, 1e-
 # the fit phase: patients at least 288x288x160 (the JAX package's synthetic
 # study volumes), 3 per label, and its cadences
 FIT_PATIENT = (288, 288, 160)
-# 11 host iterations, so that its warm window (below) is whole
-FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 11
+# 15 host iterations, so that the cycle at boundary 10 (its warm window,
+# below) is whole
+FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 15
 FIT_PROFILE_ITERATIONS = 10
+FIT_WINDOW_ITERATIONS = 20
 FIT_HOST_REPEATS = 3
 # phase 13: the native warp at the training patch size; phase 14: the
 # serving-from-files cohort
@@ -1089,10 +1131,15 @@ FILES_FORMATS = ("mhd", "nii.gz", "npy")
 # the default generator's parameter count (basic_3d)
 GEN_PARAMS = 1_035_297
 FIT_OVERRIDES = dict(log_every=5, validate_every=10, val_iterations=1, checkpoint_every=10, logger="console")
+# every cadence above is a multiple of 5: basic_3d and conf_2d resolve
+# cycle_length auto to K = 5, as the JAX builder does
+FIT_K = 5
 LOG_LINE = re.compile(r"\[(train|validation) (\d+)\] (.*)")
-# the lagged fetch logs at iteration 5 the patches/s of iterations 6-10:
-# one whole 4 critic + 1 combined period, warm, before validation and the
-# checkpoint at 10
+# the lagged fetch logs at boundary 5 the patches/s between its reads at
+# boundaries 5 and 10: the read at 10 waits for the cycle 5-9 to finish on
+# the card, while the batches of the cycle 10-14 load and dispatch; one
+# whole 4 critic + 1 combined period after the first capture, before
+# validation and the checkpoint at 10
 WARM_LOG = 5
 
 
@@ -1213,43 +1260,57 @@ class LogCapture(logging.Handler):
 
 
 @contextlib.contextmanager
-def b1_per_iteration():
-    """Record B1 launches per ``Trainer.train_step`` call: (iteration,
-    forward + dx launches, dx launches)."""
-    seen, real = [], Trainer.train_step
+def b1_per_dispatch():
+    """Record B1 launches per ``Trainer.train_step`` or
+    ``Trainer.train_step_cycle`` call: (iteration, forward + dx launches,
+    dx launches). A replayed cycle counts its launches through
+    ``add_launch_counts``."""
+    seen, real_step, real_cycle = [], Trainer.train_step, Trainer.train_step_cycle
 
-    def counted(self, patches, iteration):
-        before = (block_conv3x3x3.launches, block_conv3x3x3.backward_launches)
-        out = real(self, patches, iteration)
-        seen.append((iteration, block_conv3x3x3.launches - before[0], block_conv3x3x3.backward_launches - before[1]))
-        return out
+    def counted(real):
+        def call(self, patches, iteration, *args):
+            before = (block_conv3x3x3.launches, block_conv3x3x3.backward_launches)
+            out = real(self, patches, iteration, *args)
+            seen.append((iteration, block_conv3x3x3.launches - before[0],
+                         block_conv3x3x3.backward_launches - before[1]))
+            return out
+        return call
 
-    Trainer.train_step = counted
+    Trainer.train_step, Trainer.train_step_cycle = counted(real_step), counted(real_cycle)
     try:
         yield seen
     finally:
-        Trainer.train_step = real
+        Trainer.train_step, Trainer.train_step_cycle = real_step, real_cycle
 
 
-def expected_b1(start, stop, val_every, val_iterations):
-    """B1 launches of a basic_3d fit over iterations [start, stop): per
-    iteration by its branch, plus 2 per validation generator forward (LOW
-    and HIGH per validation iteration)."""
-    per_iteration = [B1_PER_BRANCH[b] for b in schedule_branches(1, 5, start, stop - start)]
-    validations = sum(1 for i in range(start, stop) if i and i % val_every == 0)
-    return per_iteration, sum(per_iteration) + validations * val_iterations * 2 * 2
+def expected_b1(start, stop, val_every, val_iterations, k=1):
+    """B1 launches of a basic_3d fit over iterations [start, stop) in cycles
+    of ``k`` (boundaries on multiples of k): per cycle by its branches,
+    plus 2 per validation generator forward (LOW and HIGH per validation
+    iteration) at the boundaries due."""
+    per_cycle, validations, i = [], 0, start
+    while i < stop:
+        n = min(k - i % k, stop - i)
+        per_cycle.append(sum(B1_PER_BRANCH[b] for b in schedule_branches(1, 5, i, n)))
+        validations += bool(i and i % val_every == 0)
+        i += n
+    return per_cycle, sum(per_cycle) + validations * val_iterations * 2 * 2
 
 
 def _same_state(a, b, what):
+    """Both networks, both optimizers (state, hyperparameters, schedule,
+    the device lr), the generator state and the step: bit-equal."""
     for m in ("generator", "critic"):
         for (k, x), y in zip(getattr(a, m).state_dict().items(), getattr(b, m).state_dict().values()):
             if not torch.equal(x, y):
                 raise AssertionError(f"{what}: {m}.{k} differs")
     for o in ("gen_opt", "critic_opt"):
-        sa, sb = getattr(a, o).optimizer.state_dict(), getattr(b, o).optimizer.state_dict()
-        if sa["param_groups"] != sb["param_groups"] or getattr(a, o).scheduler.state_dict() != \
-                getattr(b, o).scheduler.state_dict():
+        (sa, scha), (sb, schb) = getattr(a, o).state_dicts(), getattr(b, o).state_dicts()
+        if sa["param_groups"] != sb["param_groups"] or scha != schb:
             raise AssertionError(f"{what}: {o} hyperparameters or schedule differ")
+        la, lb = getattr(a, o).scheduler.lr, getattr(b, o).scheduler.lr
+        if (la is None) != (lb is None) or (la is not None and not torch.equal(la, lb)):
+            raise AssertionError(f"{what}: {o} device learning rate differs")
         for i in sa["state"]:
             for k in sa["state"][i]:
                 if not torch.equal(sa["state"][i][k], sb["state"][i][k]):
@@ -1280,10 +1341,11 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
     confs = {}
     for backend in ("device", "host"):
-        confs[backend] = tmp / f"fit_{backend}.py"
-        confs[backend].write_text(
-            "from dataclasses import replace\n\n\ndef config(base):\n"
-            f"    return replace(base, augment_backend={backend!r}, **{FIT_OVERRIDES!r})\n")
+        for k, extra in ((FIT_K, {}), (1, dict(cycle_length=1))):
+            conf = confs[backend if k == FIT_K else f"{backend}_k1"] = tmp / f"fit_{backend}_{k}.py"
+            fields = dict(FIT_OVERRIDES, **extra)
+            conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
+                            f"    return replace(base, augment_backend={backend!r}, **{fields!r})\n")
     print(f"fit: wrote 9 patients of {FIT_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def run(backend, iterations, run_id=None):
@@ -1291,7 +1353,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
                 str(tmp / "runs"), "--run-id", run_id or backend, "--iterations", str(iterations), "--device", device]
         capture.records.clear()
         t = time.perf_counter()
-        with b1_per_iteration() as per_it:
+        with b1_per_dispatch() as per_it:
             manager = train_cli.main(args)
         torch.cuda.synchronize()
         fold_run = manager.runs[0]
@@ -1321,17 +1383,23 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     trainer = first.trainer
     run_dir = tmp / "runs" / "device"
+    if trainer.cfg.cycle_length != FIT_K:
+        raise AssertionError(f"fit: basic_3d resolved cycle_length {trainer.cfg.cycle_length}, expected {FIT_K}")
     want_per_it, want_total = expected_b1(0, FIT_ITERATIONS, FIT_OVERRIDES["validate_every"],
-                                          FIT_OVERRIDES["val_iterations"])
+                                          FIT_OVERRIDES["val_iterations"], FIT_K)
     got_per_it = [n for _, n, _ in per_it]
     if got_per_it != want_per_it or block_conv3x3x3.launches != want_total:
-        raise AssertionError(f"fit: B1 launches per iteration {got_per_it} (expected {want_per_it}), "
+        raise AssertionError(f"fit: B1 launches per cycle {got_per_it} (expected {want_per_it}), "
                              f"in all {block_conv3x3x3.launches} (expected {want_total})")
+    calls = {p: dict(c.calls) for p, c in trainer._cycle_cache.items()}
+    print(f"fit: B1 launches per cycle {got_per_it}; cycle calls by pattern {calls}", flush=True)
     clip = trainer.step_cfg.weight_clip
     biggest = max(p.abs().max().item() for p in trainer.state.critic.parameters())
     if not biggest <= clip:
         raise AssertionError(f"fit: critic parameter {biggest} beyond the clip {clip}")
-    periodic = FIT_OVERRIDES["checkpoint_every"] + 1  # named for the completed step count
+    # named for the completed step count: the cycle that starts at the due
+    # boundary ends at checkpoint_every + K
+    periodic = FIT_OVERRIDES["checkpoint_every"] + FIT_K
     files = {p.name for p in run_dir.iterdir()}
     if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{FIT_ITERATIONS}.pt"} <= files:
         raise AssertionError(f"fit: checkpoint files {sorted(files)}")
@@ -1345,7 +1413,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
                              bare_schedule_patches_per_sec=bare_schedule)
     pps, shares = results["device"]["patches_per_sec"], results["device"]["shares"]
     print(f"fit device (basic_3d bf16, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
-          f"{pps[WARM_LOG]:.1f} patches/s (iterations 6-10); logged patches/s {json.dumps(pps)}; bare steps of "
+          f"{pps[WARM_LOG]:.1f} patches/s (boundaries 5-10); logged patches/s {json.dumps(pps)}; bare steps of "
           f"phase 6: {n_patches / comb:.1f} patches/s per combined_step, {bare_schedule:.1f} over the 4 critic + "
           f"1 combined schedule; time budget {json.dumps({k: round(v, 4) for k, v in shares.items()})}; peak "
           f"memory {peak_gib:.2f} GiB", flush=True)
@@ -1374,7 +1442,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     if second.trainer.start_iteration != FIT_ITERATIONS or second.trainer.iteration != FIT_RESUME_TO:
         raise AssertionError(f"fit resume: ran {second.trainer.start_iteration} -> {second.trainer.iteration}")
     want_per_it, want_total = expected_b1(FIT_ITERATIONS, FIT_RESUME_TO, FIT_OVERRIDES["validate_every"],
-                                          FIT_OVERRIDES["val_iterations"])
+                                          FIT_OVERRIDES["val_iterations"], FIT_K)
     if [n for _, n, _ in per_it2] != want_per_it or block_conv3x3x3.launches - before != want_total:
         raise AssertionError(f"fit resume: B1 launches {per_it2}, expected {want_per_it}")
     print(f"fit resume: {FIT_ITERATIONS} -> {FIT_RESUME_TO} in {seconds2:.1f} s", flush=True)
@@ -1398,38 +1466,73 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     torch.cuda.empty_cache()
 
     # the host backend through the native warp, three times, each beside a
-    # fresh device-augmented run of the same length
+    # fresh device-augmented run of the same length, each at the preset's
+    # K = 5 and at cycle_length=1 (per-iteration dispatch); the first
+    # repeat also profiles a started window of each
     print(f"fit host threads: {os.cpu_count()} cores, warp_num_threads {native.warp_num_threads()}, 3 train "
           f"loaders x {cfg.num_workers[0]} workers + 3 validation loaders x {cfg.num_workers[1]}, torch intra-op "
           f"{torch.get_num_threads()}", flush=True)
-    results["host"], results["device_beside_host"] = [], []
-    want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
-                                          FIT_OVERRIDES["val_iterations"])
+    keys = {"host": "host", "device": "device_beside_host", "host_k1": "host_k1", "device_k1": "device_k1"}
+    for key in keys.values():
+        results[key] = []
     for rep in range(FIT_HOST_REPEATS):
-        for backend in ("host", "device"):
+        for backend in ("host", "device", "host_k1", "device_k1"):
+            k = 1 if backend.endswith("_k1") else FIT_K
+            want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
+                                                  FIT_OVERRIDES["val_iterations"], k)
             before, warps, plain = block_conv3x3x3.launches, native.warp_augment_int16.calls, warp_int16.calls
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             fold_run, logs3, per_it3, seconds3 = run(backend, FIT_HOST_ITERATIONS, f"{backend}_{rep}")
+            if fold_run.trainer.cfg.cycle_length != k:
+                raise AssertionError(f"fit {backend}: cycle_length {fold_run.trainer.cfg.cycle_length}, expected {k}")
             if [n for _, n, _ in per_it3] != want_per_it or block_conv3x3x3.launches - before != want_total:
                 raise AssertionError(f"fit {backend} {rep}: B1 launches {per_it3}, expected {want_per_it}")
             warps = native.warp_augment_int16.calls - warps
-            if backend == "host" and not (warps > 0 and warp_int16.calls == plain):
-                raise AssertionError(f"fit host {rep}: {warps} native warps, "
+            if backend.startswith("host") and not (warps > 0 and warp_int16.calls == plain):
+                raise AssertionError(f"fit {backend} {rep}: {warps} native warps, "
                                      f"{warp_int16.calls - plain} plain (torch) warps")
-            r = dict(warm(fold_run, logs3, seconds3), native_warps=warps)
-            results["host" if backend == "host" else "device_beside_host"].append(r)
-            print(f"fit {backend} run {rep + 1}/{FIT_HOST_REPEATS} ({FIT_HOST_ITERATIONS} iterations, "
-                  f"{seconds3:.1f} s with set-up): warm {r['warm_patches_per_sec']:.1f} patches/s (iterations "
-                  f"6-10); data_wait {r['shares']['data_wait']:.3f}, dispatch {r['shares']['dispatch']:.3f}; "
-                  f"native warps {warps}; logged patches/s {json.dumps(r['patches_per_sec'])}; "
-                  f"{fold_run.trainer.time_budget.summary()}", flush=True)
+            r = dict(warm(fold_run, logs3, seconds3), native_warps=warps,
+                     peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+            t = fold_run.trainer
+            t.cfg = dataclasses.replace(t.cfg, checkpoint_dir=None, val_every=None)
+
+            def started_window(iterations):
+                t.cfg = dataclasses.replace(t.cfg, train_iterations=t.iteration + iterations)
+                t.fit(fold_run.train_loaders)
+                torch.cuda.synchronize()
+
+            # the steady rate: FIT_WINDOW_ITERATIONS more iterations over the
+            # loop's whole wall time (the logged rate above brackets one
+            # cycle's work between two reads, which overlaps the loading of
+            # the next cycle)
+            started_window(FIT_WINDOW_ITERATIONS)
+            r["window_patches_per_sec"] = FIT_WINDOW_ITERATIONS * 12 / sum(t.time_budget.total.values())
+            r["window_shares"] = t.time_budget.shares()
+            print(f"fit {backend} (K = {k}) run {rep + 1}/{FIT_HOST_REPEATS} ({FIT_HOST_ITERATIONS} iterations, "
+                  f"{seconds3:.1f} s with set-up): {r['window_patches_per_sec']:.1f} patches/s over "
+                  f"{FIT_WINDOW_ITERATIONS} more iterations ({t.time_budget.summary()}); logged "
+                  f"{r['warm_patches_per_sec']:.1f} at boundary 5; the run's data_wait "
+                  f"{r['shares']['data_wait']:.3f}, dispatch {r['shares']['dispatch']:.3f}; peak memory "
+                  f"{r['peak_memory_gib']:.2f} GiB; native warps {warps}",
+                  flush=True)
+            if rep == 0:
+                r["profile"] = profile(lambda: started_window(FIT_PROFILE_ITERATIONS),
+                                       f"fit {backend} (K = {k}), {FIT_PROFILE_ITERATIONS} iterations of a started run",
+                                       top=8)
+                r["profile"]["shares"] = t.time_budget.shares()
+                print(f"profile fit {backend} (K = {k}): {t.time_budget.summary()}", flush=True)
+            results[keys[backend]].append(r)
             stop_loaders(fold_run)
             del fold_run
-    for key in ("host", "device_beside_host"):
+    for key in keys.values():
         rs = results[key]
-        print(f"fit {key}, {FIT_HOST_REPEATS} runs: warm patches/s "
-              f"{[round(r['warm_patches_per_sec'], 1) for r in rs]}, data_wait "
-              f"{[round(r['shares']['data_wait'], 3) for r in rs]}, dispatch "
-              f"{[round(r['shares']['dispatch'], 3) for r in rs]}", flush=True)
+        print(f"fit {key}, {FIT_HOST_REPEATS} runs: patches/s over {FIT_WINDOW_ITERATIONS} started iterations "
+              f"{[round(r['window_patches_per_sec'], 1) for r in rs]}, data_wait "
+              f"{[round(r['window_shares']['data_wait'], 3) for r in rs]}, dispatch "
+              f"{[round(r['window_shares']['dispatch'], 3) for r in rs]}, sync_log "
+              f"{[round(r['window_shares']['sync_log'], 3) for r in rs]}; peak memory "
+              f"{[round(r['peak_memory_gib'], 2) for r in rs]} GiB", flush=True)
     console.removeHandler(capture)
     launches = read_counts()
     if launches["s2d_conv3d_block"] != launches["block_conv3x3x3"] - launches["block_conv3x3x3_backward"]:
@@ -1654,10 +1757,27 @@ def small_patch_phase(device="cuda", name="small_patch", **overrides):
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, resident_gib=resident,
                combined_step_s=seconds[-1])
+    # the preset's K-iteration cycle (its first call eager, then a capture
+    # and its replay, then a replay): the graph pool's peak
+    k = trainer.cfg.cycle_length
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(3):
+        _, metrics = trainer.train_step_cycle([patches] * k, 0)
+    torch.cuda.synchronize()
+    out.update(cycle_length=k, cycle_peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               cycle_reserved_more_gib=(torch.cuda.memory_reserved() - reserved) / 2**30)
+    calls = trainer._cycle_cache[trainer._cycle_pattern(0, k)].calls
+    if k < 2 or calls != ({"eager": 1, "capture": 1, "replay": 2} if device == "cuda" else
+                          {"eager": 3, "capture": 0, "replay": 0}):
+        raise AssertionError(f"{name}: cycle calls {calls}")
     print(f"{name}: bf16 combined_step at {mix[0]} + {mix[1]} + {mix[2]} patches of "
           f"{tuple(cfg.train_patch_size)} ({voxels / 1e6:.1f} M voxels): peak memory {out['peak_memory_gib']:.2f} GiB "
           f"allocated, {out['peak_reserved_gib']:.2f} GiB reserved ({resident:.2f} GiB resident before the step); "
-          f"warm step {seconds[-1]:.3f} s", flush=True)
+          f"warm step {seconds[-1]:.3f} s; a {k}-iteration cycle as a CUDA graph: peak "
+          f"{out['cycle_peak_memory_gib']:.2f} GiB allocated, {out['cycle_reserved_more_gib']:.2f} GiB more "
+          f"reserved", flush=True)
     del trainer, built, patches, opt, subopt, mask
     torch.cuda.empty_cache()
     return out
@@ -1676,7 +1796,7 @@ MODEL_2D_PARITY = (2, 128, 128)  # the models phase: batch and slice
 TRAIN_2D_PARITY_PATCH = (64, 64)
 NATIVE_2D_SLICES = 64
 FIT_2D_PATIENT = (512, 512, 24)
-FIT_2D_ITERATIONS, FIT_2D_DEVICE_ITERATIONS = 15, 11
+FIT_2D_ITERATIONS, FIT_2D_DEVICE_ITERATIONS = 15, 15
 # resumed (4, then to 7) against uninterrupted (7), twice: one loader
 # thread each, so the batches are defined
 RESUME_2D = (4, 7)
@@ -1972,11 +2092,13 @@ def fit_2d_phase(tmp: Path):
     """Phase 21: the CLI's ``main`` on conf_2d at full width (bf16, 256 +
     128 + 128 slices of 128^2, 512^2 validation, host augmentation through
     the native 2D warp): nine synthetic 512x512x24 patients, 15 iterations
-    (logs every 5, one validation at 10 with one iteration, a checkpoint
-    every 10), 10 more iterations of it under the profiler, then windows of
-    10 with four loader threads per label and with one, alternated, twice
-    each, none profiled (the dispatch seconds per iteration of each), then
-    one device-augmented run of 11. Checks: finite losses,
+    in cycles of 5 (logs every 5, one validation at 10 with one iteration,
+    a checkpoint every 10), 10 more iterations of it under the profiler,
+    then windows of 10 with four loader threads per label and with one,
+    alternated, twice each, none profiled (the dispatch seconds per
+    iteration of each); the same 15 iterations at ``cycle_length=1`` with a
+    profiled window; then one device-augmented run of 15. Checks: finite
+    losses,
     the clip, the checkpoint files, native 2D warps and no plain ones, no
     block-conv launch. Then resume: 4 iterations and a resume to 7 against
     two uninterrupted runs of 7, each with one loader thread (so the
@@ -1984,7 +2106,8 @@ def fit_2d_phase(tmp: Path):
     uninterrupted runs must be bit-equal, and the resumed run bit-equal to
     them in every network tensor, every optimizer state tensor, the
     schedules, the generator state and the step. Prints the warm slices/s
-    (iterations 6-10), ``TimeBudget``'s shares and the peak memory."""
+    (between boundaries 5 and 10), ``TimeBudget``'s shares and the peak
+    memory."""
     capture = LogCapture()
     console = logging.getLogger("contrast_gan_3d_tpu_torch.trainer.logger")
     console.setLevel(logging.INFO)
@@ -1999,7 +2122,7 @@ def fit_2d_phase(tmp: Path):
     splits = tmp / "splits_2d.pkl"
     splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
     confs = {}
-    for name, extra in (("host", {}), ("device", dict(augment_backend="device")),
+    for name, extra in (("host", {}), ("host_k1", dict(cycle_length=1)), ("device", dict(augment_backend="device")),
                         ("resume", dict(num_workers=(1, 1), validate_every=None, checkpoint_every=1000))):
         confs[name] = tmp / f"fit_2d_{name}.py"
         confs[name].write_text(
@@ -2026,14 +2149,17 @@ def fit_2d_phase(tmp: Path):
 
     out = {}
     zero_counts()
-    for conf, iterations in (("host", FIT_2D_ITERATIONS), ("device", FIT_2D_DEVICE_ITERATIONS)):
+    for conf, iterations in (("host", FIT_2D_ITERATIONS), ("host_k1", FIT_2D_ITERATIONS),
+                             ("device", FIT_2D_DEVICE_ITERATIONS)):
         warps, plain = native.warp_augment2d_int16.calls, warp2d_int16.calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         trainer, logs, seconds = run(conf, iterations, conf)
         warps = native.warp_augment2d_int16.calls - warps
-        if conf == "host" and not (warps > 0 and warp2d_int16.calls == plain):
-            raise AssertionError(f"fit 2D host: {warps} native 2D warps, {warp2d_int16.calls - plain} plain ones")
+        if trainer.cfg.cycle_length != (1 if conf == "host_k1" else FIT_K):
+            raise AssertionError(f"fit 2D {conf}: cycle_length {trainer.cfg.cycle_length}")
+        if conf.startswith("host") and not (warps > 0 and warp2d_int16.calls == plain):
+            raise AssertionError(f"fit 2D {conf}: {warps} native 2D warps, {warp2d_int16.calls - plain} plain ones")
         if conf == "device" and not (warps == 0 and isinstance(trainer.step_cfg.augment, aug.Augment2DConfig)):
             raise AssertionError("fit 2D device: the run did not augment on the device")
         clip = trainer.step_cfg.weight_clip
@@ -2043,51 +2169,63 @@ def fit_2d_phase(tmp: Path):
         out[conf] = dict(slices_per_sec=pps, warm_slices_per_sec=pps[WARM_LOG], wall_s=seconds, native_2d_warps=warps,
                          shares=trainer.time_budget.shares(), peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
         print(f"fit 2D {conf} (conf_2d bf16, {iterations} iterations, {seconds:.1f} s with set-up): warm "
-              f"{pps[WARM_LOG]:.1f} slices/s (iterations 6-10); logged slices/s {json.dumps(pps)}; time budget "
+              f"{pps[WARM_LOG]:.1f} slices/s (boundaries 5-10); logged slices/s {json.dumps(pps)}; time budget "
               f"{json.dumps({k: round(v, 4) for k, v in out[conf]['shares'].items()})}; peak memory "
               f"{out[conf]['peak_memory_gib']:.2f} GiB; native 2D warps {warps}", flush=True)
         print(f"fit 2D {conf}: {trainer.time_budget.summary()}", flush=True)
         if conf == "host":
             run_dir = tmp / "runs_2d" / "host"
-            periodic = FIT_OVERRIDES["checkpoint_every"] + 1
+            periodic = FIT_OVERRIDES["checkpoint_every"] + FIT_K
             files = {p.name for p in run_dir.iterdir()}
             if not {f"{periodic}.pt", f"{periodic}.meta.json", f"{periodic}.data.pkl", f"{iterations}.pt"} <= files:
                 raise AssertionError(f"fit 2D: checkpoint files {sorted(files)}")
             if not any(stage == "validation" for stage, _, _ in logs):
                 raise AssertionError("fit 2D: no validation scalars logged")
+        if conf.startswith("host"):
             # where the time of 2D fit iterations goes: the trainer goes on
             # for a few iterations under the profiler, its loaders restarted
             trainer.cfg = dataclasses.replace(trainer.cfg, checkpoint_dir=None, val_every=None)
 
-            def window(threads, seed, trainer=trainer):
+            def window(threads, seed, trainer=trainer, iterations=FIT_WINDOW_ITERATIONS):
+                """``iterations`` more iterations on fresh loaders: (dispatch
+                seconds per iteration, slices/s over the loop's wall time)."""
                 loaders = create_loaders(fold, CONF_2D.train_patch_size, CONF_2D.train_batch_size,
                                          np.random.default_rng(seed), num_threads=threads,
                                          augmenter=HostAugmenter2D(aug.Augment2DConfig(), np.random.default_rng(seed)),
                                          p_centerline_3d=0.0, device="cuda")
-                trainer.cfg = dataclasses.replace(trainer.cfg,
-                                                  train_iterations=trainer.iteration + FIT_PROFILE_ITERATIONS)
+                trainer.cfg = dataclasses.replace(trainer.cfg, train_iterations=trainer.iteration + iterations)
                 try:
                     trainer.fit(loaders)
                 finally:
                     for loader in loaders.values():
                         loader.stop()
-                return trainer.time_budget.total["dispatch"] / FIT_PROFILE_ITERATIONS
+                total = trainer.time_budget.total
+                return total["dispatch"] / iterations, iterations * sum(MIX_2D) / sum(total.values())
 
             threads = CONF_2D.num_workers[0]
-            profile(lambda: window(threads, 1), f"fit 2D host, {FIT_PROFILE_ITERATIONS} iterations of a started run")
-            print(f"profile fit 2D host: {trainer.time_budget.summary()}", flush=True)
-            # how the loaders' threads weigh on the dispatch: conf_2d's four
-            # per label against one, each window twice, alternated, none
-            # under the profiler
-            per_iteration = {threads: [], 1: []}
+            label = (f"fit 2D {conf} (K = {trainer.cfg.cycle_length}), {FIT_PROFILE_ITERATIONS} iterations of a "
+                     f"started run")
+            out[conf]["profile"] = profile(lambda: window(threads, 1, iterations=FIT_PROFILE_ITERATIONS), label)
+            out[conf]["profile"]["shares"] = trainer.time_budget.shares()
+            print(f"profile fit 2D {conf}: {trainer.time_budget.summary()}", flush=True)
+            # the steady rate and how the loaders' threads weigh on it:
+            # conf_2d's four per label (and, at K = 5, one), each window
+            # twice, alternated, none under the profiler
+            per_iteration, rates = {threads: [], 1: []}, {threads: [], 1: []}
             for rep in range(2):
-                for n in (threads, 1):
-                    per_iteration[n].append(window(n, 10 + 2 * rep + (n == 1)))
-                    print(f"fit 2D host, {n} loader thread(s) per label, {FIT_PROFILE_ITERATIONS} iterations: "
-                          f"{trainer.time_budget.summary()}", flush=True)
-            out["dispatch_s_per_iteration_by_loader_threads"] = per_iteration
-            print(f"fit 2D host: dispatch s per iteration by loader threads per label (two windows each, no "
-                  f"profiler) {json.dumps(per_iteration)}", flush=True)
+                for n in ((threads, 1) if conf == "host" else (threads,)):
+                    dispatch, rate = window(n, 10 + 2 * rep + (n == 1))
+                    per_iteration[n].append(dispatch)
+                    rates[n].append(rate)
+                    cycle = trainer._cycle_cache.get(trainer._cycle_pattern(0, FIT_K))
+                    last = "" if cycle is None else (f"; the last cycle's copy into its static buffers "
+                                                     f"{cycle.copy_s} s, replay() {cycle.replay_s} s")
+                    print(f"fit 2D {conf}, {n} loader thread(s) per label, {FIT_WINDOW_ITERATIONS} iterations: "
+                          f"{rate:.1f} slices/s; {trainer.time_budget.summary()}{last}", flush=True)
+            out[conf]["window_slices_per_sec"] = rates
+            out[conf]["dispatch_s_per_iteration_by_loader_threads"] = per_iteration
+            print(f"fit 2D {conf}: slices/s and dispatch s per iteration by loader threads per label (two windows "
+                  f"each, no profiler) {json.dumps(rates)} {json.dumps(per_iteration)}", flush=True)
         del trainer
         torch.cuda.empty_cache()
     out["launches"] = no_block_conv(read_counts(), "fit 2D")
@@ -2120,34 +2258,6 @@ def fit_2d_phase(tmp: Path):
           f"generator state and the step", flush=True)
     del resumed, straight
     torch.cuda.empty_cache()
-    return out
-
-
-def repeat_2d_probe():
-    """Why phase 21's resume runs under torch's deterministic algorithms:
-    two identical forward and backward calls of conf_2d's generator and
-    critic (64 slices of 128^2, train mode), f32 and bf16, with
-    cudnn.deterministic alone and with the deterministic algorithms.
-    Returns how many gradient tensors differ between the two calls in each
-    case; no gate."""
-    x = torch.from_numpy(np.random.default_rng(94).normal(0, 0.5, (64, 1, *SLICE)).astype(np.float32)).cuda()
-    out = {}
-    cudnn, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
-    torch.backends.cudnn.deterministic = True
-    try:
-        for dtype in DTYPES:
-            for net, cls, kw in (("generator", ResnetGenerator, GEN_2D), ("critic", PatchGANDiscriminator, CRITIC_2D)):
-                for mode in ("cudnn", "algorithms"):
-                    torch.use_deterministic_algorithms(mode == "algorithms")
-                    m = seeded(cls(**kw, dtype=dtype), 95).cuda().train()
-                    a, b = (torch.autograd.grad(m(x).float().mean(), list(m.parameters())) for _ in range(2))
-                    differ = sum(not torch.equal(u, v) for u, v in zip(a, b))
-                    out[f"{DTYPE_NAME[dtype]} {net} {mode}"] = f"{differ}/{len(a)}"
-    finally:
-        torch.use_deterministic_algorithms(algorithms)
-        torch.backends.cudnn.deterministic = cudnn
-    print(f"repeat 2D (two identical gradient calls, 64 x 128^2, cudnn.deterministic alone or torch's deterministic "
-          f"algorithms): gradient tensors that differ {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2217,7 +2327,299 @@ def reference_ckpt_phase(tmp: Path):
     return out
 
 
-def main() -> int:
+# --- fused schedule cycles and C3 (phases 24-25) -------------------------------
+
+CYCLE_PRESETS = ("basic_3d", "gradient_penalty", "conf_2d")
+CYCLE_K, CYCLES = 5, 4
+# both networks' milestones (the config has one tuple): the critic passes 7
+# at iteration 7, inside the first captured cycle, the generator passes 2
+# at iteration 10, in a replay
+CYCLE_MILESTONES = (2, 7)
+CYCLE_TIMED = 2  # rounds of eager, graph, graph, eager
+# C3: the pads at the generators' projection inputs (3D channels-last, 2D
+# NCHW) and the gradient calls' inputs
+C3_PADS = {"3D": ((6, 128, 128, 128, 16), (1, 2, 3)), "2D": ((256, 16, 128, 128), (2, 3))}
+C3_INPUTS = {"3D": (2, 1, *TRAIN_PATCH), "2D": (64, 1, *SLICE)}
+
+
+class RecordingLogger(NoopLogger):
+    """Keeps every scalar log: (stage, step, {key: float})."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def log_scalars(self, scalars, step, stage="train"):
+        self.scalars.append((stage, step, {k: float(v) for k, v in scalars.items()}))
+
+
+def device_batches(g, patch, mix, n, dev="cuda"):
+    """``n`` iterations of patches dicts made on the card, as
+    ``train_patches`` makes them: OPT and sub-optimal int16 uniform in
+    [-1024, 1500) HU, a 0.1% centerline mask."""
+    n_opt, n_low, n_high = mix
+
+    def hu(b):
+        return torch.randint(-1024, 1500, (b, *patch), generator=g, device=dev, dtype=torch.int16)
+
+    def mask(b):
+        return (torch.rand((b, *patch), generator=g, device=dev) < 0.001).to(torch.int16)
+
+    return [{OPT: {"data": hu(n_opt)}, LOW: {"data": hu(n_low), "seg": mask(n_low)},
+             HIGH: {"data": hu(n_high), "seg": mask(n_high)}} for _ in range(n)]
+
+
+def cycle_phase(name, device="cuda", **overrides):
+    """Phase 24 for preset ``name`` (basic_3d, gradient_penalty, conf_2d):
+    fused schedule cycles replayed as CUDA graphs against eager
+    per-iteration dispatch, at the preset's full width and batch, bf16,
+    device augmentation on, milestones (2, 7) (the critic's lr drops inside
+    the first captured cycle, the generator's in a replay), cuDNN held to
+    its deterministic algorithms (the C3 pad makes the rest repeat). Two
+    trainers from one build seed: ``fit`` drives the graph trainer over 4
+    cycles of 5 (eager, capture + replay, replay, replay; the 4th on the
+    3rd's batches) through in-memory loaders, and after each cycle the
+    eager trainer runs the same 5 iterations through ``train_step``. Gates
+    after every cycle: networks, optimizer state and schedules, the device
+    lr, step and generator state bit-equal; the cycle's calls (1 eager,
+    then 1 capture and 1 replay, then replays); B1 / B3 / dx launches equal
+    the pattern's count (3D; 0 in 2D), counted through the replays; the
+    scalars ``fit`` logged at each boundary equal that cycle's own values
+    (the generator losses of its combined step, D the mean of its critic
+    losses); the 3rd and 4th cycle (same batches, two successive replays)
+    drew different augmentations (the draws re-derived from each pre-cycle
+    generator state). Then seconds per 5-iteration cycle, replayed
+    against eager dispatch (alternated, medians), the host seconds of the
+    ``replay()`` call, each one's busy share under the profiler, and the
+    peak memory. ``device="cpu"`` and ``overrides`` (tiny widths) rehearse
+    the phase on the CPU, where every cycle runs eagerly."""
+    cfg = dataclasses.replace(load_config(name), augment_backend="device", milestones=CYCLE_MILESTONES,
+                              log_every=CYCLE_K, validate_every=None, checkpoint_every=None, log_images_every=None,
+                              **overrides)
+    log = RecordingLogger()
+    eager, graph = (Trainer(b.generator, b.critic, b.gen_tx, b.critic_tx, b.step_config, b.trainer_config,
+                            seed=b.seed, logger_interface=lg, device=device)
+                    for b, lg in ((build(cfg, device=device), NoopLogger()), (build(cfg, device=device), log)))
+    if graph.cfg.cycle_length != CYCLE_K or graph.step_cfg.augment is None:
+        raise AssertionError(f"cycle {name}: cycle_length {graph.cfg.cycle_length}, augment {graph.step_cfg.augment}")
+    mix = tuple(cfg.train_batch_size[k] for k in (OPT, LOW, HIGH))
+    g = torch.Generator(device=device).manual_seed(50)
+    data = device_batches(g, cfg.train_patch_size, mix, CYCLE_K * (CYCLES - 1), device)
+    data += data[-CYCLE_K:]  # two successive replays on the same batches
+    checks = []
+    real_cycle = graph.train_step_cycle
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def checked_cycle(patches_list, iteration, pattern=None):
+        c = len(checks)
+        rng_before = graph.state.rng.get_state()
+        zero_counts()
+        metrics, first = real_cycle(patches_list, iteration, pattern)
+        launches = read_counts()
+        ds, want = [], {}
+        for k, patches in enumerate(patches_list):
+            m, _ = eager.train_step(patches, iteration + k)
+            want.update(m)
+            if "D" in m:
+                ds.append(m["D"])
+        want["D"] = sum(ds) / len(ds)
+        torch.cuda.synchronize()
+        _same_state(graph.state, eager.state, f"cycle {name} {c} (iterations {iteration}-{iteration + 4})")
+        cycle = graph._cycle_cache[graph._cycle_pattern(iteration, len(patches_list))]
+        calls = dict(cycle.calls)
+        want_calls = ({"eager": 1, "capture": int(c >= 1), "replay": c} if device == "cuda" else
+                      {"eager": c + 1, "capture": 0, "replay": 0})
+        if calls != want_calls:
+            raise AssertionError(f"cycle {name} {c}: calls {calls}, expected {want_calls}")
+        b1 = 0 if cfg.is_2d else sum(B1_PER_BRANCH[b] for b in cycle.pattern)
+        dx = 0 if cfg.is_2d else sum(b != "critic" for b in cycle.pattern)
+        want_launches = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - dx, "block_conv3x3x3_v2": 0,
+                         "block_conv3x3x3_backward": dx}
+        if launches != want_launches:
+            raise AssertionError(f"cycle {name} {c}: launches {launches}, expected {want_launches}")
+        checks.append(dict(iteration=iteration, calls=calls, launches=launches, rng_before=rng_before,
+                           want={k: v.float().item() for k, v in want.items()},
+                           replay_s=cycle.replay_s if c else None))
+        print(f"cycle {name} {c} (iterations {iteration}-{iteration + 4}, {'/'.join(cycle.pattern)}): calls "
+              f"{calls}, launches {launches}; state bit-equal to eager dispatch", flush=True)
+        return metrics, first
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph.train_step_cycle = checked_cycle
+    graph.cfg = dataclasses.replace(graph.cfg, train_iterations=CYCLE_K * CYCLES)
+    try:
+        graph.fit({st: iter([d[st] for d in data]) for st in SCAN_TYPES})
+    finally:
+        del graph.train_step_cycle
+        torch.backends.cudnn.deterministic = deterministic
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logged = [(it, sc) for stage, it, sc in log.scalars if stage == "train"]
+    if [it for it, _ in logged] != [c["iteration"] for c in checks]:
+        raise AssertionError(f"cycle {name}: logged boundaries {[it for it, _ in logged]}")
+    for (it, sc), c in zip(logged, checks):
+        got = {k: v for k, v in sc.items() if k in c["want"]}
+        if got != c["want"]:
+            raise AssertionError(f"cycle {name}: logged at {it} {got}, the cycle's own values {c['want']}")
+    # two successive replays on the same batches drew different
+    # augmentations: each cycle's first draws, re-derived from its
+    # pre-cycle generator state (as the preview re-derives them)
+    draws = []
+    for c in checks[2:4]:
+        rng = torch.Generator(device=device)
+        rng.set_state(c["rng_before"])
+        draws.append(aug.draw(rng, mix[1] + mix[2], graph.step_cfg.augment))
+    if all(torch.equal(a, b) for a, b in zip(*draws)):
+        raise AssertionError(f"cycle {name}: two replays drew the same augmentation")
+    print(f"cycle {name}: logged scalars at {[it for it, _ in logged]} equal each cycle's own; the two replays on "
+          f"the same batches drew different augmentations; peak memory {peak:.2f} GiB allocated (two trainers)",
+          flush=True)
+
+    # seconds per cycle: the 4th cycle's batches, from iteration 0's
+    # pattern, eager dispatch against a replay
+    batches, cycle = data[-CYCLE_K:], graph._cycle_cache[graph._cycle_pattern(0, CYCLE_K)]
+
+    def eager_cycle():
+        for k, patches in enumerate(batches):
+            eager.train_step(patches, k)
+
+    def graph_cycle():
+        graph.train_step_cycle(batches, 0)
+
+    times, replay_s, copy_s, host_s = {"eager": [], "graph": []}, [], [], []
+    for _ in range(CYCLE_TIMED):
+        for kind in ("eager", "graph", "graph", "eager"):
+            t = time.perf_counter()
+            (eager_cycle if kind == "eager" else graph_cycle)()
+            host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t)
+            if kind == "graph":
+                replay_s.append(cycle.replay_s)
+                copy_s.append(cycle.copy_s)
+                host_s.append(host)
+    busy = {kind: profile(fn, f"cycle {name} {kind}, 5 iterations", top=8)
+            for kind, fn in (("eager", eager_cycle), ("graph", graph_cycle))}
+    n = sum(mix)
+    kept = ("iteration", "calls", "launches", "replay_s")
+    out = dict(eager_cycle_s=statistics.median(times["eager"]), graph_cycle_s=statistics.median(times["graph"]),
+               replay_call_s=statistics.median(replay_s) if None not in replay_s else None,
+               copy_s=statistics.median(copy_s) if None not in copy_s else None,
+               graph_host_s=statistics.median(host_s), times=times,
+               busy=busy, peak_memory_gib=peak, per_cycle=[{k: c[k] for k in kept} for c in checks])
+    out["eager_per_sec"], out["graph_per_sec"] = (CYCLE_K * n / out[k] for k in ("eager_cycle_s", "graph_cycle_s"))
+    unit = "slices" if cfg.is_2d else "patches"
+    print(f"cycle {name} bf16, {CYCLE_K} iterations of {mix[0]} + {mix[1]} + {mix[2]} at {cfg.train_patch_size}: "
+          f"eager dispatch {out['eager_cycle_s']:.4f} s ({out['eager_per_sec']:.1f} {unit}/s), replayed graph "
+          f"{out['graph_cycle_s']:.4f} s ({out['graph_per_sec']:.1f} {unit}/s), of which host "
+          f"{out['graph_host_s']:.4f} s (train_step_cycle: assembling and stacking the batches, the copy into "
+          f"the static buffers {out['copy_s']} s, replay() {out['replay_call_s']} s); busy share eager "
+          f"{busy['eager']['busy_share']}, graph "
+          f"{busy['graph']['busy_share']}", flush=True)
+    del eager, graph, data, batches, checks, cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def c3_phase(device="cuda"):
+    """Phase 25 (ROADMAP C3), cuDNN held to its deterministic algorithms,
+    torch's deterministic algorithms off: (a) the reflect pad alone at the
+    generators' projection inputs (3D: 6 x 128^3 x 16 channels-last; 2D:
+    256 x 16 x 128^2), f32 and bf16: ``F.pad``'s backward twice,
+    ``reflect_pad``'s twice (gate: bit-equal) and the two against each
+    other (gate: 1e-6 of max|grad| in f32; 2^-5 in bf16, where a corner
+    sums up to 8 bf16 terms, each add rounded, in another order); (b) two identical gradient calls (train mode) of the
+    default 3D generator (2 x 128^3) and of conf_2d's generator and critic
+    (64 x 128^2), f32 and bf16: the gate is the generators' gradients
+    bit-equal; the 2D pair also under torch's deterministic algorithms,
+    for comparison with the records."""
+    out = {}
+    cudnn, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(False)
+    g = torch.Generator(device=device).manual_seed(93)
+    try:
+        for label, (shape, dims) in C3_PADS.items():
+            pads = [(3, 3)] * len(dims)
+            for dtype in DTYPES:
+                x = torch.randn(shape, generator=g, device=device).to(dtype)
+                padded = reflect_pad(x, pads, dims)
+                gy = torch.randn(padded.shape, generator=g, device=device).to(dtype)
+
+                def f_pad(x):
+                    if label == "2D":
+                        return F.pad(x, (3, 3, 3, 3), mode="reflect")
+                    return F.pad(x.permute(0, 4, 1, 2, 3), (3,) * 6, mode="reflect").permute(0, 2, 3, 4, 1)
+
+                def grad(fn):
+                    xa = x.clone().requires_grad_(True)
+                    fn(xa).backward(gy)
+                    return xa.grad
+
+                if not torch.equal(f_pad(x), padded):
+                    raise AssertionError(f"C3 {label} {dtype}: reflect_pad's forward differs from F.pad's")
+                fa, fb = grad(f_pad), grad(f_pad)
+                ra, rb = grad(lambda t: reflect_pad(t, pads, dims)), grad(lambda t: reflect_pad(t, pads, dims))
+                rel = ((ra.float() - fa.float()).abs().max() / fa.float().abs().max()).item()
+                tol = 1e-6 if dtype == torch.float32 else 2.0**-5
+                r = dict(f_pad_repeats=torch.equal(fa, fb), reflect_pad_repeats=torch.equal(ra, rb),
+                         f_pad_differing=int((fa != fb).sum()), rel_diff=rel)
+                out[f"pad {label} {DTYPE_NAME[dtype]}"] = r
+                print(f"C3 pad backward {label} {tuple(shape)} {DTYPE_NAME[dtype]}: F.pad repeats {r['f_pad_repeats']} "
+                      f"({r['f_pad_differing']} elements differ), reflect_pad repeats {r['reflect_pad_repeats']}, "
+                      f"max|reflect_pad - F.pad| / max {rel:.2e} (tol {tol:.1e})", flush=True)
+                if not (r["reflect_pad_repeats"] and rel <= tol):
+                    raise AssertionError(f"C3 pad {label} {dtype}: {r}")
+                del x, padded, gy, fa, fb, ra, rb
+        torch.cuda.empty_cache()
+        x3, x2 = (torch.from_numpy(np.random.default_rng(94).normal(0, 0.5, C3_INPUTS[k]).astype(np.float32)).to(device)
+                  for k in ("3D", "2D"))
+        nets = (("3D generator", ResnetGenerator, {}, x3, ("cudnn",)),
+                ("2D generator", ResnetGenerator, GEN_2D, x2, ("cudnn", "algorithms")),
+                ("2D critic", PatchGANDiscriminator, CRITIC_2D, x2, ("cudnn", "algorithms")))
+        for dtype in DTYPES:
+            for net, cls, kw, x, modes in nets:
+                for mode in modes:
+                    torch.use_deterministic_algorithms(mode == "algorithms")
+                    m = seeded(cls(**kw, dtype=dtype), 95).to(device).train()
+                    a, b = (torch.autograd.grad(m(x).float().mean(), list(m.parameters())) for _ in range(2))
+                    differ = sum(not torch.equal(u, v) for u, v in zip(a, b))
+                    out[f"{DTYPE_NAME[dtype]} {net} {mode}"] = f"{differ}/{len(a)}"
+                    if differ and mode == "cudnn" and "generator" in net:
+                        raise AssertionError(f"C3: {DTYPE_NAME[dtype]} {net}: {differ}/{len(a)} gradient tensors "
+                                             f"differ between two identical calls under cudnn.deterministic")
+                    del m, a, b
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(algorithms)
+        torch.backends.cudnn.deterministic = cudnn
+    print(f"C3 (two identical gradient calls, cudnn.deterministic alone or torch's deterministic algorithms): "
+          f"gradient tensors that differ {json.dumps({k: v for k, v in out.items() if not k.startswith('pad')})}",
+          flush=True)
+    return out
+
+
+def bare_fit_phase(tmp: Path):
+    """Phases 11-12 alone, after phase 6's bf16 steps (a partial run)."""
+    _, results, _, _ = train_phase(np.random.default_rng(1), torch.bfloat16)
+    return fit_phase(results["wc"], tmp)[1]
+
+
+# ``--only`` (partial runs for debugging; they print no result lines)
+ONLY = {
+    "c3": c3_phase,
+    "cycle": lambda: {name: cycle_phase(name) for name in CYCLE_PRESETS},
+    "small_patch": lambda: (small_patch_phase(), small_patch_phase(name="gp_layernorm")),
+    "fit": lambda: bare_fit_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_"))),
+    "fit_2d": lambda: fit_2d_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))),
+}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", nargs="+", choices=sorted(ONLY),
+                        help="build the kernels and run only these phases: a partial run, no result lines")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2233,6 +2635,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    if args.only:
+        for name in args.only:
+            t0 = time.perf_counter()
+            ONLY[name]()
+            print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"partial run ({' '.join(args.only)}): {time.perf_counter() - t_start:.1f} s; no result lines",
+              flush=True)
+        return 0
 
     g = torch.Generator().manual_seed(0)
     rows = kernel_phase(dev, g)
@@ -2324,7 +2734,6 @@ def main() -> int:
     print(f"train 2D: {time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_2d_") as tmp:
         fit_2d = fit_2d_phase(Path(tmp))
-        repeat_2d = repeat_2d_probe()
         print(f"fit 2D: {time.perf_counter() - t_start:.1f} s", flush=True)
         reference = reference_ckpt_phase(Path(tmp))
     gp_layernorm = small_patch_phase(name="gp_layernorm")
@@ -2332,6 +2741,9 @@ def main() -> int:
           f"{gp_layernorm['combined_step_s']:.3f} s; small_patch: peak {small_patch['peak_memory_gib']:.2f} GiB, "
           f"{small_patch['combined_step_s']:.3f} s", flush=True)
     print(f"2D, reference checkpoints, gp_layernorm: {time.perf_counter() - t_start:.1f} s", flush=True)
+    c3 = c3_phase()
+    cycles = {name: cycle_phase(name) for name in CYCLE_PRESETS}
+    print(f"C3 and cycles: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -2347,7 +2759,9 @@ def main() -> int:
                    "serving_files": files_launches[key] if dtype == torch.float32 else 0,
                    "reference_ckpt": reference["3d"]["launches"][key] if dtype == torch.float32 else 0,
                    "models_2d": models_2d["launches"][key], "serving_2d": serving_2d["launches"][key],
-                   "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key]}
+                   "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key],
+                   "cycles": sum(c["launches"][key] for r in cycles.values() for c in r["per_cycle"])
+                   if dtype == torch.bfloat16 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -2357,7 +2771,8 @@ def main() -> int:
         "augment_6_plus_6_ms": augment_ms, "native": native_results, "fit": fit_results,
         "serving_files": files_results, "small_patch": small_patch, "models_2d": models_2d,
         "serving_2d": serving_2d, "native_2d": native_2d, "augment_2d": augment_2d, "train_2d": train_2d,
-        "fit_2d": fit_2d, "repeat_2d": repeat_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm,
+        "fit_2d": fit_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm, "c3": c3,
+        "cycles": cycles,
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

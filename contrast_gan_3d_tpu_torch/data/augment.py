@@ -131,6 +131,12 @@ def draw(generator: torch.Generator, batch: int, cfg: AugmentConfig):
     return AugmentDraws(rot_gate, angles, scale_gate, scale, elastic_gate, mag, coarse)
 
 
+def _device_vector(values: Sequence[int], device) -> torch.Tensor:
+    """The f32 vector ``values`` filled in on ``device``: a copy from host
+    memory would not replay inside a captured CUDA graph."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device) for v in values])
+
+
 def elastic_field(coarse: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """(B, g, g, g, 3) coarse noise -> (B, X, Y, Z, 3) displacement field,
     ``jax.image.resize(..., "linear")`` per sample."""
@@ -143,7 +149,7 @@ def coords_from_draws(draws: AugmentDraws, shape: Sequence[int], cfg: AugmentCon
     elastic displacement."""
     dev = draws.angles.device
     shape = tuple(int(s) for s in shape)
-    extent = torch.tensor(shape, dtype=torch.float32, device=dev)
+    extent = _device_vector(shape, dev)
     center = (extent - 1.0) / 2.0
     rel = (identity_grid(shape, dev) - center).unsqueeze(0)  # (1, X, Y, Z, 3)
     B = draws.angles.shape[0]
@@ -166,7 +172,7 @@ def coords_from_draws_2d(draws: AugmentDraws2D, shape: Sequence[int], cfg: Augme
     sample: ``rel @ R.T`` for the gated angle, then ``* (mx, my)``."""
     dev = draws.angle.device
     shape = tuple(int(s) for s in shape)
-    center = (torch.tensor(shape, dtype=torch.float32, device=dev) - 1.0) / 2.0
+    center = (_device_vector(shape, dev) - 1.0) / 2.0
     rel = (identity_grid(shape, dev) - center).unsqueeze(0)  # (1, X, Y, 2)
     B = draws.angle.shape[0]
     if cfg.do_rotation:

@@ -4,8 +4,11 @@ optimizers, step and trainer configs, the host augmenter and the logger
 
 What the JAX builder chooses automatically, the port resolves so:
 - ``generator_layout="auto"`` -> "direct" (logged once); "packed" raises;
-- ``cycle_length`` None or 1 -> per-iteration dispatch (the same math as a
-  fused cycle); K > 1 raises;
+- ``cycle_length`` None -> ``resolve_cycle_length``, as the JAX builder
+  resolves it: K = ``train_generator_every`` when every host cadence is a
+  multiple of it (nine of the ten presets: K = 5), else 1
+  (``train_generator_more``: 1). The card runs each K-iteration cycle as a
+  replayed CUDA graph, the CPU as the loop over the iterations;
 - ``remat`` None or False -> off; True raises. The JAX builder turns remat
   on above 30 M voxels per iteration in 3D (``small_patch``, ``rmsprop``
   and ``gp_layernorm``: 40 + 20 + 20 patches of 128x128x32, 41.9 M
@@ -29,6 +32,7 @@ The networks' initial weights are drawn on the CPU from the config's seed
 them from a key in ``init_state``), then move to ``device``.
 """
 
+import dataclasses
 import logging
 from dataclasses import dataclass
 from functools import partial
@@ -79,13 +83,36 @@ class BuiltExperiment:
     host_augmenter: Optional[HostAugmenter] = None  # or HostAugmenter2D
 
 
+def resolve_cycle_length(cfg: ExperimentConfig, stop_sync_every: Optional[int] = None) -> int:
+    """Resolve ``cfg.cycle_length`` (None = auto) to a concrete K, as the
+    JAX builder does: auto picks the schedule period
+    ``train_generator_every`` when every host-visible cadence (log, image
+    log, validation, checkpoint, stop sync) is a multiple of it, so each
+    fires at a cycle boundary that is its due iteration; otherwise 1.
+    Explicit values are kept (at least 1). ``stop_sync_every`` is the
+    value the trainer runs with (``TrainerConfig``'s default otherwise)."""
+    if cfg.cycle_length is not None:
+        return max(1, int(cfg.cycle_length))
+    k = int(cfg.train_generator_every or 0)
+    if k <= 1:
+        return 1
+    if stop_sync_every is None:
+        stop_sync_every = TrainerConfig.stop_sync_every
+    # train_critic_every need not divide: the critic and generator branch
+    # inside the cycle's pattern, per iteration
+    cadences = (cfg.log_every, cfg.log_images_every, cfg.validate_every, cfg.checkpoint_every, stop_sync_every)
+    if any(c is not None and c % k for c in cadences):
+        return 1
+    logger.info("cycle_length auto: %d-iteration schedule cycles (every cadence divides; pass cycle_length=1 to "
+                "disable)", k)
+    return k
+
+
 def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
     unported = []
     if cfg.generator_args.get("layout", cfg.generator_layout) == "packed":
         unported.append("the packed generator layout (A7)")
-    if cfg.cycle_length is not None and cfg.cycle_length > 1:
-        unported.append(f"fused schedule cycles (cycle_length={cfg.cycle_length})")
     if cfg.remat:
         unported.append("remat")
     if cfg.dp_devices is not None or cfg.sp_devices:
@@ -157,6 +184,9 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
         checkpoint_keep=cfg.checkpoint_keep,
         checkpoint_dir=checkpoint_dir,
     )
+    # resolved against the stop_sync_every this TrainerConfig carries
+    trainer_config = dataclasses.replace(
+        trainer_config, cycle_length=resolve_cycle_length(cfg, trainer_config.stop_sync_every))
     if cfg.logger == "file":
         # beside the checkpoints, or under the project's logs directory
         out_dir = Path(checkpoint_dir) / "metrics" if checkpoint_dir else paths.LOGS_DIR / cfg.name / "metrics"

@@ -120,9 +120,10 @@ class ExperimentConfig:
     # tensorboard are not ported (the builder raises)
     logger: str = "console"
 
-    # schedule iterations per dispatch: None (auto) and 1 are per-iteration
-    # dispatch in the port (the same math as the JAX package's fused
-    # cycles); K > 1 is not ported (the builder raises)
+    # schedule iterations per dispatch: None = auto (the builder's
+    # resolve_cycle_length: train_generator_every where every cadence
+    # divides it), 1 = per-iteration; K > 1 runs K iterations as one cycle,
+    # a replayed CUDA graph on the card
     cycle_length: Optional[int] = None
 
     # data-parallel devices and spatial partitioning: not ported (the

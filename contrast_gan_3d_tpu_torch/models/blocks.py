@@ -24,6 +24,7 @@ from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, LayerNorm
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, s2d_conv3d_block
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import reflect_pad
 
 
 class S2DConv(nn.Conv3d):
@@ -48,11 +49,22 @@ class S2DConv(nn.Conv3d):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         if any(d % self.f for d in x.shape[2:]):
-            return _add_bias(self._conv_forward(x, w, None), b)
+            return _add_bias(_conv_forward(self, x, w), b)
         y = s2d_conv3d_block(
             x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), b, f=self.f, padding_mode=self.padding_mode
         )
         return y.permute(0, 4, 1, 2, 3)
+
+
+def _conv_forward(conv, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv``'s own convolution of x with w, no bias; a reflect-padded
+    conv pads through ``reflect_pad``, whose backward repeats bit for bit,
+    where ``_conv_forward`` would call ``F.pad``'s."""
+    if conv.padding_mode != "reflect":
+        return conv._conv_forward(x, w, None)
+    x = reflect_pad(x, [(p, p) for p in conv.padding], dims=range(2, x.dim()))
+    fn = torch.conv3d if x.dim() == 5 else torch.conv2d
+    return fn(x, w, None, conv.stride, 0, conv.dilation, conv.groups)
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -148,7 +160,7 @@ class ConvBlock(nn.Module):
             y = tconv(x, w, stride=s)
             y = y[(slice(None), slice(None)) + tuple(slice(lo, lo + s * n) for n in x.shape[2:])]
         else:
-            y = self.conv._conv_forward(x, w, None)
+            y = _conv_forward(self.conv, x, w)
         return _add_bias(y, None if self.conv.bias is None else self.conv.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,10 @@ forward and backward run the plain versions.
 
 Each wrapper counts, in its ``launches`` attribute, the times it launched
 the CUDA kernel (forward and backward); ``backward_launches`` counts the
-backward's share.
+backward's share. A captured CUDA graph keeps the counts true through
+``launch_counts`` / ``add_launch_counts`` (``trainer/steps.py``
+``build_cycle_step``). Launches take torch's current stream and scratch
+from torch's allocator, so they capture into a graph.
 """
 
 import ctypes
@@ -263,6 +266,21 @@ for _fn in _WRAPPERS.values():
     _fn.backward_launches = 0
 
 
+def launch_counts() -> dict:
+    """Every wrapper's launch counts, keyed by (wrapper, attribute)."""
+    return {(fn, attr): getattr(fn, attr) for fn in COUNTED for attr in ("launches", "backward_launches")
+            if hasattr(fn, attr)}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (a :func:`launch_counts` difference) to the counts.
+    A CUDA graph's capture runs the wrappers without launching, and its
+    replays launch without running them: the capture's counts are taken
+    back and added once per replay."""
+    for (fn, attr), n in delta.items():
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def s2d_conv3d_block(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -305,3 +323,4 @@ def s2d_conv3d_block(
 
 
 s2d_conv3d_block.launches = 0
+COUNTED = (block_conv3x3x3, block_conv3x3x3_v2, s2d_conv3d_block)

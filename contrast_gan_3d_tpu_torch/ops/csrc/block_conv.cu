@@ -425,16 +425,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 template <typename T, int BN, bool kZYX>
 int launch_tile(const T* x, const T* wb, const T* ws, float* out, int B, int Z, int D2,
                 int D3, int Ci, int Co, int64_t m_tiles, cudaStream_t s) {
   const int64_t blocks = m_tiles * ((Co + BN - 1) / BN);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   auto kernel = block_conv3x3x3_kernel<T, BN, kZYX>;
-  // above 48 KB, dynamic shared memory needs the opt-in on each device
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Tile<T, BN>::kSmem);
+  // above 48 KB, dynamic shared memory needs the opt-in on each device; it
+  // is made at the first launch on a device only, so that a launch inside
+  // a CUDA graph capture (the trainer's cycles, after an eager first call)
+  // makes no call but the launch itself
+  static bool opted_in[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<T, BN>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[device] = true;
+  }
   kernel<<<(unsigned)blocks, kThreads, Tile<T, BN>::kSmem, s>>>(x, wb, ws, out, B, Z, D2, D3,
                                                                  Ci, Co);
   return (int)cudaGetLastError();

@@ -41,15 +41,21 @@ def _axis_map(k: int, f: int, s: int = 1) -> Tuple[np.ndarray, int]:
     return A, K
 
 
+def _axis_map_tensor(k: int, f: int, s: int, dtype, device) -> torch.Tensor:
+    """:func:`_axis_map` built on ``device`` from aranges, so that no copy
+    from host memory runs inside a step a CUDA graph captures."""
+    K = (s * (f - 1) + k - 1) // f + 1
+    idx = lambda n: torch.arange(n, device=device)
+    q, d, r, T = idx(K)[:, None, None, None], idx(f)[:, None, None], idx(f)[:, None], idx(k)
+    return (f * q + d - s * r == T).to(dtype)
+
+
 def transform_kernel(w: torch.Tensor, f: int, s: int = 1) -> torch.Tensor:
     """(kx,ky,kz,Ci,Co) -> (Kx,Ky,Kz, f^3*Ci, f^3*Co) space-to-depth kernel
     (the equal-block, zero-offset case of the JAX package's
     ``transform_kernel_packed``)."""
     kx, ky, kz, ci, co = w.shape
-    maps = [
-        torch.tensor(_axis_map(k, f, s)[0], dtype=w.dtype, device=w.device)
-        for k in (kx, ky, kz)
-    ]
+    maps = [_axis_map_tensor(k, f, s, w.dtype, w.device) for k in (kx, ky, kz)]
     # W'[qx,dx,rx, qy,dy,ry, qz,dz,rz, ci,co]
     wp = torch.einsum("adrx,besy,cftz,xyzio->adrbescftio", *maps, w)
     # -> (qx,qy,qz, dx,dy,dz,ci, rx,ry,rz,co)
@@ -87,10 +93,31 @@ def check_padding_mode(padding_mode: str) -> str:
     return "reflect" if padding_mode == "reflect" else "constant"
 
 
+def reflect_pad(x: torch.Tensor, pads, dims) -> torch.Tensor:
+    """``F.pad(mode="reflect")`` of ``x`` along ``dims`` by ``pads = ((lo,
+    hi), ...)``, one pair per dim, built from slices, flips and
+    concatenations. The forward is the same copy as ``F.pad``'s; the
+    backward is slices and adds, where ``F.pad``'s CUDA backward
+    accumulates with atomics and does not repeat bit for bit."""
+    for dim, (lo, hi) in zip(dims, pads):
+        n = x.shape[dim]
+        if max(lo, hi) >= n:
+            raise ValueError(f"reflect pad ({lo}, {hi}) needs more than {n} elements along dim {dim}")
+        parts = [x.narrow(dim, 1, lo).flip(dim)] if lo else []
+        parts.append(x)
+        if hi:
+            parts.append(x.narrow(dim, n - 1 - hi, hi).flip(dim))
+        x = torch.cat(parts, dim) if len(parts) > 1 else x
+    return x
+
+
 def pad_spatial(x: torch.Tensor, pads, mode: str = "constant") -> torch.Tensor:
     """Pad the three spatial dims of a channels-last ``(B, X, Y, Z, C)``
-    tensor by ``pads = ((lo, hi), (lo, hi), (lo, hi))`` (``F.pad`` works on
-    the trailing dims of a channels-first view)."""
+    tensor by ``pads = ((lo, hi), (lo, hi), (lo, hi))``: zeros through
+    ``F.pad`` (on the trailing dims of a channels-first view), reflect
+    through :func:`reflect_pad`."""
+    if mode == "reflect":
+        return reflect_pad(x, pads, dims=(1, 2, 3))
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # z first, as F.pad
     y = F.pad(x.permute(0, 4, 1, 2, 3), flat, mode=mode)
     return y.permute(0, 2, 3, 4, 1)

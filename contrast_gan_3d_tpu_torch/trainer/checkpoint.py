@@ -3,7 +3,8 @@
 
 ``<step>.pt`` (``torch.save``, loaded with ``weights_only=True``) holds both
 networks' ``state_dict`` (BatchNorm statistics included), both optimizers
-with their multistep schedules, the ``torch.Generator`` state and the step.
+with their multistep schedules (``MultiStepLR``'s keys, the update count as
+its ``last_epoch``), the ``torch.Generator`` state and the step.
 Beside it: ``<step>.meta.json`` (module semantics for inference) and
 ``<step>.data.pkl``, the loaders' data-stream state (format 2, as the JAX
 package writes it). Writes are atomic (tmp + rename) and optionally
@@ -13,7 +14,6 @@ msgpack checkpoints and the reference ``.pt`` layout is not ported
 (ROADMAP).
 """
 
-import collections
 import json
 import logging
 import pickle
@@ -81,25 +81,20 @@ def _host(obj):
     return obj
 
 
-def _schedule_state(scheduler) -> Dict:
-    sd = dict(scheduler.state_dict())
-    if isinstance(sd.get("milestones"), collections.Counter):
-        sd["milestones"] = dict(sd["milestones"])
-    return sd
-
-
 def state_payload(state) -> Dict:
     """The train state as a host-side dict of plain containers and
     tensors."""
+    (gen_opt, gen_schedule), (critic_opt, critic_schedule) = (o.state_dicts() for o in (state.gen_opt,
+                                                                                        state.critic_opt))
     return _host({
         "format": FORMAT,
         "step": int(state.step),
         "generator": state.generator.state_dict(),
         "critic": state.critic.state_dict(),
-        "gen_opt": state.gen_opt.optimizer.state_dict(),
-        "gen_schedule": _schedule_state(state.gen_opt.scheduler),
-        "critic_opt": state.critic_opt.optimizer.state_dict(),
-        "critic_schedule": _schedule_state(state.critic_opt.scheduler),
+        "gen_opt": gen_opt,
+        "gen_schedule": gen_schedule,
+        "critic_opt": critic_opt,
+        "critic_schedule": critic_schedule,
         "rng": state.rng.get_state(),
     })
 
@@ -169,11 +164,7 @@ def restore_state(state, payload: Dict):
     state.critic.load_state_dict(payload["critic"], strict=True)
     for opt, o_key, s_key in ((state.gen_opt, "gen_opt", "gen_schedule"),
                               (state.critic_opt, "critic_opt", "critic_schedule")):
-        opt.optimizer.load_state_dict(payload[o_key])
-        sched = dict(payload[s_key])
-        if isinstance(sched.get("milestones"), dict):
-            sched["milestones"] = collections.Counter(sched["milestones"])
-        opt.scheduler.load_state_dict(sched)
+        opt.load_state_dicts(payload[o_key], payload[s_key])
     state.rng.set_state(payload["rng"])
     state.step = int(payload["step"])
     return state

@@ -29,11 +29,15 @@ penalty's ``eps``. ``build_preview_step`` re-derives a step's augmented
 sub-optimal batch from the generator state saved before it.
 
 The steps update the state in place and return ``(state, metrics)``, with
-metrics as detached 0-d tensors. ``StepConfig.dtype`` bf16 with networks
+metrics as detached 0-d tensors. ``build_cycle_step`` runs several
+iterations as one ``CycleStep``: a replayed CUDA graph on the card, the
+loop over the steps on the CPU (the JAX package's fused schedule cycles). ``StepConfig.dtype`` bf16 with networks
 built with ``dtype=torch.bfloat16`` is the JAX package's default training
 (parameters, optimizer state and BatchNorm statistics stay f32).
 """
 
+import gc
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -46,6 +50,7 @@ from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models import losses
 from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE
 from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats
+from contrast_gan_3d_tpu_torch.ops.block_conv import add_launch_counts, launch_counts
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -151,6 +156,8 @@ class TrainSteps(NamedTuple):
     critic_step: Callable          # generator forward + critic update
     combined_step: Callable        # critic update, then generator update
     generator_only_step: Callable  # generator update only
+    critic_phase: Callable         # combined_step split in two: the critic
+    generator_phase: Callable      # phase hands its prepared batch over
 
 
 def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_opt: int):
@@ -163,8 +170,12 @@ def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_
 
 def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
     """The three per-iteration steps, each ``(state, opt, subopt, mask) ->
-    (state, metrics)`` on raw int16 batches. ``draw(rng, batch, augment)``
-    makes a batch's augmentation draws (tests feed fixed ones)."""
+    (state, metrics)`` on raw int16 batches, and ``combined_step`` split in
+    two phases: ``critic_phase(state, opt, subopt, mask) -> (state,
+    {"D"}, subopt_s, mask_s)``, then ``generator_phase(state, subopt_s,
+    mask_s) -> (state, metrics)`` (the JAX package's memory fallback; the
+    same math as ``combined_step``). ``draw(rng, batch, augment)`` makes a
+    batch's augmentation draws (tests feed fixed ones)."""
     hu_lo, hu_hi = cfg.hu_bounds_scaled
     use_gp = cfg.weight_clip is None
 
@@ -212,11 +223,25 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
         draws = _draw_augment(cfg, draw, state.rng, len(subopt_b), len(opt_b))
         return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device, draws)
 
-    def critic_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
-        opt_b, subopt_b, _ = begin(state, opt_b, subopt_b, subopt_mask)
+    def critic_phase(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        """The generator forward (its statistics update) and the critic
+        update; returns the prepared sub-optimal batch and mask too."""
+        opt_b, subopt_b, mask = begin(state, opt_b, subopt_b, subopt_mask)
         with torch.no_grad():
             opt_hat = subopt_b - state.generator(subopt_b)
-        return state, {"D": update_critic(state, opt_b, opt_hat)}
+        return state, {"D": update_critic(state, opt_b, opt_hat)}, subopt_b, mask
+
+    def critic_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
+        state, metrics, _, _ = critic_phase(state, opt_b, subopt_b, subopt_mask)
+        return state, metrics
+
+    def generator_phase(state: GANTrainState, subopt_s, mask_s):
+        """The generator update on ``critic_phase``'s prepared batch: the
+        forward again, in train mode with its statistics frozen (they
+        updated in the critic phase), as the JAX phase reuses them."""
+        with frozen_batch_stats(state.generator):
+            opt_hat = subopt_s - state.generator(subopt_s)
+        return state, update_generator(state, opt_hat, subopt_s, mask_s)
 
     def combined_step(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         opt_b, subopt_b, mask = begin(state, opt_b, subopt_b, subopt_mask)
@@ -229,7 +254,7 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
         opt_hat = subopt_b - state.generator(subopt_b)
         return state, update_generator(state, opt_hat, subopt_b, mask)
 
-    return TrainSteps(critic_step, combined_step, generator_only_step)
+    return TrainSteps(critic_step, combined_step, generator_only_step, critic_phase, generator_phase)
 
 
 def build_preview_step(cfg: StepConfig):
@@ -272,6 +297,161 @@ def schedule_branches(
         c, g = due(i, critic_every), due(i, generator_every)
         out.append("combined" if c and g else "critic" if c else "generator" if g else "none")
     return tuple(out)
+
+
+class CycleStep:
+    """``len(pattern)`` schedule iterations as one call (the counterpart of
+    the JAX ``build_cycle_step``): ``cycle(state, opt_c, subopt_c, mask_c)
+    -> (state, metrics)``, the batches stacked on a leading cycle axis
+    ``(K, B, ...)``, branch k of ``pattern`` ("combined", "critic",
+    "generator" or "none", which only advances ``state.step``) on batch k.
+    Metrics: the last value of each key, except ``D``, the mean over the
+    cycle's critic updates.
+
+    On the CPU the cycle is the loop over the per-iteration steps. On a
+    CUDA state the cycle is one CUDA graph:
+    - the first call runs the loop eagerly on a side stream: real training
+      iterations, which also warm the allocator, cuDNN and the optimizers'
+      state;
+    - the second call captures the loop into a ``torch.cuda.CUDAGraph``
+      (from the static copies of its batches, ``state.rng`` registered with
+      the graph so each replay draws on from where the generator stands),
+      then replays it once;
+    - later calls copy the batches into the static buffers and replay.
+    The graph holds the state's tensors: the state must stay the one it was
+    captured with (the steps update it in place). ``pool`` and ``stream``
+    are the memory pool and the side stream the captures share
+    (``torch.cuda.graph_pool_handle()``, a ``torch.cuda.Stream``). A capture
+    that fails raises; no call stands in for a replay with an eager loop.
+    The metrics of a replay are the graph's static outputs, overwritten by
+    the next replay: a caller that keeps them clones them. A pattern of
+    "none" branches only has no device work and captures nothing.
+
+    The block-conv wrappers' launch counts stay true: the capture's counts
+    are taken back (nothing ran) and added at each replay. ``calls`` counts
+    the eager, capture and replay calls; ``copy_s`` and ``replay_s`` are
+    the host seconds of the last copy into the static buffers and of the
+    last ``replay()`` call."""
+
+    def __init__(self, steps: TrainSteps, pattern: tuple, pool=None, stream=None):
+        self.steps = steps
+        self.pattern = tuple(pattern)
+        self.pool = pool
+        self.stream = stream
+        self.calls = {"eager": 0, "capture": 0, "replay": 0}
+        self.copy_s: Optional[float] = None
+        self.replay_s: Optional[float] = None
+        self._graph = None
+        self._state = None
+        self._inputs: Tuple[torch.Tensor, ...] = ()
+        self._metrics: dict = {}
+        self._launches: dict = {}
+
+    def run_eager(self, state: GANTrainState, opt_c, subopt_c, mask_c):
+        """The cycle as the loop over the per-iteration steps."""
+        fns = {"combined": self.steps.combined_step, "critic": self.steps.critic_step,
+               "generator": self.steps.generator_only_step}
+        metrics, d_losses = {}, []
+        for k, branch in enumerate(self.pattern):
+            if branch == "none":  # advance the step counter only (Trainer parity)
+                state.step += 1
+                continue
+            state, mt = fns[branch](state, opt_c[k], subopt_c[k], mask_c[k])
+            metrics.update(mt)
+            if "D" in mt:
+                d_losses.append(mt["D"])
+        if d_losses:
+            metrics["D"] = sum(d_losses) / len(d_losses)
+        return state, metrics
+
+    def __call__(self, state: GANTrainState, opt_c, subopt_c, mask_c):
+        if len(opt_c) != len(self.pattern):
+            raise ValueError(f"{len(opt_c)} stacked batches for a cycle of {len(self.pattern)}")
+        if state.device.type != "cuda" or all(b == "none" for b in self.pattern):
+            self.calls["eager"] += 1
+            return self.run_eager(state, opt_c, subopt_c, mask_c)
+        if self.calls["eager"] == 0:
+            return self._warm_up(state, opt_c, subopt_c, mask_c)
+        if self._graph is None:
+            self._capture(state, opt_c, subopt_c, mask_c)
+        else:
+            self._copy_inputs(state, opt_c, subopt_c, mask_c)
+        return self._replay(state)
+
+    def _warm_up(self, state, opt_c, subopt_c, mask_c):
+        side = torch.cuda.Stream(device=state.device)
+        side.wait_stream(torch.cuda.current_stream(state.device))
+        with torch.cuda.stream(side):
+            state, metrics = self.run_eager(state, opt_c, subopt_c, mask_c)
+        torch.cuda.current_stream(state.device).wait_stream(side)
+        self.calls["eager"] += 1
+        return state, metrics
+
+    def _capture(self, state, opt_c, subopt_c, mask_c):
+        self._state = state
+        # static batches, outside the graph's pool
+        self._inputs = tuple(torch.as_tensor(t, device=state.device).clone() for t in (opt_c, subopt_c, mask_c))
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device=state.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(state.device):
+            graph.register_generator_state(state.rng)
+        step, before = state.step, launch_counts()
+        # a graph or a pool that dies mid-capture frees device memory, which
+        # invalidates the capture: collect the dead ones now, none during
+        gc.collect()
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        # as torch.cuda.graph does, the device cache goes back to the card
+        # for the graph's pool; unlike it, the pinned host cache stays, so
+        # that the loaders' threads need not allocate pinned memory anew
+        # while the capture runs
+        torch.cuda.synchronize(state.device)
+        torch.cuda.empty_cache()
+        try:
+            with torch.cuda.stream(self.stream):
+                # thread_local: the loaders' threads may allocate and copy
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                try:
+                    _, metrics = self.run_eager(state, *self._inputs)
+                finally:
+                    graph.capture_end()
+        finally:
+            if gc_enabled:
+                gc.enable()
+        state.step = step  # the capture ran the Python side only
+        self._launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        add_launch_counts({k: -n for k, n in self._launches.items()})
+        self._graph, self._metrics = graph, metrics
+        self.calls["capture"] += 1
+
+    def _copy_inputs(self, state, opt_c, subopt_c, mask_c):
+        if state is not self._state:
+            raise ValueError("a captured cycle runs only on the state it was captured with")
+        t = time.perf_counter()
+        for dst, src in zip(self._inputs, (opt_c, subopt_c, mask_c)):
+            src = torch.as_tensor(src)
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"cycle batches {tuple(src.shape)} {src.dtype}: the graph was captured for "
+                                 f"{tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src, non_blocking=True)
+        self.copy_s = time.perf_counter() - t
+
+    def _replay(self, state):
+        t = time.perf_counter()
+        self._graph.replay()
+        self.replay_s = time.perf_counter() - t
+        add_launch_counts(self._launches)
+        state.step += len(self.pattern)
+        self.calls["replay"] += 1
+        return state, self._metrics
+
+
+def build_cycle_step(steps: TrainSteps, pattern: tuple, pool=None, stream=None) -> CycleStep:
+    """One :class:`CycleStep` for the branch ``pattern``."""
+    return CycleStep(steps, pattern, pool, stream)
 
 
 def _wcast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

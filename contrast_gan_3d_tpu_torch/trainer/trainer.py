@@ -1,14 +1,20 @@
 """The training loop around the steps (counterpart of
-``contrast_gan_3d_tpu/trainer/trainer.py`` without meshes and fused
-cycles): ``Trainer.train_step`` runs the branch the schedule makes due,
-``Trainer.fit`` pulls batches from the loaders, trains, logs, validates,
-checkpoints and resumes the model and the data streams.
+``contrast_gan_3d_tpu/trainer/trainer.py`` without meshes):
+``Trainer.train_step`` runs the branch the schedule makes due,
+``Trainer.train_step_cycle`` runs ``cycle_length`` iterations as one
+``steps.CycleStep`` (one replayed CUDA graph per branch pattern on the
+card, the per-iteration loop on the CPU), ``Trainer.fit`` pulls batches
+from the loaders, trains, logs, validates, checkpoints and resumes the
+model and the data streams.
 
 The loop never waits on the card at a log point: the metrics of a log
-boundary stay 0-d device tensors until the NEXT boundary, where the
-previous window's are converted (the lagged fetch), and
-``patches_per_sec`` is measured between those conversions. ``TimeBudget``
-charges the loop's wall time to its phases.
+boundary start copying to pinned host memory there (no wait; a replayed
+graph overwrites its outputs at the next replay, after the copy), with an
+event behind the copy, and are read at the NEXT boundary once that event
+has passed (the lagged fetch): the wait covers the previous boundary's
+work only, not the work dispatched since. ``patches_per_sec`` is measured
+between those reads. ``TimeBudget`` charges the loop's wall time to its
+phases.
 """
 
 import itertools
@@ -17,7 +23,8 @@ import signal
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional
+from dataclasses import replace as dc_replace
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -27,11 +34,14 @@ from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import LoggerInterface, NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import (
+    CycleStep,
     StepConfig,
+    build_cycle_step,
     build_preview_step,
     build_train_steps,
     build_val_steps,
     init_state,
+    schedule_branches,
 )
 from contrast_gan_3d_tpu_torch.utils.signals import install_graceful_stop
 
@@ -56,6 +66,25 @@ class TrainerConfig:
     checkpoint_every: Optional[int] = 1000
     checkpoint_keep: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    # the JAX package's multi-process stop-sync cadence; the port runs one
+    # process and checks its stop flag at every cycle boundary, and keeps
+    # the field so that the builder resolves cycle_length as JAX does
+    stop_sync_every: int = 10
+    # schedule iterations per dispatch (fused schedule cycles): 1 dispatches
+    # each iteration; K > 1 runs K iterations as one CycleStep
+    cycle_length: int = 1
+
+
+def _start_host_copy(metrics: Dict[str, torch.Tensor]):
+    """(host tensors, event): a boundary's 0-d metrics copying to pinned
+    host memory on the current stream, and an event recorded behind the
+    copies (None on the CPU, where the tensors are cloned)."""
+    if next(iter(metrics.values())).device.type != "cuda":
+        return {k: v.detach().clone() for k, v in metrics.items()}, None
+    host = {k: v.detach().to("cpu", non_blocking=True) for k, v in metrics.items()}
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 def _due(iteration: int, every: Optional[int], skip_zero: bool = True) -> bool:
@@ -102,8 +131,12 @@ class Trainer:
     """Owns the train state and steps. ``train_step(patches, iteration)``
     runs the branch that the schedule (critic every ``train_critic_every``,
     generator every ``train_generator_every`` iterations, iteration 0
-    included) makes due; ``fit`` runs the whole loop. With a
-    ``checkpoint_dir`` the state resumes from its latest checkpoint."""
+    included) makes due; ``fit`` runs the whole loop, in cycles of
+    ``cycle_length`` iterations when it is above 1. With a
+    ``checkpoint_dir`` the state resumes from its latest checkpoint.
+    ``split_combined=True`` runs the combined branch as the two phases
+    (``critic_phase``, ``generator_phase``) and forces ``cycle_length`` 1,
+    as the JAX Trainer does."""
 
     def __init__(
         self,
@@ -117,8 +150,17 @@ class Trainer:
         seed: int = 0,
         logger_interface: Optional[LoggerInterface] = None,
         device="cuda",
+        split_combined: bool = False,
     ):
-        self.cfg = trainer_config or TrainerConfig()
+        trainer_config = trainer_config or TrainerConfig()
+        if split_combined and trainer_config.cycle_length > 1:
+            # a cycle runs the fused combined step, the program the split
+            # mode exists to avoid: dispatch per iteration instead
+            logger.warning("split_combined=True: cycle_length=%d ignored — fused schedule cycles run the combined "
+                           "step the split mode avoids; dispatching per-iteration", trainer_config.cycle_length)
+            trainer_config = dc_replace(trainer_config, cycle_length=1)
+        self.cfg = trainer_config
+        self.split_combined = split_combined
         self.step_cfg = step_config or StepConfig()
         self.logger_interface = logger_interface or NoopLogger()
         # module semantics the state_dict cannot encode, for inference
@@ -129,6 +171,22 @@ class Trainer:
         if self.cfg.checkpoint_dir:
             self.state = ckpt_lib.maybe_restore(self.state, self.cfg.checkpoint_dir)
         self.steps = build_train_steps(self.step_cfg)
+        # one CycleStep per branch pattern, built at its first use (a run
+        # whose horizon K does not divide gets a shorter tail pattern); on
+        # the card their captures share one memory pool and one stream
+        self._cycle_cache: Dict[tuple, CycleStep] = {}
+        self._graph_pool = self._capture_stream = None
+        k = self.cfg.cycle_length
+        if k > 1:
+            off = [n for n, every in (("log_every", self.cfg.log_every),
+                                      ("log_images_every", self.cfg.log_images_every),
+                                      ("val_every", self.cfg.val_every),
+                                      ("checkpoint_every", self.cfg.checkpoint_every),
+                                      ("stop_sync_every", self.cfg.stop_sync_every))
+                   if every is not None and every % k]
+            if off:
+                logger.warning("cycle_length=%d: cadence(s) %s are not multiples of the cycle — they fire only at "
+                               "cycle boundaries that happen to divide them", k, ", ".join(off))
         self.val_opt_step, self.val_subopt_step = build_val_steps(self.step_cfg)
         # device-augmented batches: image logging re-derives the step's
         # augmentation, so the logged batch is the one it trained on
@@ -159,7 +217,12 @@ class Trainer:
         critic_due = _due(iteration, self.cfg.train_critic_every, skip_zero=False)
         gen_due = _due(iteration, self.cfg.train_generator_every, skip_zero=False)
         if critic_due and gen_due:
-            self.state, metrics = self.steps.combined_step(self.state, opt, subopt, mask)
+            if self.split_combined:
+                self.state, m1, subopt_s, mask_s = self.steps.critic_phase(self.state, opt, subopt, mask)
+                self.state, m2 = self.steps.generator_phase(self.state, subopt_s, mask_s)
+                metrics = {**m1, **m2}
+            else:
+                self.state, metrics = self.steps.combined_step(self.state, opt, subopt, mask)
         elif critic_due:
             self.state, metrics = self.steps.critic_step(self.state, opt, subopt, mask)
         elif gen_due:
@@ -170,6 +233,31 @@ class Trainer:
             self.state.step += 1
             metrics = {}
         return metrics, (subopt, mask, names)
+
+    def _cycle_pattern(self, iteration: int, length: int) -> tuple:
+        """Branch pattern for iterations [iteration, iteration+length)."""
+        return schedule_branches(self.cfg.train_critic_every, self.cfg.train_generator_every, iteration, length)
+
+    def train_step_cycle(self, patches_list: List[Dict[int, Dict]], iteration: int, pattern: Optional[tuple] = None):
+        """``len(patches_list)`` schedule iterations as ONE cycle
+        (``steps.CycleStep``, cached per branch pattern): the batches stack
+        on a leading cycle axis. Returns the cycle's metrics (on the card a
+        replay's static outputs: clone to keep them) and the FIRST
+        iteration's (subopt, mask, names), whose pre-cycle rng state is what
+        the image preview re-derives."""
+        assembled = [self._assemble(p) for p in patches_list]
+        stacked = [torch.stack([a[i] for a in assembled]) for i in range(3)]
+        if pattern is None:
+            pattern = self._cycle_pattern(iteration, len(patches_list))
+        cycle = self._cycle_cache.get(pattern)
+        if cycle is None:
+            if self._graph_pool is None and self.state.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(device=self.state.device)
+            cycle = self._cycle_cache[pattern] = build_cycle_step(self.steps, pattern, pool=self._graph_pool,
+                                                                  stream=self._capture_stream)
+        self.state, metrics = cycle(self.state, *stacked)
+        return dict(metrics), assembled[0][1:]
 
     # -- graceful stop --------------------------------------------------------
     def request_stop(self, reason: str = "") -> None:
@@ -191,9 +279,11 @@ class Trainer:
     # -- the loop ---------------------------------------------------------------
     def _flush_oldest_log(self):
         """Convert and emit the oldest pending log boundary. Its work is a
-        window old, so the conversion does not stall the queue;
+        window old: waiting for its event does not stall the queue;
         ``patches_per_sec`` spans two conversions."""
         e = self._pending_logs.pop(0)
+        if e["event"] is not None:
+            e["event"].synchronize()
         host = {k: float(v) for k, v in e["metrics"].items()}
         now = time.perf_counter()
         last_it, last_t = self._last_fetch
@@ -217,27 +307,49 @@ class Trainer:
         self._last_fetch = (start, None)
         budget = self.time_budget = TimeBudget()
         checkpointing = bool(self.cfg.checkpoint_dir) and self.cfg.checkpoint_every is not None
+        K = max(1, int(self.cfg.cycle_length))
         iteration = start
         while iteration < self.cfg.train_iterations:
+            # cycle boundaries stay on multiples of K whatever the resume
+            # point: a run resumed mid-cycle gets one short first cycle (else
+            # later boundaries would miss the %-based cadences); the
+            # horizon's tail is short too
+            k_len = min(K - iteration % K, self.cfg.train_iterations - iteration)
             budget.mark("other")
             if self.stop_requested:
                 logger.warning("Stopping at iteration %d (graceful stop)%s", iteration,
                                "" if checkpointing else f"; checkpointing is disabled, so progress since "
                                                         f"iteration {start} is discarded")
                 break
-            patches = {st: next(train_loaders[st]) for st in SCAN_TYPES}
+            if K == 1:
+                patches = {st: next(train_loaders[st]) for st in SCAN_TYPES}
+                pattern = None
+            else:
+                pattern = self._cycle_pattern(iteration, k_len)
+                patches_list = [{st: next(train_loaders[st]) for st in SCAN_TYPES} for _ in range(k_len)]
+                patches = patches_list[0]  # the per-iteration batch sizes
             budget.mark("data_wait")
             images_due = (_due(iteration, self.cfg.log_images_every, skip_zero=False)
                           and self.logger_interface.logs_images)
+            if images_due and pattern is not None:
+                # the preview pairs the cycle's FIRST batch with the
+                # pre-cycle rng; a "none" first branch never draws from it,
+                # so the preview would show augmentation the batch never got
+                images_due = pattern[0] != "none"
             # the step advances state.rng: keep its state so the preview can
-            # re-derive this step's augmentation
+            # re-derive this step's augmentation (in a cycle, its first's)
             rng_before = self.state.rng.get_state() if images_due and self._preview_step else None
-            metrics, (subopt, mask, names) = self.train_step(patches, iteration)
+            if K == 1:
+                metrics, (subopt, mask, names) = self.train_step(patches, iteration)
+            else:
+                metrics, (subopt, mask, names) = self.train_step_cycle(patches_list, iteration, pattern)
             budget.mark("dispatch")
             if metrics and _due(iteration, self.cfg.log_every, skip_zero=False):
+                host, event = _start_host_copy(metrics)
                 self._pending_logs.append({
                     "iteration": iteration,
-                    "metrics": metrics,
+                    "metrics": host,
+                    "event": event,
                     "n_patches": sum(p["data"].shape[0] for p in patches.values()),
                     "tb": budget.window_scalars(),
                 })
@@ -255,7 +367,7 @@ class Trainer:
                                          async_=True, meta=self._ckpt_meta)
                 self._data_state(train_loaders, "save", self.iteration)
                 budget.mark("checkpoint")
-            iteration += 1
+            iteration += k_len
 
         budget.mark("other")
         while self._pending_logs:
