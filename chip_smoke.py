@@ -3,6 +3,7 @@ kernel against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --only cycle c3   # a partial run: no result lines
+    python3 chip_smoke.py --only packed_ops packed_serving packed_train
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -29,7 +30,8 @@ failure raises and exits non-zero):
    bf16: 2^-8 for dx, rounded once to bf16, and 2^-7 for dw, bf16 products
    summed by cuBLAS), with their times and bounds, dx's yardstick cuDNN's
    dgrad in the same dtype;
-3. serving path, f32: the default 1,035,297-parameter ``ResnetGenerator``
+3. serving path, f32, direct layout (``layout="direct"``; the default,
+   packed, is phase 27): the default 1,035,297-parameter ``ResnetGenerator``
    with seeded random weights corrects three int16 512x512x128 volumes
    through ``CCTAContrastCorrector`` (128^3 patches, 25% overlap, batch 8:
    25 patches, 4 generator forwards, 8 B1 launches per volume); then one
@@ -90,7 +92,8 @@ failure raises and exits non-zero):
     of a half-integer, and the trilinear sample of a smooth CT-like
     volume (``smooth_ct``) within 1e-5 of max|x|; then the CUDA-event
     time of the device augmentation of a 6 + 6 batch at 128^3;
-11. the training run users start, bf16 at full width: nine synthetic
+11. the training run users start, bf16 at full width, in the packed layout
+    ``generator_layout="auto"`` resolves for basic_3d: nine synthetic
     288x288x160 int16 patients (3 per label) written with the port's
     ``write_patient``, a splits pickle and an override file, then the
     port's CLI ``main`` in-process on ``basic_3d`` with device
@@ -100,8 +103,7 @@ failure raises and exits non-zero):
     capture and replays. Checks: finite logged losses, the critic within
     the clip, the periodic checkpoint with its meta and data sidecars
     (named for the completed step count: the cycle from 10 ends at 15),
-    B1 launches per cycle as the schedule predicts (through the replays);
-    a fresh
+    no B1 launch (the packed layout has no block-conv stage); a fresh
     trainer restores the model, optimizers, generator state and step
     equal to the first run's end, and fresh loaders the saved data-stream
     states; a second ``main`` to 20 iterations resumes at 15, and its
@@ -109,11 +111,13 @@ failure raises and exits non-zero):
     logged patches/s beside the bare-step figure of phase 6, the
     ``TimeBudget`` shares, the peak memory and the profile;
 12. the host backend (the JAX package's default, through the native warp):
-    three times, a run of 15 iterations with ``augment_backend="host"``
-    beside a fresh device-augmented run of 15 iterations, each at K = 5 and
-    again at ``cycle_length=1``; each prints its warm patches/s, its
-    ``data_wait`` and ``dispatch`` shares and its peak memory (the first
-    repeat also profiles 10 more iterations of each), after a line with the
+    a run of 15 iterations with ``augment_backend="host"`` beside a fresh
+    device-augmented run of 15 iterations, each at K = 5 and again at
+    ``cycle_length=1``, all packed, and a device run in the direct layout
+    (``generator_layout="direct"``: B1 launches per cycle as the schedule
+    predicts, through the replays); each prints its warm patches/s, its
+    ``data_wait`` and ``dispatch`` shares and its peak memory, and at K = 5
+    profiles 10 more iterations, after a line with the
     host's cores, ``warp_num_threads()``, the loaders' worker threads and
     torch's intra-op threads. The host runs must call the native warp and
     never its plain version (``warp_int16``). The warm patches/s is the one
@@ -133,9 +137,12 @@ failure raises and exits non-zero):
     device run of phase 11 wrote (its generator equal to the trainer's
     tensor for tensor); three 512x512x128 CT-like scans written with the
     port's writers (.mhd compressed, .nii.gz, a preprocessed .npy
-    patient); ``correct_scans.main`` over them in f32, as the JAX command
-    runs (128^3 patches, 50% overlap, batch 8: 49 patches, 7 forwards, so
-    14 B3 and 14 B1 launches per volume, counted); with cuDNN held to its
+    patient); ``correct_scans.main`` over them in f32 with the command's
+    defaults, as the JAX command runs (128^3 patches, 50% overlap, layout
+    auto = packed, batch 24: 49 patches, 3 forwards, no block-conv launch,
+    counted); the direct layout's corrector from the same checkpoint
+    (batch 8) corrects one scan in memory beside it, cuDNN free and
+    deterministic; with cuDNN held to its
     deterministic algorithms, as the command holds it, every output read
     back equals ``device_int16(corrector(scan))`` exactly, and the
     command's, the sequential and the overlapped cohort's files are equal
@@ -145,7 +152,8 @@ failure raises and exits non-zero):
     fetched), sequential file to file, overlapped file to file;
 15. the peak device memory of one bf16 ``combined_step`` at
     ``small_patch``'s mix, 40 + 20 + 20 patches of 128x128x32 (the
-    configuration for which the JAX builder turns remat on);
+    configuration for which the JAX builder turns remat on), in the layout
+    the builder resolves (packed);
 16-21. the 2D family at ``conf_2d``'s full width (6 ResNet blocks, width
     16, a 16-channel critic), where no block-conv stage runs (each phase
     zeroes the B1 / B2 / B3 counts before it and asserts them still 0
@@ -165,11 +173,13 @@ failure raises and exits non-zero):
     deterministic algorithms;
 22. reference ``.pt`` files written by the port, 3D and 2D, corrected
     through ``from_reference_checkpoint`` and (3D) ``correct_scans
-    --reference-pt``, each equal to the module built directly;
+    --reference-pt``, each equal to the module built directly (3D in the
+    default layout, packed, with the torch placement);
 23. phase 15 for ``gp_layernorm`` (its layer-norm critic), beside
     ``small_patch``'s; both also report the peak memory of their preset's
     5-iteration cycle as a CUDA graph (eager, capture + replay, replay);
-24. fused schedule cycles, ``basic_3d``, ``gradient_penalty`` and
+24. fused schedule cycles, ``basic_3d`` and ``gradient_penalty`` (packed,
+    as they resolve), ``basic_3d`` with ``generator_layout="direct"`` and
     ``conf_2d`` at full width, bf16, device augmentation, an lr milestone
     inside a cycle: ``fit`` in 4 cycles of 5 replayed as CUDA graphs
     against eager per-iteration dispatch, bit-equal after every cycle,
@@ -179,7 +189,33 @@ failure raises and exits non-zero):
 25. C3: the reflect pad's backward, ``F.pad``'s against ``reflect_pad``'s,
     and two identical gradient calls of the 3D and 2D generators (and the
     2D critic) under ``cudnn.deterministic`` alone: the generators'
-    gradients bit-equal (``c3_phase``).
+    gradients bit-equal (``c3_phase``), the 3D one in both layouts;
+26. the packed layout's ops (``ops/packed.py``, cuDNN convs; ``--only
+    packed_ops``) at the default generator's shapes, f32 and bf16: the stem
+    (f2 -> f2, 5^3 block kernel, 8 -> 128 channels), ``down_0`` (f2 -> f2,
+    stride 2), ``down_1`` (f2 -> f1), the projection (f2 -> f4, 6^3, 128 ->
+    64) with their packed reflect pads, ``up_0``'s packed transpose conv in
+    both placements, and the reflect pads alone: the card against the CPU
+    on one sample and against the direct layout's counterpart on the card
+    (B3, cuDNN's strided and transpose convs), and CUDA-event ms at batch 8
+    beside that counterpart's;
+27. packed serving (``--only packed_serving``), f32 and bf16, the default
+    generator with phase 3's weights through ``CCTAContrastCorrector``'s
+    default layout: 512x512x128 at 25% and 512x512x400 at 25% and 50%, at
+    batch 24 (the default) and 8, s/volume beside phase 3-5's direct
+    figures and each batch's peak memory, no block-conv launch; then
+    96x96x64 and 96x96x66 (edge-padded to 68) on the card and on the CPU:
+    f32 within 0.5 HU, bf16 by phase 5's rule; a profile of one packed bf16
+    512x512x128 correction;
+28. packed training (``--only packed_train``): phase 6's trainers with the
+    packed generator, f32 and bf16 (5 weight-clip and 3 gradient-penalty
+    iterations, the same timed steps), no block-conv launch, the warm
+    seconds and peak memory beside phase 6's; phases 8 and 9's parity
+    gates on the packed generator; a profile of one packed bf16
+    ``combined_step``; C3 on it (phase 25) and its cycles (phase 24);
+29. packed ``correct_scans`` and the packed training run are phases 14,
+    11 and 12 above; the ``kernels`` line counts the packed paths (no
+    launch) beside the direct ones.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -234,7 +270,8 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import (
     s2d_conv3d_block,
     weight_grad,
 )
-from contrast_gan_3d_tpu_torch.ops.s2d_conv import reflect_pad, s2d_conv3d
+from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, reflect_pad, s2d_conv3d, space_to_depth
 from contrast_gan_3d_tpu_torch.ops.resample import (
     bilinear_sample,
     identity_grid,
@@ -301,7 +338,11 @@ TRAIN_MODES = {
 # B1 launches per train iteration: stem + projection forward, plus the
 # projection's dx in a generator backward (the stem's input is data)
 B1_PER_BRANCH = {"critic": 2, "combined": 3, "generator": 3}
-TIMED_STEPS = 5
+# the packed layout's train phase: fewer weight-clip iterations (4 critic
+# + 1 combined), the same timed steps
+PACKED_TRAIN_ITERATIONS = {"wc": 5, "gp": 3}
+TIMED_STEPS = 3
+SLOW_MS, SLOW_REPS = 25.0, 5
 PARITY_PATCH, PARITY_MIX = (32, 32, 32), (2, 1, 1)
 PARITY_GRAD_TOL = 1e-3  # max|cuda - cpu| / max|cpu| per generator gradient
 PARITY_LOSS_TOL = 1e-4  # relative, per loss
@@ -322,6 +363,9 @@ def nvidia_smi() -> str:
 
 
 def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event ms of ``reps`` calls after ``warmup``; a call
+    slower than ``SLOW_MS`` stops at ``SLOW_REPS`` (the plain versions and
+    library yardsticks of the larger shapes)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -334,6 +378,8 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if len(times) == SLOW_REPS and statistics.median(times) > SLOW_MS:
+            break
     return statistics.median(times)
 
 
@@ -620,11 +666,13 @@ def path_phase(gen, rng, dtype):
     """The requests of the main path through the CUDA corrector in
     ``dtype`` (the generator's compute dtype): three 512x512x128 volumes at
     25% overlap, then one 512x512x400 volume at 25% and one at 50% (the JAX
-    package's headline volume). The B1/B3 counts are zeroed just before and
-    read just after."""
+    package's headline volume), in the direct layout (B3 -> B1; the packed
+    layout, the default, is ``packed_serving_phase``). The B1/B3 counts are
+    zeroed just before and read just after."""
     correctors = {
         overlap: CCTAContrastCorrector(
-            gen, inference_patch_size=(128, 128, 128), overlap=overlap, batch_size=BATCH, dtype=dtype
+            gen, inference_patch_size=(128, 128, 128), overlap=overlap, batch_size=BATCH, dtype=dtype,
+            layout="direct",
         )
         for overlap in (0.25, 0.5)
     }
@@ -664,40 +712,44 @@ def path_phase(gen, rng, dtype):
     return launches, results, peak_gib
 
 
-def parity_phase(gen, state, rng):
-    vol = rng.integers(-1024, 1500, (96, 96, 64)).astype(np.int16)
-    kw = dict(inference_patch_size=(64, 64, 64), overlap=0.25, batch_size=BATCH)
-    on_card = CCTAContrastCorrector(gen, **kw)(vol).cpu()
-    gen_cpu = ResnetGenerator()
-    gen_cpu.load_state_dict(state, strict=True)
-    on_cpu = CCTAContrastCorrector(gen_cpu, device="cpu", **kw)(vol)
-    diff = (on_card - on_cpu).abs().max().item()
-    print(f"path parity (96x96x64, 64^3 patches): max |cuda - cpu| = {diff:.4f} HU "
-          f"(tol {PATH_TOL_HU})", flush=True)
-    if not diff <= PATH_TOL_HU:
-        raise AssertionError(f"CUDA and CPU corrections differ by {diff} HU")
-
-
-def parity_bf16_phase(gen16, state, rng):
-    """One 96x96x64 volume corrected three ways with the same weights: on
-    the card in bf16 (``gen16``), on the CPU in bf16 and on the CPU in f32.
-    The card's bf16 may sit at most twice as far from CPU f32 as the CPU's
-    own bf16 does, plus 0.5 HU."""
-    vol = rng.integers(-1024, 1500, (96, 96, 64)).astype(np.int16)
-    kw = dict(inference_patch_size=(64, 64, 64), overlap=0.25, batch_size=BATCH)
-    out = {"card_bf16": CCTAContrastCorrector(gen16, dtype=torch.bfloat16, **kw)(vol).cpu()}
-    for name, dtype in (("cpu_bf16", torch.bfloat16), ("cpu_f32", torch.float32)):
-        gen_cpu = ResnetGenerator(dtype=dtype)
+def parity_phase(gen, state, rng, layout="direct", shapes=((96, 96, 64),)):
+    """Each volume of ``shapes`` corrected on the card and on the CPU with
+    the same weights in ``layout``: within 0.5 HU."""
+    for shape in shapes:
+        vol = rng.integers(-1024, 1500, shape).astype(np.int16)
+        kw = dict(inference_patch_size=(64, 64, 64), overlap=0.25, batch_size=BATCH, layout=layout)
+        on_card = CCTAContrastCorrector(gen, **kw)(vol).cpu()
+        gen_cpu = ResnetGenerator()
         gen_cpu.load_state_dict(state, strict=True)
-        out[name] = CCTAContrastCorrector(gen_cpu, device="cpu", dtype=dtype, **kw)(vol)
-    diff = {f"{a}-{b}": (out[a] - out[b]).abs().max().item()
-            for a, b in (("card_bf16", "cpu_f32"), ("cpu_bf16", "cpu_f32"), ("card_bf16", "cpu_bf16"))}
-    limit = 2 * diff["cpu_bf16-cpu_f32"] + PATH_TOL_HU
-    print(f"path parity bf16 (96x96x64, 64^3 patches): max |a - b| in HU {json.dumps(diff)}; "
-          f"card_bf16-cpu_f32 limit {limit:.4f}", flush=True)
-    if not diff["card_bf16-cpu_f32"] <= limit:
-        raise AssertionError(f"the card's bf16 correction is {diff['card_bf16-cpu_f32']} HU from CPU f32 "
-                             f"(limit {limit})")
+        on_cpu = CCTAContrastCorrector(gen_cpu, device="cpu", **kw)(vol)
+        diff = (on_card - on_cpu).abs().max().item()
+        print(f"path parity {layout} ({'x'.join(map(str, shape))}, 64^3 patches): max |cuda - cpu| = {diff:.4f} HU "
+              f"(tol {PATH_TOL_HU})", flush=True)
+        if not diff <= PATH_TOL_HU:
+            raise AssertionError(f"CUDA and CPU corrections ({layout}, {shape}) differ by {diff} HU")
+
+
+def parity_bf16_phase(gen16, state, rng, layout="direct", shapes=((96, 96, 64),)):
+    """Each volume of ``shapes`` corrected three ways in ``layout`` with the
+    same weights: on the card in bf16 (``gen16``), on the CPU in bf16 and on
+    the CPU in f32. The card's bf16 may sit at most twice as far from CPU
+    f32 as the CPU's own bf16 does, plus 0.5 HU."""
+    for shape in shapes:
+        vol = rng.integers(-1024, 1500, shape).astype(np.int16)
+        kw = dict(inference_patch_size=(64, 64, 64), overlap=0.25, batch_size=BATCH, layout=layout)
+        out = {"card_bf16": CCTAContrastCorrector(gen16, dtype=torch.bfloat16, **kw)(vol).cpu()}
+        for name, dtype in (("cpu_bf16", torch.bfloat16), ("cpu_f32", torch.float32)):
+            gen_cpu = ResnetGenerator(dtype=dtype)
+            gen_cpu.load_state_dict(state, strict=True)
+            out[name] = CCTAContrastCorrector(gen_cpu, device="cpu", dtype=dtype, **kw)(vol)
+        diff = {f"{a}-{b}": (out[a] - out[b]).abs().max().item()
+                for a, b in (("card_bf16", "cpu_f32"), ("cpu_bf16", "cpu_f32"), ("card_bf16", "cpu_bf16"))}
+        limit = 2 * diff["cpu_bf16-cpu_f32"] + PATH_TOL_HU
+        print(f"path parity bf16 {layout} ({'x'.join(map(str, shape))}, 64^3 patches): max |a - b| in HU "
+              f"{json.dumps(diff)}; card_bf16-cpu_f32 limit {limit:.4f}", flush=True)
+        if not diff["card_bf16-cpu_f32"] <= limit:
+            raise AssertionError(f"the card's bf16 correction ({layout}, {shape}) is {diff['card_bf16-cpu_f32']} HU "
+                                 f"from CPU f32 (limit {limit})")
 
 
 def busy_us(intervals) -> float:
@@ -792,11 +844,15 @@ def warm_seconds(fn, reps=TIMED_STEPS):
     return statistics.median(times)
 
 
-def train_phase(rng, dtype):
+def train_phase(rng, dtype, layout="direct"):
     """The train path at full width in ``dtype`` (module docstring, phase
-    6). Counts are zeroed just before and read just after; returns
-    (launches, results, the weight-clip trainer and its batch for the
-    profile)."""
+    6; the packed generator layout, phase 28, takes 5 weight-clip
+    iterations and launches no block conv). Counts are zeroed just before
+    and read just after; returns (launches, results, the weight-clip
+    trainer and its batch for the profile)."""
+    per_branch = B1_PER_BRANCH if layout == "direct" else dict.fromkeys(B1_PER_BRANCH, 0)
+    iterations = {m: spec["iterations"] if layout == "direct" else PACKED_TRAIN_ITERATIONS[m]
+                  for m, spec in TRAIN_MODES.items()}
     if count_parameters(PatchGANDiscriminator()) != 176_873:
         raise AssertionError("the default critic does not have 176,873 parameters")
     patches = train_patches(rng, TRAIN_PATCH, TRAIN_MIX, "cuda")
@@ -806,9 +862,9 @@ def train_phase(rng, dtype):
     zero_counts()
     results, trainers = {}, {}
     for mode, spec in TRAIN_MODES.items():
-        trainer = make_trainer(mode, seed=10, dtype=dtype)
+        trainer = make_trainer(mode, seed=10, dtype=dtype, gen_kw=dict(layout=layout))
         gen, critic = trainer.state.generator, trainer.state.critic
-        branches = schedule_branches(spec["critic_every"], spec["generator_every"], 0, spec["iterations"])
+        branches = schedule_branches(spec["critic_every"], spec["generator_every"], 0, iterations[mode])
         for i, branch in enumerate(branches):
             launches, bwd = block_conv3x3x3.launches, block_conv3x3x3.backward_launches
             w_first, w_last = gen.first.conv.weight.detach().clone(), gen.last_conv.conv.weight.detach().clone()
@@ -818,11 +874,11 @@ def train_phase(rng, dtype):
             seconds = time.perf_counter() - t0
             values = {k: v.item() for k, v in metrics.items()}
             got = (block_conv3x3x3.launches - launches, block_conv3x3x3.backward_launches - bwd)
-            print(f"train {DTYPE_NAME[dtype]} {mode} iteration {i} {branch}: {seconds:.3f} s, B1 launches {got[0]} "
-                  f"(backward {got[1]}), {values}", flush=True)
+            print(f"train {layout} {DTYPE_NAME[dtype]} {mode} iteration {i} {branch}: {seconds:.3f} s, B1 launches "
+                  f"{got[0]} (backward {got[1]}), {values}", flush=True)
             if not all(np.isfinite(v) for v in values.values()):
                 raise AssertionError(f"train {mode} iteration {i}: non-finite loss {values}")
-            if got != (B1_PER_BRANCH[branch], int(branch != "critic")):
+            if got != (per_branch[branch], int(branch != "critic" and layout == "direct")):
                 raise AssertionError(f"train {mode} iteration {i} {branch}: B1 launches {got}")
             if spec["weight_clip"] is not None and branch != "generator":
                 biggest = max(p.abs().max().item() for p in critic.parameters())
@@ -841,19 +897,19 @@ def train_phase(rng, dtype):
         results[mode] = dict(critic_step_s=timed["critic_step"], combined_step_s=timed["combined_step"],
                              train_patches_per_sec=n_patches / timed["combined_step"])
         trainers[mode] = trainer
-        print(f"train {DTYPE_NAME[dtype]} {mode}: {json.dumps(results[mode])}", flush=True)
+        print(f"train {layout} {DTYPE_NAME[dtype]} {mode}: {json.dumps(results[mode])}", flush=True)
     launches = read_counts()
     bwd = launches["block_conv3x3x3_backward"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     results["peak_memory_gib"] = peak_gib
-    print(f"train {DTYPE_NAME[dtype]}: launches {launches} (B1 backward {bwd}); peak memory {peak_gib:.2f} GiB",
-          flush=True)
+    print(f"train {layout} {DTYPE_NAME[dtype]}: launches {launches} (B1 backward {bwd}); peak memory "
+          f"{peak_gib:.2f} GiB", flush=True)
     # per mode: the schedule's iterations plus the timed critic-only and
     # combined steps
     expected = sum(
-        sum(B1_PER_BRANCH[b] for b in schedule_branches(m["critic_every"], m["generator_every"], 0, m["iterations"]))
-        + TIMED_STEPS * (B1_PER_BRANCH["critic"] + B1_PER_BRANCH["combined"])
-        for m in TRAIN_MODES.values()
+        sum(per_branch[b] for b in schedule_branches(m["critic_every"], m["generator_every"], 0, iterations[n]))
+        + TIMED_STEPS * (per_branch["critic"] + per_branch["combined"])
+        for n, m in TRAIN_MODES.items()
     )
     if launches["block_conv3x3x3"] != expected or launches["s2d_conv3d_block"] != expected - bwd:
         raise AssertionError(f"expected {expected} B1 launches on the train path, got {launches}")
@@ -1008,7 +1064,7 @@ def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def train_parity_bf16_phase(rng):
+def train_parity_bf16_phase(rng, label="32^3", **nets):
     """One step from one state three ways (module docstring, phase 9): card
     bf16, CPU bf16, CPU f32, per mode and branch, the card first. The
     error of a bf16 run is its relative L2 distance from CPU f32 per
@@ -1036,7 +1092,9 @@ def train_parity_bf16_phase(rng):
     per weight, and the B1 stages' gradients must be non-zero on the card
     after a generator update. In ``critic_step`` the last conv's bias
     gradient is 1 - 1 and the penalty does not see it: it is held to 2^-6
-    in absolute terms and left out of the relative gate."""
+    in absolute terms and left out of the relative gate. ``nets``
+    (``gen_kw``, ``critic_kw`` of ``make_trainer``): the packed generator
+    layout in phase 28."""
     patches = train_patches(rng, PARITY_PATCH, PARITY_MIX, "cpu")
     runs_of = (("card_bf16", "cuda", torch.bfloat16), ("cpu_bf16", "cpu", torch.bfloat16),
                ("cpu_f32", "cpu", torch.float32))
@@ -1046,7 +1104,7 @@ def train_parity_bf16_phase(rng):
             runs, card_critic, updates = {}, None, {}
             for run, dev, dtype in runs_of:
                 trainer = make_trainer(mode, seed=20, device=dev, dtype=dtype,
-                                       gp_eps=0.3 if mode == "gp" else None)
+                                       gp_eps=0.3 if mode == "gp" else None, **nets)
                 critic, hook = trainer.state.critic, None
                 if dev == "cpu" and step == "combined_step":
                     def take_card_critic(optimizer, args, kwargs, critic=critic, run=run):
@@ -1088,7 +1146,7 @@ def train_parity_bf16_phase(rng):
                            for k, e in loss_errs.items()})
             top = sorted(margin, key=margin.get, reverse=True)[:3]
             moved = max(max((c_card[n] - c[n]).abs().max().item() for n in c32) for c in (c16, c32))
-            print(f"train parity bf16 {mode} {step} (32^3, batch 2+1+1): relative L2 vs cpu_f32 over "
+            print(f"train parity bf16 {mode} {step} ({label}, batch 2+1+1): relative L2 vs cpu_f32 over "
                   f"{len(errs)} tensors, median card {statistics.median(e[0] for e in errs.values()):.2e} "
                   f"cpu_bf16 {median16:.2e}; nearest their limit: "
                   + ", ".join(f"{n} {margin[n]:.2f}" + (f" (card {errs[n][0]:.2e} cpu_bf16 {errs[n][1]:.2e})"
@@ -1122,7 +1180,7 @@ FIT_PATIENT = (288, 288, 160)
 FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 15
 FIT_PROFILE_ITERATIONS = 10
 FIT_WINDOW_ITERATIONS = 20
-FIT_HOST_REPEATS = 3
+FIT_HOST_REPEATS = 1
 # phase 13: the native warp at the training patch size; phase 14: the
 # serving-from-files cohort
 NATIVE_SHAPE, NATIVE_PATCHES, NATIVE_EQUAL_MIN = (128, 128, 128), 4, 0.999
@@ -1283,18 +1341,20 @@ def b1_per_dispatch():
         Trainer.train_step, Trainer.train_step_cycle = real_step, real_cycle
 
 
-def expected_b1(start, stop, val_every, val_iterations, k=1):
+def expected_b1(start, stop, val_every, val_iterations, k=1, layout="packed"):
     """B1 launches of a basic_3d fit over iterations [start, stop) in cycles
     of ``k`` (boundaries on multiples of k): per cycle by its branches,
     plus 2 per validation generator forward (LOW and HIGH per validation
-    iteration) at the boundaries due."""
+    iteration) at the boundaries due; none in the packed layout (the
+    preset's default)."""
     per_cycle, validations, i = [], 0, start
+    direct = layout == "direct"
     while i < stop:
         n = min(k - i % k, stop - i)
-        per_cycle.append(sum(B1_PER_BRANCH[b] for b in schedule_branches(1, 5, i, n)))
+        per_cycle.append(sum(B1_PER_BRANCH[b] for b in schedule_branches(1, 5, i, n)) if direct else 0)
         validations += bool(i and i % val_every == 0)
         i += n
-    return per_cycle, sum(per_cycle) + validations * val_iterations * 2 * 2
+    return per_cycle, sum(per_cycle) + direct * validations * val_iterations * 2 * 2
 
 
 def _same_state(a, b, what):
@@ -1340,12 +1400,14 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     splits = tmp / "splits.pkl"
     splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
     confs = {}
-    for backend in ("device", "host"):
-        for k, extra in ((FIT_K, {}), (1, dict(cycle_length=1))):
-            conf = confs[backend if k == FIT_K else f"{backend}_k1"] = tmp / f"fit_{backend}_{k}.py"
-            fields = dict(FIT_OVERRIDES, **extra)
-            conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
-                            f"    return replace(base, augment_backend={backend!r}, **{fields!r})\n")
+    for name, backend, extra in (("device", "device", {}), ("host", "host", {}),
+                                 ("device_k1", "device", dict(cycle_length=1)),
+                                 ("host_k1", "host", dict(cycle_length=1)),
+                                 ("device_direct", "device", dict(generator_layout="direct"))):
+        conf = confs[name] = tmp / f"fit_{name}.py"
+        fields = dict(FIT_OVERRIDES, **extra)
+        conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
+                        f"    return replace(base, augment_backend={backend!r}, **{fields!r})\n")
     print(f"fit: wrote 9 patients of {FIT_PATIENT} int16 in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def run(backend, iterations, run_id=None):
@@ -1383,8 +1445,9 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     trainer = first.trainer
     run_dir = tmp / "runs" / "device"
-    if trainer.cfg.cycle_length != FIT_K:
-        raise AssertionError(f"fit: basic_3d resolved cycle_length {trainer.cfg.cycle_length}, expected {FIT_K}")
+    if trainer.cfg.cycle_length != FIT_K or trainer.state.generator.layout != "packed":
+        raise AssertionError(f"fit: basic_3d resolved cycle_length {trainer.cfg.cycle_length} (expected {FIT_K}), "
+                             f"layout {trainer.state.generator.layout} (expected packed)")
     want_per_it, want_total = expected_b1(0, FIT_ITERATIONS, FIT_OVERRIDES["validate_every"],
                                           FIT_OVERRIDES["val_iterations"], FIT_K)
     got_per_it = [n for _, n, _ in per_it]
@@ -1412,7 +1475,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
                              bare_combined_patches_per_sec=n_patches / comb,
                              bare_schedule_patches_per_sec=bare_schedule)
     pps, shares = results["device"]["patches_per_sec"], results["device"]["shares"]
-    print(f"fit device (basic_3d bf16, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
+    print(f"fit device (basic_3d bf16 packed, {FIT_ITERATIONS} iterations, {seconds:.1f} s with set-up): warm "
           f"{pps[WARM_LOG]:.1f} patches/s (boundaries 5-10); logged patches/s {json.dumps(pps)}; bare steps of "
           f"phase 6: {n_patches / comb:.1f} patches/s per combined_step, {bare_schedule:.1f} over the 4 critic + "
           f"1 combined schedule; time budget {json.dumps({k: round(v, 4) for k, v in shares.items()})}; peak "
@@ -1465,27 +1528,31 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     del first, second, trainer
     torch.cuda.empty_cache()
 
-    # the host backend through the native warp, three times, each beside a
-    # fresh device-augmented run of the same length, each at the preset's
-    # K = 5 and at cycle_length=1 (per-iteration dispatch); the first
-    # repeat also profiles a started window of each
+    # the host backend through the native warp beside a fresh
+    # device-augmented run of the same length, each at the preset's K = 5
+    # and at cycle_length=1 (per-iteration dispatch), and the device
+    # backend in the direct layout (generator_layout="direct": B3 -> B1,
+    # counted per cycle); those at K = 5 profile a started window
     print(f"fit host threads: {os.cpu_count()} cores, warp_num_threads {native.warp_num_threads()}, 3 train "
           f"loaders x {cfg.num_workers[0]} workers + 3 validation loaders x {cfg.num_workers[1]}, torch intra-op "
           f"{torch.get_num_threads()}", flush=True)
-    keys = {"host": "host", "device": "device_beside_host", "host_k1": "host_k1", "device_k1": "device_k1"}
+    keys = {"host": "host", "device": "device_beside_host", "device_direct": "device_direct", "host_k1": "host_k1",
+            "device_k1": "device_k1"}
     for key in keys.values():
         results[key] = []
     for rep in range(FIT_HOST_REPEATS):
-        for backend in ("host", "device", "host_k1", "device_k1"):
+        for backend in keys:
             k = 1 if backend.endswith("_k1") else FIT_K
+            layout = "direct" if backend.endswith("_direct") else "packed"
             want_per_it, want_total = expected_b1(0, FIT_HOST_ITERATIONS, FIT_OVERRIDES["validate_every"],
-                                                  FIT_OVERRIDES["val_iterations"], k)
+                                                  FIT_OVERRIDES["val_iterations"], k, layout)
             before, warps, plain = block_conv3x3x3.launches, native.warp_augment_int16.calls, warp_int16.calls
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fold_run, logs3, per_it3, seconds3 = run(backend, FIT_HOST_ITERATIONS, f"{backend}_{rep}")
-            if fold_run.trainer.cfg.cycle_length != k:
-                raise AssertionError(f"fit {backend}: cycle_length {fold_run.trainer.cfg.cycle_length}, expected {k}")
+            if fold_run.trainer.cfg.cycle_length != k or fold_run.trainer.state.generator.layout != layout:
+                raise AssertionError(f"fit {backend}: cycle_length {fold_run.trainer.cfg.cycle_length}, layout "
+                                     f"{fold_run.trainer.state.generator.layout}, expected {k}, {layout}")
             if [n for _, n, _ in per_it3] != want_per_it or block_conv3x3x3.launches - before != want_total:
                 raise AssertionError(f"fit {backend} {rep}: B1 launches {per_it3}, expected {want_per_it}")
             warps = native.warp_augment_int16.calls - warps
@@ -1509,14 +1576,14 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
             started_window(FIT_WINDOW_ITERATIONS)
             r["window_patches_per_sec"] = FIT_WINDOW_ITERATIONS * 12 / sum(t.time_budget.total.values())
             r["window_shares"] = t.time_budget.shares()
-            print(f"fit {backend} (K = {k}) run {rep + 1}/{FIT_HOST_REPEATS} ({FIT_HOST_ITERATIONS} iterations, "
-                  f"{seconds3:.1f} s with set-up): {r['window_patches_per_sec']:.1f} patches/s over "
+            print(f"fit {backend} (K = {k}, {layout}) run {rep + 1}/{FIT_HOST_REPEATS} ({FIT_HOST_ITERATIONS} "
+                  f"iterations, {seconds3:.1f} s with set-up): {r['window_patches_per_sec']:.1f} patches/s over "
                   f"{FIT_WINDOW_ITERATIONS} more iterations ({t.time_budget.summary()}); logged "
                   f"{r['warm_patches_per_sec']:.1f} at boundary 5; the run's data_wait "
                   f"{r['shares']['data_wait']:.3f}, dispatch {r['shares']['dispatch']:.3f}; peak memory "
                   f"{r['peak_memory_gib']:.2f} GiB; native warps {warps}",
                   flush=True)
-            if rep == 0:
+            if rep == 0 and k == FIT_K:
                 r["profile"] = profile(lambda: started_window(FIT_PROFILE_ITERATIONS),
                                        f"fit {backend} (K = {k}), {FIT_PROFILE_ITERATIONS} iterations of a started run",
                                        top=8)
@@ -1638,8 +1705,12 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
     print(f"serving files: wrote {[p.name for p in scans]} ({FILES_SHAPE} int16) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the command's defaults: layout "auto" (packed for this generator and
+    # window) and its batch (24)
     corrector = CCTAContrastCorrector.from_checkpoint(ckpt_dir, inference_patch_size=FILES_PATCH,
-                                                      overlap=FILES_OVERLAP, batch_size=BATCH, device=device)
+                                                      overlap=FILES_OVERLAP, device=device)
+    if not corrector.packed or corrector.batch_size != PACKED_BATCH:
+        raise AssertionError(f"serving files: layout auto gave packed={corrector.packed}, batch {corrector.batch_size}")
     state = corrector.generator.state_dict()
     if count_parameters(corrector.generator) != GEN_PARAMS or list(state) != list(ckpt_state) or not all(
             torch.equal(v.cpu(), ckpt_state[k]) for k, v in state.items()):
@@ -1668,20 +1739,39 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
     torch.cuda.synchronize()
     zero_counts()
     t = time.perf_counter()
-    # the command's defaults, spelled out: 128^3 patches, 50% overlap, batch 8
+    # the command's defaults, spelled out but the batch: 128^3 patches, 50%
+    # overlap, layout auto (packed) and its batch
     done = correct_scans.main([str(ckpt_dir), str(tmp / "out_command"), *map(str, scans), "--patch-size",
-                               *map(str, FILES_PATCH), "--overlap", str(FILES_OVERLAP), "--batch-size", str(BATCH),
-                               "--device", device])
+                               *map(str, FILES_PATCH), "--overlap", str(FILES_OVERLAP), "--device", device])
     torch.cuda.synchronize()
     command_s = time.perf_counter() - t
-    launches = read_counts()
-    forwards = -(-num_patches(FILES_SHAPE, FILES_PATCH, FILES_OVERLAP) // BATCH)
-    want = 2 * forwards * len(scans)
+    launches = no_block_conv(read_counts(), "serving files (packed)")
+    forwards = -(-num_patches(FILES_SHAPE, FILES_PATCH, FILES_OVERLAP, packed_io=True) // PACKED_BATCH)
     print(f"serving files: correct_scans.main over {len(scans)} scans in {command_s:.2f} s (set-up included); "
-          f"{forwards} forwards per volume; launches {launches}", flush=True)
-    if (forwards != 7 or launches["block_conv3x3x3"] != want or launches["s2d_conv3d_block"] != want
-            or launches["block_conv3x3x3_v2"] or launches["block_conv3x3x3_backward"]):
-        raise AssertionError(f"serving files: expected {want} B1 and B3 launches (14 per volume), got {launches}")
+          f"{forwards} forwards of {PACKED_BATCH} per volume (packed); launches {launches}", flush=True)
+    if forwards != 3:
+        raise AssertionError(f"serving files: {forwards} packed forwards per volume, expected 3")
+
+    # the direct layout beside it, in memory, cuDNN free and deterministic
+    direct = CCTAContrastCorrector.from_checkpoint(ckpt_dir, inference_patch_size=FILES_PATCH,
+                                                   overlap=FILES_OVERLAP, batch_size=BATCH, layout="direct",
+                                                   device=device)
+    direct_s = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for name, flag in (("free", False), ("deterministic", True)):
+            torch.backends.cudnn.deterministic = flag
+            direct(first_scan)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            device_int16(direct(first_scan)).cpu()
+            direct_s[name] = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"serving files: the direct layout (batch {BATCH}) in memory, int16 fetched: cuDNN free "
+          f"{direct_s['free']:.3f} s, deterministic {direct_s['deterministic']:.3f} s per volume", flush=True)
+    del direct
+    torch.cuda.empty_cache()
 
     # the rest with cuDNN's deterministic algorithms, as the command runs
     deterministic = torch.backends.cudnn.deterministic
@@ -1716,14 +1806,16 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
         files[name] = {p.name: p.read_bytes() for p in sorted((tmp / f"out_{name}").iterdir())}
     if not files["command"] == files["sequential"] == files["overlapped"] or len(files["command"]) != 2 * len(scans):
         raise AssertionError("serving files: the command's, the sequential and the overlapped files differ")
-    out = dict(launches=launches, forwards_per_volume=forwards, command_s=command_s,
-               nondeterministic_cudnn=nondeterministic, in_memory_s_per_volume=statistics.median(in_memory), sequential_s_per_volume=timed["sequential"],
-               overlapped_s_per_volume=timed["overlapped"])
+    out = dict(launches=launches, layout="packed", batch=PACKED_BATCH, forwards_per_volume=forwards,
+               command_s=command_s, nondeterministic_cudnn=nondeterministic,
+               in_memory_s_per_volume=statistics.median(in_memory), sequential_s_per_volume=timed["sequential"],
+               overlapped_s_per_volume=timed["overlapped"], direct_in_memory_s_per_volume=direct_s)
     print(f"serving files: every output equals device_int16(corrector(scan)); the command's, the sequential and "
           f"the overlapped cohort's {len(files['command'])} files are equal byte for byte; seconds per "
-          f"{FILES_SHAPE} volume (f32, 50% overlap, cudnn.deterministic): in memory "
-          f"{out['in_memory_s_per_volume']:.3f} (int16 fetched), sequential file to file {timed['sequential']:.3f}, "
-          f"overlapped file to file {timed['overlapped']:.3f}", flush=True)
+          f"{FILES_SHAPE} volume (f32, 50% overlap, packed, cudnn.deterministic): in memory "
+          f"{out['in_memory_s_per_volume']:.3f} (int16 fetched; cuDNN free {nondeterministic['seconds']:.3f}; the "
+          f"direct layout {direct_s['deterministic']:.3f}, free {direct_s['free']:.3f}), sequential file to file "
+          f"{timed['sequential']:.3f}, overlapped file to file {timed['overlapped']:.3f}", flush=True)
     del corrector
     torch.cuda.empty_cache()
     return launches, out
@@ -1804,10 +1896,10 @@ REF_3D_SHAPE, REF_2D_SHAPE = (256, 256, 128), (512, 512, 32)
 
 
 def no_block_conv(launches: dict, what: str) -> dict:
-    """The 2D family has no space-to-depth stage: B1, B2 and B3 launch no
-    time on its paths."""
+    """The 2D family and the packed layout have no block-conv stage: B1, B2
+    and B3 launch no time on their paths."""
     if any(launches.values()):
-        raise AssertionError(f"{what}: block-conv launches on a 2D path: {launches}")
+        raise AssertionError(f"{what}: block-conv launches on a path without them: {launches}")
     return launches
 
 
@@ -2209,10 +2301,10 @@ def fit_2d_phase(tmp: Path):
             out[conf]["profile"]["shares"] = trainer.time_budget.shares()
             print(f"profile fit 2D {conf}: {trainer.time_budget.summary()}", flush=True)
             # the steady rate and how the loaders' threads weigh on it:
-            # conf_2d's four per label (and, at K = 5, one), each window
-            # twice, alternated, none under the profiler
+            # conf_2d's four per label (and, at K = 5, one), one window
+            # each, none under the profiler
             per_iteration, rates = {threads: [], 1: []}, {threads: [], 1: []}
-            for rep in range(2):
+            for rep in range(1):
                 for n in ((threads, 1) if conf == "host" else (threads,)):
                     dispatch, rate = window(n, 10 + 2 * rep + (n == 1))
                     per_iteration[n].append(dispatch)
@@ -2224,7 +2316,7 @@ def fit_2d_phase(tmp: Path):
                           f"{rate:.1f} slices/s; {trainer.time_budget.summary()}{last}", flush=True)
             out[conf]["window_slices_per_sec"] = rates
             out[conf]["dispatch_s_per_iteration_by_loader_threads"] = per_iteration
-            print(f"fit 2D {conf}: slices/s and dispatch s per iteration by loader threads per label (two windows "
+            print(f"fit 2D {conf}: slices/s and dispatch s per iteration by loader threads per label (one window "
                   f"each, no profiler) {json.dumps(rates)} {json.dumps(per_iteration)}", flush=True)
         del trainer
         torch.cuda.empty_cache()
@@ -2271,8 +2363,8 @@ def reference_ckpt_phase(tmp: Path):
     batch 8, f32; 2D: 512x512x32 in batches of 128 slices), and
     ``correct_scans --reference-pt`` over a .mhd of the 3D volume writes
     ``device_int16`` of it (the command takes 3D patches only, as the JAX
-    one). The B1 / B3 launches of ``from_reference_checkpoint``'s and the
-    command's corrections are counted."""
+    one). 3D runs the default layout, packed (the torch placement's packed
+    one-voxel shift): the corrections launch no block conv (counted)."""
     rng = np.random.default_rng(89)
     out = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -2310,12 +2402,9 @@ def reference_ckpt_phase(tmp: Path):
                 if not np.array_equal(io_utils.read_image(written[0])[0], direct.numpy()):
                     raise AssertionError("reference 3D: correct_scans --reference-pt wrote another volume")
                 r["correct_scans"] = "equal"
-                r["launches"] = launches = read_counts()
-                want = 4 * -(-num_patches(shape, patch, FILES_OVERLAP) // BATCH)  # 2 per forward, 2 corrections
-                if launches["block_conv3x3x3"] != want or launches["s2d_conv3d_block"] != want:
-                    raise AssertionError(f"reference 3D: launches {launches}, expected {want} each")
-            else:
-                r["launches"] = launches = no_block_conv(read_counts(), "reference 2D")
+                if not ref.packed:
+                    raise AssertionError("reference 3D: the default layout did not resolve to packed")
+            r["launches"] = launches = no_block_conv(read_counts(), f"reference {ndim}D")
             out[f"{ndim}d"] = r
             print(f"reference {ndim}D ({shape}): from_reference_checkpoint equals the module built directly"
                   + (" and so does correct_scans --reference-pt" if ndim == 3 else "")
@@ -2327,15 +2416,201 @@ def reference_ckpt_phase(tmp: Path):
     return out
 
 
+# --- the packed layout (phases 26-30) ----------------------------------------
+
+# JAX's packed batch default, and the serving requests of phase 27: (shape,
+# overlap) at batch 24 and at the direct layout's 8
+PACKED_BATCH = 24
+PACKED_REQUESTS = ((512, 512, 128), 0.25), ((512, 512, 400), 0.25), ((512, 512, 400), 0.5)
+PACKED_PARITY_SHAPES = ((96, 96, 64), (96, 96, 66))
+# the packed ops' card-against-CPU check runs one sample (the CPU's share
+# of the generator's shapes); their times the serving batch
+PACKED_OPS_CHECK_BATCH, PACKED_OPS_N = 1, 128
+PACKED_OPS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-7}
+
+
+def packed_op_cases(c0=16, n=None):
+    """The default generator's block-space ops at an n^3 patch, each beside
+    its direct-layout counterpart on the same full-resolution data: (name,
+    full-resolution channels-last input shape per sample, kernel shape (f32,
+    flax layout), bias, (pack, op, unpack) of the packed layout, (prepare,
+    op, unpack) of the direct one, the direct op's name). ``pack`` /
+    ``prepare`` bring the data into the layout the generator holds it in
+    (untimed), ``unpack`` back to full-resolution channels-last for the
+    comparisons."""
+    n = n or PACKED_OPS_N
+    h = n // 2
+
+    def s2d2(x):
+        return space_to_depth(x, 2)
+
+    def ncdhw(x):
+        return x.permute(0, 4, 1, 2, 3).contiguous()
+
+    def ndhwc(y):
+        return y.permute(0, 2, 3, 4, 1)
+
+    def same(x):
+        return x
+
+    def d2s(f):
+        return lambda y: depth_to_space(y, f)
+
+    def reflect_conv(f_out, ob):
+        def op(xp, w, b):
+            xp, o = reflect_pad_packed(xp, 2, 3)
+            return packed_conv3d(xp, w, b, f_in=2, f_out=f_out, o=(o,) * 3, out_blocks=ob)
+        return op
+
+    def strided(f_out, ob):
+        return lambda xp, w, b: packed_conv3d(xp, w, b, f_in=2, f_out=f_out, stride=2, pad=1, out_blocks=ob)
+
+    def up(placement):
+        return lambda x, w, b: packed_tconv3d(x, w, b, stride=2, convention=placement)
+
+    def b3(x, w, b):
+        return s2d_conv3d_block(x, w, b, f=4, padding_mode="reflect")
+
+    def conv_s2(x, w, b):
+        return F.conv3d(x, w.permute(4, 3, 0, 1, 2), stride=2, padding=1)
+
+    def tconv(placement):
+        lo = 1 if placement == "torch" else 0
+
+        def op(x, w, b):
+            y = torch.conv_transpose3d(x, flax_tconv_to_torch(w), stride=2)
+            return y[:, :, lo : lo + 2 * x.shape[2], lo : lo + 2 * x.shape[3], lo : lo + 2 * x.shape[4]]
+        return op
+
+    q = (n // 4,) * 3
+    return (
+        ("stem f2->f2 7^3", (n, n, n, 1), (7, 7, 7, 1, c0), False, (s2d2, reflect_conv(2, (h,) * 3), d2s(2)),
+         (same, b3, same), "B3 s2d_conv3d_block"),
+        ("down_0 f2->f2 stride 2", (n, n, n, c0), (3, 3, 3, c0, 2 * c0), False, (s2d2, strided(2, q), d2s(2)),
+         (ncdhw, conv_s2, ndhwc), "F.conv3d stride 2 (NCDHW)"),
+        ("down_1 f2->f1 stride 2", (h, h, h, 2 * c0), (3, 3, 3, 2 * c0, 4 * c0), False, (s2d2, strided(1, q), same),
+         (ncdhw, conv_s2, ndhwc), "F.conv3d stride 2 (NCDHW)"),
+        ("projection f2->f4 7^3", (n, n, n, c0), (7, 7, 7, c0, 1), True, (s2d2, reflect_conv(4, q), d2s(4)),
+         (same, b3, same), "B3 s2d_conv3d_block"),
+        ("up_0 tconv same", (h, h, h, 2 * c0), (3, 3, 3, 2 * c0, c0), False, (same, up("same"), d2s(2)),
+         (ncdhw, tconv("same"), ndhwc), "conv_transpose3d + window (NCDHW)"),
+        ("up_0 tconv torch", (h, h, h, 2 * c0), (3, 3, 3, 2 * c0, c0), False, (same, up("torch"), d2s(2)),
+         (ncdhw, tconv("torch"), ndhwc), "conv_transpose3d + window (NCDHW)"),
+    )
+
+
+def flax_tconv_to_torch(w):
+    """A flax (k, k, k, Ci, Co) transpose-conv kernel in torch's flipped
+    (Ci, Co, k, k, k) layout (``utils/weights._tconv_kernel``)."""
+    return w.flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+
+
+def packed_ops_phase(dev, g, batch=BATCH):
+    """Phase 26: the packed layout's ops (``ops/packed.py``; cuDNN convs, no
+    hand-written kernel) at the default generator's shapes (128^3 patches),
+    f32 and bf16: each on the card against the CPU in f32 on the same
+    values (one sample; f32 1e-4, bf16 2^-7 of max|CPU|: bf16 rounds the
+    output once, the bias add twice), and against its direct-layout
+    counterpart on the card (B3 for the stem and the projection, the
+    strided conv and the transpose conv for the others; the same
+    tolerances); the packed reflect pads of the stem's and the projection's
+    inputs equal the CPU's exactly; then CUDA-event ms at batch ``batch``
+    (the transformed kernel built in each call, as the generator builds
+    it), packed beside direct, each on its layout's data."""
+    rows = []
+    k = PACKED_OPS_CHECK_BATCH
+    for dtype in DTYPES:
+        tol = PACKED_OPS_TOL[dtype]
+        for name, x_shape, w_shape, has_bias, (pack, op, unpack), (prep, d_op, d_unpack), d_name in packed_op_cases():
+            x = torch.randn((batch, *x_shape), generator=g).to(dev, dtype)
+            w = (torch.randn(w_shape, generator=g) / math.prod(w_shape[:4]) ** 0.5).to(dev)  # f32, as held
+            b = torch.randn(w_shape[-1:], generator=g).to(dev) if has_bias else None
+            w16, b16 = w.to(dtype), None if b is None else b.to(dtype)  # as the direct modules cast them
+            xp, xd = pack(x), prep(x)
+            card = unpack(op(xp[:k], w, b)).float().cpu()
+            cpu = unpack(op(xp[:k].cpu().float(), w.cpu(), None if b is None else b.cpu()))
+            err, rel = compare(card, cpu, tol, f"packed {name} {DTYPE_NAME[dtype]} (card vs CPU f32)")
+            compare(card, d_unpack(d_op(xd[:k], w16, b16)).float().cpu(), tol,
+                    f"packed {name} {DTYPE_NAME[dtype]} (vs the direct layout on the card)")
+            row = dict(op=name, dtype=DTYPE_NAME[dtype], x_shape=list(xp.shape), max_abs_err=err, max_rel_err=rel,
+                       ms=median_ms(lambda: op(xp, w, b)), direct=d_name,
+                       direct_ms=median_ms(lambda: d_op(xd, w16, b16)))
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+            del x, xp, xd, card, cpu
+            torch.cuda.empty_cache()
+        for label, c in (("stem input", 1), ("projection input", 16)):
+            x = torch.randn((batch, *(PACKED_OPS_N,) * 3, c), generator=g).to(dev, dtype)
+            xp = space_to_depth(x, 2)
+            if not torch.equal(reflect_pad_packed(xp[:k], 2, 3)[0].cpu(), reflect_pad_packed(xp[:k].cpu(), 2, 3)[0]):
+                raise AssertionError(f"reflect_pad_packed {label} {DTYPE_NAME[dtype]}: the card differs from the CPU")
+            row = dict(op=f"reflect_pad_packed {label}", dtype=DTYPE_NAME[dtype], x_shape=list(xp.shape),
+                       max_abs_err=0.0, ms=median_ms(lambda: reflect_pad_packed(xp, 2, 3)),
+                       direct="reflect_pad (full resolution, channels-last)",
+                       direct_ms=median_ms(lambda: reflect_pad(x, [(3, 3)] * 3, dims=(1, 2, 3))))
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+            del x, xp
+            torch.cuda.empty_cache()
+    return rows
+
+
+def packed_serving_phase(gen, rng, dtype):
+    """Phase 27: the default generator (seeded weights, ``dtype``) serving
+    in the packed layout, ``layout="auto"``'s answer for it: the
+    ``PACKED_REQUESTS`` at batch 24 (JAX's packed default) and at 8, each
+    batch's peak memory; no block-conv launch (the counts zeroed before,
+    read after). Returns (launches, results)."""
+    vols = {shape: rng.integers(-1024, 1500, shape).astype(np.int16) for shape, _ in PACKED_REQUESTS}
+    results = []
+    zero_counts()
+    for batch in (PACKED_BATCH, BATCH):
+        correctors = {overlap: CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=overlap,
+                                                     batch_size=batch, dtype=dtype)
+                      for overlap in {o for _, o in PACKED_REQUESTS}}
+        if not all(c.packed for c in correctors.values()):
+            raise AssertionError("layout auto did not resolve to packed for the default generator")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for shape, overlap in PACKED_REQUESTS:
+            vol = vols[shape]
+            seconds = []
+            for _ in range(2 if shape[2] == 128 else 1):
+                t0 = time.perf_counter()
+                out = correctors[overlap](vol)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            if tuple(out.shape) != vol.shape or not torch.isfinite(out).all():
+                raise AssertionError("packed: corrected volume has the wrong shape or non-finite values")
+            delta = (out.cpu() - torch.from_numpy(vol).float()).abs().max().item()
+            if not delta < 600.0 + 1e-2:
+                raise AssertionError(f"packed: correction of {delta} HU exceeds the 600 HU bound")
+            patches = num_patches(shape, (128, 128, 128), overlap, packed_io=True)
+            results.append(dict(shape=shape, overlap=overlap, batch=batch, seconds=seconds[-1], first_s=seconds[0],
+                                patches=patches, forwards=-(-patches // batch)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in results[-len(PACKED_REQUESTS):]:
+            r["peak_memory_gib"] = peak
+            print(f"packed serving {DTYPE_NAME[dtype]}: {r}", flush=True)
+        del correctors
+    launches = no_block_conv(read_counts(), f"packed serving {DTYPE_NAME[dtype]}")
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 # --- fused schedule cycles and C3 (phases 24-25) -------------------------------
 
-CYCLE_PRESETS = ("basic_3d", "gradient_penalty", "conf_2d")
+# (label, preset, overrides): the 3D presets resolve the packed layout;
+# basic_3d again in the direct one (B3 -> B1 inside the captured cycles)
+CYCLE_RUNS = (("basic_3d", "basic_3d", {}), ("basic_3d_direct", "basic_3d", dict(generator_layout="direct")),
+              ("gradient_penalty", "gradient_penalty", {}), ("conf_2d", "conf_2d", {}))
 CYCLE_K, CYCLES = 5, 4
 # both networks' milestones (the config has one tuple): the critic passes 7
 # at iteration 7, inside the first captured cycle, the generator passes 2
 # at iteration 10, in a replay
 CYCLE_MILESTONES = (2, 7)
-CYCLE_TIMED = 2  # rounds of eager, graph, graph, eager
+CYCLE_TIMED = 1  # rounds of eager, graph, graph, eager
 # C3: the pads at the generators' projection inputs (3D channels-last, 2D
 # NCHW) and the gradient calls' inputs
 C3_PADS = {"3D": ((6, 128, 128, 128, 16), (1, 2, 3)), "2D": ((256, 16, 128, 128), (2, 3))}
@@ -2368,8 +2643,10 @@ def device_batches(g, patch, mix, n, dev="cuda"):
              HIGH: {"data": hu(n_high), "seg": mask(n_high)}} for _ in range(n)]
 
 
-def cycle_phase(name, device="cuda", **overrides):
-    """Phase 24 for preset ``name`` (basic_3d, gradient_penalty, conf_2d):
+def cycle_phase(name, device="cuda", label=None, **overrides):
+    """Phase 24 for preset ``name`` (basic_3d, gradient_penalty, conf_2d;
+    the 3D presets in the packed layout they resolve, basic_3d also with
+    ``generator_layout="direct"``, ``label`` basic_3d_direct):
     fused schedule cycles replayed as CUDA graphs against eager
     per-iteration dispatch, at the preset's full width and batch, bf16,
     device augmentation on, milestones (2, 7) (the critic's lr drops inside
@@ -2382,7 +2659,8 @@ def cycle_phase(name, device="cuda", **overrides):
     after every cycle: networks, optimizer state and schedules, the device
     lr, step and generator state bit-equal; the cycle's calls (1 eager,
     then 1 capture and 1 replay, then replays); B1 / B3 / dx launches equal
-    the pattern's count (3D; 0 in 2D), counted through the replays; the
+    the pattern's count (3D direct; 0 packed and in 2D), counted through
+    the replays; the
     scalars ``fit`` logged at each boundary equal that cycle's own values
     (the generator losses of its combined step, D the mean of its critic
     losses); the 3rd and 4th cycle (same batches, two successive replays)
@@ -2395,12 +2673,15 @@ def cycle_phase(name, device="cuda", **overrides):
     cfg = dataclasses.replace(load_config(name), augment_backend="device", milestones=CYCLE_MILESTONES,
                               log_every=CYCLE_K, validate_every=None, checkpoint_every=None, log_images_every=None,
                               **overrides)
+    name = label or name
     log = RecordingLogger()
     eager, graph = (Trainer(b.generator, b.critic, b.gen_tx, b.critic_tx, b.step_config, b.trainer_config,
                             seed=b.seed, logger_interface=lg, device=device)
                     for b, lg in ((build(cfg, device=device), NoopLogger()), (build(cfg, device=device), log)))
-    if graph.cfg.cycle_length != CYCLE_K or graph.step_cfg.augment is None:
-        raise AssertionError(f"cycle {name}: cycle_length {graph.cfg.cycle_length}, augment {graph.step_cfg.augment}")
+    layout = "direct" if cfg.is_2d else overrides.get("generator_layout", "packed")
+    if graph.cfg.cycle_length != CYCLE_K or graph.step_cfg.augment is None or graph.state.generator.layout != layout:
+        raise AssertionError(f"cycle {name}: cycle_length {graph.cfg.cycle_length}, augment {graph.step_cfg.augment}, "
+                             f"layout {graph.state.generator.layout} (expected {layout})")
     mix = tuple(cfg.train_batch_size[k] for k in (OPT, LOW, HIGH))
     g = torch.Generator(device=device).manual_seed(50)
     data = device_batches(g, cfg.train_patch_size, mix, CYCLE_K * (CYCLES - 1), device)
@@ -2431,8 +2712,9 @@ def cycle_phase(name, device="cuda", **overrides):
                       {"eager": c + 1, "capture": 0, "replay": 0})
         if calls != want_calls:
             raise AssertionError(f"cycle {name} {c}: calls {calls}, expected {want_calls}")
-        b1 = 0 if cfg.is_2d else sum(B1_PER_BRANCH[b] for b in cycle.pattern)
-        dx = 0 if cfg.is_2d else sum(b != "critic" for b in cycle.pattern)
+        direct = graph.state.generator.layout == "direct" and not cfg.is_2d
+        b1 = sum(B1_PER_BRANCH[b] for b in cycle.pattern) if direct else 0
+        dx = sum(b != "critic" for b in cycle.pattern) if direct else 0
         want_launches = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - dx, "block_conv3x3x3_v2": 0,
                          "block_conv3x3x3_backward": dx}
         if launches != want_launches:
@@ -2532,7 +2814,10 @@ def c3_phase(device="cuda"):
     default 3D generator (2 x 128^3) and of conf_2d's generator and critic
     (64 x 128^2), f32 and bf16: the gate is the generators' gradients
     bit-equal; the 2D pair also under torch's deterministic algorithms,
-    for comparison with the records."""
+    for comparison with the records; (c, phase 28) the same two calls of
+    the default 3D generator in the packed layout (its reflect pads are
+    slices, flips and concatenations, its zero pads constant ``F.pad``s):
+    gradients bit-equal."""
     out = {}
     cudnn, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
     torch.backends.cudnn.deterministic = True
@@ -2575,6 +2860,7 @@ def c3_phase(device="cuda"):
         x3, x2 = (torch.from_numpy(np.random.default_rng(94).normal(0, 0.5, C3_INPUTS[k]).astype(np.float32)).to(device)
                   for k in ("3D", "2D"))
         nets = (("3D generator", ResnetGenerator, {}, x3, ("cudnn",)),
+                ("3D packed generator", ResnetGenerator, dict(layout="packed"), x3, ("cudnn",)),
                 ("2D generator", ResnetGenerator, GEN_2D, x2, ("cudnn", "algorithms")),
                 ("2D critic", PatchGANDiscriminator, CRITIC_2D, x2, ("cudnn", "algorithms")))
         for dtype in DTYPES:
@@ -2600,15 +2886,40 @@ def c3_phase(device="cuda"):
 
 
 def bare_fit_phase(tmp: Path):
-    """Phases 11-12 alone, after phase 6's bf16 steps (a partial run)."""
-    _, results, _, _ = train_phase(np.random.default_rng(1), torch.bfloat16)
+    """Phases 11-12 alone, after phase 28's packed bf16 steps (a partial run)."""
+    _, results, _, _ = train_phase(np.random.default_rng(1), torch.bfloat16, layout="packed")
     return fit_phase(results["wc"], tmp)[1]
+
+
+def bare_packed_serving_phase():
+    """Phase 27 alone, f32 and bf16, with its parity checks (a partial run)."""
+    gen = seeded(ResnetGenerator(), 0)
+    state = {k: v.clone() for k, v in gen.state_dict().items()}
+    rng = np.random.default_rng(3)
+    packed_serving_phase(gen, rng, torch.float32)
+    parity_phase(gen, state, rng, layout="packed", shapes=PACKED_PARITY_SHAPES)
+    gen16 = ResnetGenerator(dtype=torch.bfloat16)
+    gen16.load_state_dict(state, strict=True)
+    packed_serving_phase(gen16, rng, torch.bfloat16)
+    parity_bf16_phase(gen16, state, rng, layout="packed", shapes=PACKED_PARITY_SHAPES)
+
+
+def bare_packed_train_phase():
+    """Phase 28's steps and train parity alone (a partial run)."""
+    for dtype in DTYPES:
+        train_phase(np.random.default_rng(4), dtype, layout="packed")
+    rng = np.random.default_rng(3)
+    train_parity_phase(rng, label="32^3 packed", gen_kw=dict(layout="packed"))
+    train_parity_bf16_phase(rng, label="32^3 packed", gen_kw=dict(layout="packed"))
 
 
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "c3": c3_phase,
-    "cycle": lambda: {name: cycle_phase(name) for name in CYCLE_PRESETS},
+    "packed_ops": lambda: packed_ops_phase(torch.device("cuda"), torch.Generator().manual_seed(0)),
+    "packed_serving": bare_packed_serving_phase,
+    "packed_train": bare_packed_train_phase,
+    "cycle": lambda: {label: cycle_phase(name, label=label, **kw) for label, name, kw in CYCLE_RUNS},
     "small_patch": lambda: (small_patch_phase(), small_patch_phase(name="gp_layernorm")),
     "fit": lambda: bare_fit_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_"))),
     "fit_2d": lambda: fit_2d_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))),
@@ -2649,17 +2960,22 @@ def main(argv=None) -> int:
     dx_rows = [backward_phase(dev, g, dtype) for dtype in DTYPES]
     ragged_phase(dev, g)
     print(f"kernels: {time.perf_counter() - t_start:.1f} s", flush=True)
+    packed_ops = packed_ops_phase(dev, g)
+    print(f"packed ops: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     gen = seeded(ResnetGenerator(), 0)
     state = {k: v.clone() for k, v in gen.state_dict().items()}
     if count_parameters(gen) != GEN_PARAMS:
         raise AssertionError(f"default generator has {count_parameters(gen)} parameters")
-    # the bf16 phases draw from their own stream, so the f32 phases see the
-    # inputs they always saw
-    rng, rng16 = np.random.default_rng(0), np.random.default_rng(1)
+    # the bf16 phases and the packed layout's draw from their own streams,
+    # so the f32 phases see the inputs they always saw
+    rng, rng16, rng_p = np.random.default_rng(0), np.random.default_rng(1), np.random.default_rng(3)
     serve = {torch.float32: path_phase(gen, rng, torch.float32)}
     parity_phase(gen, state, rng)
-    corrector = CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH)
+    serve_p = {torch.float32: packed_serving_phase(gen, rng_p, torch.float32)}
+    parity_phase(gen, state, rng_p, layout="packed", shapes=PACKED_PARITY_SHAPES)
+    corrector = CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH,
+                                      layout="direct")
     vol = rng.integers(-1024, 1500, (512, 512, 128)).astype(np.int16)
     profile(lambda: corrector(vol), "serving 512x512x128 float32")
     del gen, corrector
@@ -2672,11 +2988,22 @@ def main(argv=None) -> int:
               f"bfloat16 {r16['seconds']:.4f} s per volume; B1 launches {r32['b1_launches']} / {r16['b1_launches']}",
               flush=True)
     parity_bf16_phase(gen16, state, rng16)
+    serve_p[torch.bfloat16] = packed_serving_phase(gen16, rng_p, torch.bfloat16)
+    parity_bf16_phase(gen16, state, rng_p, layout="packed", shapes=PACKED_PARITY_SHAPES)
     corrector = CCTAContrastCorrector(gen16, inference_patch_size=(128, 128, 128), overlap=0.25, batch_size=BATCH,
-                                      dtype=torch.bfloat16)
+                                      dtype=torch.bfloat16, layout="direct")
     profile(lambda: corrector(vol), "serving 512x512x128 bfloat16")
+    corrector = CCTAContrastCorrector(gen16, inference_patch_size=(128, 128, 128), overlap=0.25, dtype=torch.bfloat16)
+    profile(lambda: corrector(vol), f"serving 512x512x128 bfloat16 packed (batch {corrector.batch_size})")
     del gen16, corrector, vol
     torch.cuda.empty_cache()
+    for dtype in DTYPES:
+        direct = {(r["shape"], r["overlap"]): r["seconds"] for r in serve[dtype][1]}
+        for r in serve_p[dtype][1]:
+            d = direct[r["shape"], r["overlap"]]
+            print(f"serving {DTYPE_NAME[dtype]} {r['shape']} at {r['overlap']:.0%}: packed batch {r['batch']} "
+                  f"{r['seconds']:.4f} s, direct batch {BATCH} {d:.4f} s per volume (packed / direct "
+                  f"{r['seconds'] / d:.3f}); packed peak memory {r['peak_memory_gib']:.2f} GiB", flush=True)
     print(f"serving: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     train = {}
@@ -2687,15 +3014,28 @@ def main(argv=None) -> int:
                 top=25)
         del wc, batch
         torch.cuda.empty_cache()
+    train_p = {}
+    for dtype in DTYPES:
+        launches, results, wc, batch = train_phase(np.random.default_rng(4), dtype, layout="packed")
+        train_p[dtype] = launches, results
+        if dtype == torch.bfloat16:
+            profile(lambda: wc.steps.combined_step(wc.state, *batch), "train wc combined_step bfloat16 packed",
+                    top=25)
+        del wc, batch
+        torch.cuda.empty_cache()
     for mode in TRAIN_MODES:
-        print(f"train {mode}: " + "; ".join(
-            f"{DTYPE_NAME[dt]} critic_step {r[mode]['critic_step_s']:.4f} s, combined_step "
-            f"{r[mode]['combined_step_s']:.4f} s, {r[mode]['train_patches_per_sec']:.3f} patches/s"
-            for dt, (_, r) in train.items()), flush=True)
-    print("train peak memory: " + ", ".join(f"{DTYPE_NAME[dt]} {r['peak_memory_gib']:.2f} GiB"
-                                            for dt, (_, r) in train.items()), flush=True)
+        for layout, runs in (("direct", train), ("packed", train_p)):
+            print(f"train {mode} {layout}: " + "; ".join(
+                f"{DTYPE_NAME[dt]} critic_step {r[mode]['critic_step_s']:.4f} s, combined_step "
+                f"{r[mode]['combined_step_s']:.4f} s, {r[mode]['train_patches_per_sec']:.3f} patches/s"
+                for dt, (_, r) in runs.items()), flush=True)
+    for layout, runs in (("direct", train), ("packed", train_p)):
+        print(f"train peak memory {layout}: " + ", ".join(f"{DTYPE_NAME[dt]} {r['peak_memory_gib']:.2f} GiB"
+                                                          for dt, (_, r) in runs.items()), flush=True)
     train_parity_phase(rng)
     train_parity_bf16_phase(rng16)
+    train_parity_phase(rng_p, label="32^3 packed", gen_kw=dict(layout="packed"))
+    train_parity_bf16_phase(rng_p, label="32^3 packed", gen_kw=dict(layout="packed"))
     print(f"train: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     augment_ms = augment_phase(dev)
@@ -2703,7 +3043,7 @@ def main(argv=None) -> int:
         tmp = Path(tmp)
         native_results = native_phase(tmp)
         print(f"native: {time.perf_counter() - t_start:.1f} s", flush=True)
-        fit_launches, fit_results, (ckpt_dir, ckpt_state) = fit_phase(train[torch.bfloat16][1]["wc"], tmp)
+        fit_launches, fit_results, (ckpt_dir, ckpt_state) = fit_phase(train_p[torch.bfloat16][1]["wc"], tmp)
         print(f"fit: {time.perf_counter() - t_start:.1f} s", flush=True)
         files_launches, files_results = serving_files_phase(tmp, ckpt_dir, ckpt_state)
         print(f"serving files: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2742,7 +3082,7 @@ def main(argv=None) -> int:
           f"{small_patch['combined_step_s']:.3f} s", flush=True)
     print(f"2D, reference checkpoints, gp_layernorm: {time.perf_counter() - t_start:.1f} s", flush=True)
     c3 = c3_phase()
-    cycles = {name: cycle_phase(name) for name in CYCLE_PRESETS}
+    cycles = {label: cycle_phase(name, label=label, **kw) for label, name, kw in CYCLE_RUNS}
     print(f"C3 and cycles: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -2755,6 +3095,7 @@ def main(argv=None) -> int:
         # the reference-checkpoint corrections run in f32; the 2D paths,
         # in both dtypes, launch no block conv (each phase asserts it)
         by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key],
+                   "serving_packed": serve_p[dtype][0][key], "train_packed": train_p[dtype][0][key],
                    "fit": fit_launches[key] if dtype == torch.bfloat16 else 0,
                    "serving_files": files_launches[key] if dtype == torch.float32 else 0,
                    "reference_ckpt": reference["3d"]["launches"][key] if dtype == torch.float32 else 0,
@@ -2767,7 +3108,9 @@ def main(argv=None) -> int:
     print(json.dumps({
         "requests": {DTYPE_NAME[dt]: v[1] for dt, v in serve.items()},
         "serving_peak_memory_gib": {DTYPE_NAME[dt]: v[2] for dt, v in serve.items()},
-        "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi,
+        "train": {DTYPE_NAME[dt]: v[1] for dt, v in train.items()}, "card": smi, "packed_ops": packed_ops,
+        "packed_serving": {DTYPE_NAME[dt]: v[1] for dt, v in serve_p.items()},
+        "packed_train": {DTYPE_NAME[dt]: v[1] for dt, v in train_p.items()},
         "augment_6_plus_6_ms": augment_ms, "native": native_results, "fit": fit_results,
         "serving_files": files_results, "small_patch": small_patch, "models_2d": models_2d,
         "serving_2d": serving_2d, "native_2d": native_2d, "augment_2d": augment_2d, "train_2d": train_2d,

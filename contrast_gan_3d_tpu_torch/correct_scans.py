@@ -12,7 +12,9 @@ correction. Runs on the card unless ``--device cpu``, with cuDNN held to
 its deterministic algorithms: its transpose convolutions otherwise may sum
 in another order from one call to the next, and a scan corrected twice, or
 by the overlapped and the sequential cohort, would not give the same file.
-The first SIGTERM or Ctrl-C finishes the volumes in flight and exits 0; a
+The corrector's default layout is the JAX command's ("auto": the packed
+sliding window for a 3D batch-norm generator, batch 24; otherwise direct,
+batch 8). The first SIGTERM or Ctrl-C finishes the volumes in flight and exits 0; a
 second one aborts.
 Sharding over several cards and HDF5 output are not ported (ROADMAP).
 """
@@ -42,8 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--iteration", type=int, default=None)
     p.add_argument("--patch-size", type=int, nargs=3, default=(128, 128, 128))
     p.add_argument("--overlap", type=float, default=0.5)
-    p.add_argument("--batch-size", type=int, default=8,
-                   help="generator forward batch (the JAX command's choice for the direct layout)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="generator forward batch (default: the corrector's layout-aware choice, 24 packed / 8 direct)")
     p.add_argument("--reference-pt", action="store_true",
                    help="checkpoint is a reference torch .pt file (architecture read from its state_dict)")
     p.add_argument("--sharded", action="store_true", help="not ported (ROADMAP, A10)")

@@ -1,5 +1,5 @@
 """Full-volume CCTA contrast corrector (counterpart of
-``contrast_gan_3d_tpu/eval/corrector.py``; direct layout).
+``contrast_gan_3d_tpu/eval/corrector.py``).
 
 A user hands an int16 (W, H, D) volume to ``CCTAContrastCorrector``. With a
 3D ``inference_patch_size`` the Gaussian-blended sliding window
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
-from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
+from contrast_gan_3d_tpu_torch.models.generator import LAYOUTS, ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import derive_generator_arch
 from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
@@ -32,6 +32,23 @@ from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_
 logger = logging.getLogger(__name__)
 
 INT16 = np.iinfo(np.int16)
+
+
+def packed_eligible(generator: nn.Module, patch_size: Tuple[int, ...], overlap: float) -> bool:
+    """Whether ``layout="auto"`` runs the packed sliding window: the JAX
+    corrector's test (``stride_ok`` and the generator and patch checks)."""
+    stride_ok = all(int(round(p * (1.0 - overlap))) >= 4 for p in patch_size)
+    if not (isinstance(generator, ResnetGenerator) and stride_ok and len(patch_size) == 3):
+        return False
+    n = generator.n_updownsample_blocks
+    return (
+        generator.layout in LAYOUTS
+        and generator.norm == "batch"
+        and generator.ndim == 3
+        and n >= 1
+        # the packed reflect pad builds from (L+1)-block slabs
+        and all(p % max(4, 2**n) == 0 and p >= 8 for p in patch_size)
+    )
 
 
 class CCTAContrastCorrector:
@@ -51,8 +68,21 @@ class CCTAContrastCorrector:
     with zero slices; each batch's attenuation is subtracted in f32 and the
     result unscaled. The slices enter the generator in f32, as the JAX 2D
     path feeds them (a bf16 generator's first block casts them), so
-    ``dtype`` does not apply. ``batch_size`` None means the JAX choice: 8
-    for 3D; for 2D 128 on the card and 8 on the CPU.
+    ``dtype`` does not apply.
+
+    ``layout``: "auto" (the default, as in JAX) runs the 3D sliding window
+    in block space (``packed_io``, ``ResnetGenerator.forward_packed``)
+    whenever the generator and the window allow it: a 3D batch-norm
+    ``ResnetGenerator`` with ``n_updownsample_blocks >= 1``, every patch
+    dim a multiple of ``max(4, 2**n)`` and at least 8, and every stride
+    ``round(p * (1 - overlap))`` at least 4; otherwise the direct window.
+    "packed" raises where that does not hold; "direct" forces the direct
+    window. The packed grid snaps strides down to multiples of 4 and pads
+    dims up to multiples of 4, so for such scans the two layouts are
+    different functions; "auto" is the JAX package's default answer.
+    Pass the generator plain: one built with ``packed_input`` or
+    ``packed_output`` raises. ``batch_size`` None means the JAX choice: 24
+    packed and 8 direct for 3D; for 2D 128 on the card and 8 on the CPU.
     """
 
     def __init__(
@@ -62,36 +92,46 @@ class CCTAContrastCorrector:
         overlap: float = 0.5,
         batch_size: Optional[int] = None,
         scaler: Scaler = FactorZeroCenterScaler(),
-        layout: str = "direct",
+        layout: str = "auto",
         device="cuda",
         dtype: torch.dtype = torch.float32,
     ):
         self.device = resolve_device(device)
         if len(inference_patch_size) not in (2, 3):
             raise ValueError(f"inference_patch_size must have 2 or 3 values, got {inference_patch_size}")
+        if layout not in ("auto", "packed", "direct"):
+            raise ValueError(f"unknown layout {layout!r}: expected auto | packed | direct")
         self.is_2d = len(inference_patch_size) == 2
-        if layout != "direct":
-            raise NotImplementedError(
-                f"layout={layout!r} is not ported yet (only 'direct'); see ROADMAP.md"
-            )
+        if not self.is_2d and isinstance(generator, ResnetGenerator) and (
+            generator.packed_input or generator.packed_output
+        ):
+            raise ValueError("pass the plain full-resolution generator module: the corrector adds "
+                             "packed_input/packed_output itself")
+        self.packed = layout in ("auto", "packed") and not self.is_2d and packed_eligible(
+            generator, inference_patch_size, overlap)
+        if layout == "packed" and not self.packed:
+            raise ValueError("layout='packed' unsupported for this generator/patch")
         self.generator = generator.to(self.device).eval()
         self.scaler = scaler
         self.inference_patch_size = tuple(inference_patch_size)
         self.overlap = overlap
         if batch_size is None:
-            batch_size = (128 if self.device.type == "cuda" else 8) if self.is_2d else 8
+            batch_size = (128 if self.device.type == "cuda" else 8) if self.is_2d else (24 if self.packed else 8)
         self.batch_size = batch_size
         if self.is_2d:
             self.correct_volume = self._correct_2d
             return
+        apply = (lambda x: self.generator.forward_packed(x, packed_input=True, packed_output=True)) \
+            if self.packed else self.generator
         self.correct_volume = make_volume_corrector(
-            self.generator,
+            apply,
             patch_size=self.inference_patch_size,
             overlap=overlap,
             batch_size=batch_size,
             scaler=scaler,
             device=self.device,
             dtype=dtype,
+            packed_io=self.packed,
         )
 
     @classmethod

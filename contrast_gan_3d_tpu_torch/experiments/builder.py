@@ -3,7 +3,12 @@ optimizers, step and trainer configs, the host augmenter and the logger
 (counterpart of ``contrast_gan_3d_tpu/experiments/builder.py``).
 
 What the JAX builder chooses automatically, the port resolves so:
-- ``generator_layout="auto"`` -> "direct" (logged once); "packed" raises;
+- ``generator_layout="auto"`` -> "packed" (``models/generator.py``'s
+  block-space layout) for a 3D batch-norm generator with at least one
+  down/upsample block whose train and validation patch dims are multiples
+  of ``max(4, 2**n)`` and at least 8 (every 3D preset), else "direct", as
+  the JAX builder resolves it; ``generator_args["layout"]`` wins over
+  ``generator_layout``;
 - ``cycle_length`` None -> ``resolve_cycle_length``, as the JAX builder
   resolves it: K = ``train_generator_every`` when every host cadence is a
   multiple of it (nine of the ten presets: K = 5), else 1
@@ -65,7 +70,6 @@ from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_warned_layout = False
 
 
 @dataclass
@@ -108,11 +112,29 @@ def resolve_cycle_length(cfg: ExperimentConfig, stop_sync_every: Optional[int] =
     return k
 
 
+def resolve_layout(cfg: ExperimentConfig) -> str:
+    """The generator layout, as the JAX builder resolves it: an explicit
+    ``generator_args["layout"]`` wins over ``generator_layout``; "auto" is
+    "packed" where the packed layout's guards and the patch sizes allow it
+    (dims a multiple of the block for the stage strides, at least 8 for the
+    packed reflect pad's (L+1)-block slabs), else "direct"."""
+    layout = cfg.generator_args.get("layout", cfg.generator_layout)
+    if layout != "auto":
+        return layout
+    n = cfg.generator_args.get("n_updownsample_blocks", 2)
+    block = max(4, 2**n)
+    eligible = (
+        not cfg.is_2d
+        and cfg.generator_args.get("norm", "batch") == "batch"
+        and n >= 1
+        and all(p % block == 0 and p >= 8 for p in (*cfg.train_patch_size, *cfg.val_patch_size))
+    )
+    return "packed" if eligible else "direct"
+
+
 def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
     unported = []
-    if cfg.generator_args.get("layout", cfg.generator_layout) == "packed":
-        unported.append("the packed generator layout (A7)")
     if cfg.remat:
         unported.append("remat")
     if cfg.dp_devices is not None or cfg.sp_devices:
@@ -128,20 +150,16 @@ def _check_portable(cfg: ExperimentConfig):
 
 
 def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="cuda") -> BuiltExperiment:
-    global _warned_layout
     _check_portable(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
     ndim = 2 if cfg.is_2d else 3
-    layout = cfg.generator_args.get("layout", cfg.generator_layout)
-    if layout == "auto" and not _warned_layout:
-        _warned_layout = True
-        logger.info("generator_layout 'auto' resolves to 'direct' (the packed layout is %s)", ROADMAP_NOTE)
+    layout = resolve_layout(cfg)
     gen_args = {k: v for k, v in cfg.generator_args.items() if k not in ("layout", "remat")}
     seed = DEFAULT_SEED if cfg.seed is None else cfg.seed
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        generator = ResnetGenerator(**{**dict(ndim=ndim, dtype=dtype), **gen_args, "layout": "direct"})
+        generator = ResnetGenerator(**{**dict(ndim=ndim, dtype=dtype), **gen_args, "layout": layout})
         critic = PatchGANDiscriminator(**{**dict(ndim=ndim, dtype=dtype), **{k: v for k, v in cfg.critic_args.items()
                                                                              if k != "remat"}})
     generator.to(device)

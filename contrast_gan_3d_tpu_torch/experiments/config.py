@@ -77,8 +77,9 @@ class ExperimentConfig:
     # compute dtype of both networks; parameters, optimizer state and
     # BatchNorm statistics stay f32 (float32 = the strict-parity mode)
     compute_dtype: str = "bfloat16"
-    # generator layout: "auto" resolves to "direct" in the port; "packed"
-    # is not ported (the builder raises); generator_args["layout"] wins
+    # generator layout: "auto" resolves as in the JAX builder ("packed" for
+    # every 3D preset, "direct" for the 2D family); "direct" / "packed"
+    # force one; generator_args["layout"] wins
     generator_layout: str = "auto"
     # block rematerialization: None = auto (off at these sizes); True is
     # not ported (the builder raises)

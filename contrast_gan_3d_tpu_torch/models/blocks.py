@@ -7,7 +7,8 @@ ConvBlocks + optional dropout + skip. Weights use torch's layouts: conv
 ``(O, I, *k)``, transpose conv ``(I, O, *k)`` (``utils/weights.py`` maps the
 JAX kernels onto them). Only 3D stride-1 SAME convs take space-to-depth
 (``S2DConv``, B3 -> B1), as in the JAX block: the 2D family's convs are
-cuDNN's.
+cuDNN's. With ``s2d`` set, a 3D transpose conv is ``D2STConv`` (a dense
+stride-1 conv and depth-to-space; no preset sets it).
 
 ``dtype`` is the compute dtype, as the JAX modules' ``dtype``: parameters
 stay f32; each conv casts its input, weight and bias to ``dtype``, its
@@ -24,7 +25,7 @@ from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, LayerNorm
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, s2d_conv3d_block
-from contrast_gan_3d_tpu_torch.ops.s2d_conv import reflect_pad
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import d2s_tconv3d, reflect_pad
 
 
 class S2DConv(nn.Conv3d):
@@ -52,6 +53,36 @@ class S2DConv(nn.Conv3d):
             return _add_bias(_conv_forward(self, x, w), b)
         y = s2d_conv3d_block(
             x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), b, f=self.f, padding_mode=self.padding_mode
+        )
+        return y.permute(0, 4, 1, 2, 3)
+
+
+def flax_tconv_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """A transpose conv's torch weight (I, O, *k), spatially flipped, back
+    to flax's (*k, I, O) (the inverse of ``utils/weights._tconv_kernel``)."""
+    nd = weight.dim() - 2
+    return weight.flip(tuple(range(2, 2 + nd))).permute(*range(2, 2 + nd), 0, 1)
+
+
+class D2STConv(nn.ConvTranspose3d):
+    """Stride-2 size-preserving 3D transpose conv computed as a dense
+    stride-1 conv with s^3-packed output channels and depth-to-space
+    (``ops/s2d_conv.d2s_tconv3d``). Parameters are those of the
+    ``nn.ConvTranspose3d`` it replaces; ``convention`` is the window
+    placement ("torch" or "same", one voxel apart)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=2, bias=True, convention="torch",
+                 dtype=torch.float32):
+        if convention not in ("torch", "same"):
+            raise ValueError(f"unknown tconv_placement {convention!r}")
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias)
+        self.convention = convention
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = d2s_tconv3d(
+            x.to(self.dtype).permute(0, 2, 3, 4, 1), flax_tconv_kernel(self.weight).to(self.dtype), self.bias,
+            stride=self.stride[0], convention=self.convention,
         )
         return y.permute(0, 4, 1, 2, 3)
 
@@ -119,7 +150,11 @@ class ConvBlock(nn.Module):
         conv_cls = {2: nn.Conv2d, 3: nn.Conv3d}[ndim]
         self.activation = activation
         self.negative_slope = negative_slope
-        if transpose:
+        if transpose and s2d is not None and ndim == 3:
+            # the d2s transpose conv (the JAX block's ``use_d2s``)
+            self.conv = D2STConv(in_channels, features, kernel_size, stride=stride, bias=use_bias,
+                                 convention=tconv_placement, dtype=dtype)
+        elif transpose:
             if tconv_placement == "torch":
                 # torch ConvTranspose(k, s, p=(k-1)//2, op=s-1) = full[p : p + sN]
                 self.tconv_offset = (kernel_size - 1) // 2
@@ -149,7 +184,7 @@ class ConvBlock(nn.Module):
         self.dropout = nn.Dropout(dropout_prob) if dropout_prob > 0 else None
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.conv, S2DConv):
+        if isinstance(self.conv, (S2DConv, D2STConv)):
             return self.conv(x)
         x, w = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
@@ -169,6 +204,15 @@ class ConvBlock(nn.Module):
             x = self.norm(x)
         if self.dropout is not None:
             x = self.dropout(x)
+        return self.activate(x)
+
+    def flax_kernel(self) -> torch.Tensor:
+        """The conv's f32 weight in flax's (k, k, k, Ci, Co) layout, as the
+        block-space ops take it (3D)."""
+        w = self.conv.weight
+        return flax_tconv_kernel(w) if self.transpose else w.permute(2, 3, 4, 1, 0)
+
+    def activate(self, x: torch.Tensor) -> torch.Tensor:
         if self.activation == "relu":
             x = F.relu(x)
         elif self.activation == "leaky_relu":

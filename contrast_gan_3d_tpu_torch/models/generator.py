@@ -13,9 +13,27 @@ through space-to-depth and the block-conv kernel (B3 -> B1). In 2D
 ``s2d_factor`` is ignored, as in the JAX block: every conv is cuDNN's.
 The default config has 1,035,297 parameters.
 
+``layout="packed"`` (3D, ``norm="batch"``, ``n_updownsample_blocks >= 1``)
+runs the same modules and ``state_dict`` in block space (``ops/packed.py``):
+the stem, the downsamples, ``up_0`` and the projection keep their
+activations space-to-depth packed across stage boundaries, the reflect
+pads are built in packed space, every upsample is a forward stride-1 conv
+with packed output (the inner ones unpacked for the next), and the ResNet
+blocks run the direct modules on a channels-last view. No block-conv
+kernel runs there (its convs are cuDNN's, as XLA's are in the JAX
+package's packed layout). Spatial dims must divide
+``max(4, 2**n_updownsample_blocks)``. ``packed_input``: the
+input is already f=2 packed, ``(B, X/2, Y/2, Z/2, 8)`` channels-last;
+``packed_output``: the f=4 packed attenuation ``(B, X/4, Y/4, Z/4, 64)``
+comes out. ``forward_packed`` runs the packed layout on a generator of
+either layout (the corrector's packed sliding window).
+
 ``dtype`` is the compute dtype of every block (``models/blocks.py``): the
 first block casts the input to it and the attenuation comes out in it;
-parameters and BatchNorm statistics stay f32.
+parameters and BatchNorm statistics stay f32. The packed layout casts the
+input before its space-to-depth, the transformed kernels and biases to
+the activations' dtype, and normalises in ``dtype``, as ``_packed_call``
+does.
 """
 
 from typing import Optional
@@ -23,7 +41,23 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE, ConvBlock, ResNetBlock
+from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock
+from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
+
+LAYOUTS = ("direct", "packed")
+
+
+def _packed_stage(block: ConvBlock, xp: torch.Tensor, f_view: int, conv_fn) -> torch.Tensor:
+    """``block``'s conv run by the block-space ``conv_fn(xp, kernel,
+    bias)`` on its f32 parameters, then its BatchNorm over an (f_view, C)
+    channel view of the packed tensor (the direct layout's statistics and
+    count), then its activation."""
+    y = conv_fn(xp, block.flax_kernel(), block.conv.bias)
+    if block.norm is not None:
+        c = y.shape[-1] // f_view
+        y = block.norm(y.reshape(-1, c)).reshape(y.shape)
+    return block.activate(y)
 
 
 class ResnetGenerator(nn.Module):
@@ -39,21 +73,31 @@ class ResnetGenerator(nn.Module):
         s2d_factor: Optional[int] = 4,
         tconv_placement: str = "same",
         layout: str = "direct",
+        packed_input: bool = False,
+        packed_output: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if n_resnet_blocks <= 0:
             raise ValueError("n_resnet_blocks must be positive")
-        if layout == "packed":
-            raise NotImplementedError(f"layout='packed' is {ROADMAP_NOTE}")
-        if layout != "direct":
+        if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
+        if (packed_input or packed_output) and layout != "packed":
+            raise ValueError("packed_input / packed_output need layout='packed'")
         self.n_resnet_blocks = n_resnet_blocks
         self.n_updownsample_blocks = n_updownsample_blocks
+        self.init_channels_out = init_channels_out
+        self.ndim = ndim
         # what the weights cannot encode: the trainer's checkpoint meta
         # sidecar records these, and ``from_checkpoint`` rebuilds from them
         self.tconv_placement = tconv_placement
         self.norm = norm
+        self.layout = layout
+        self.packed_input = packed_input
+        self.packed_output = packed_output
+        self.dtype = dtype
+        if layout == "packed":
+            self.check_packed()
         c0 = init_channels_out
 
         self.first = ConvBlock(
@@ -81,7 +125,20 @@ class ResnetGenerator(nn.Module):
             activation="tanh", s2d=s2d_factor, dtype=dtype, ndim=ndim,
         )
 
+    def check_packed(self) -> None:
+        """The JAX package's guards of the packed layout."""
+        if self.ndim != 3:
+            raise ValueError("layout='packed' is 3D-only")
+        if self.norm != "batch":
+            raise ValueError("layout='packed' supports norm='batch' only")
+        if self.n_updownsample_blocks < 1:
+            # the f_out=1 unpack rides the last downsample and up_0 takes
+            # c0*2 channels: with no blocks the bottleneck would see f2 data
+            raise ValueError("layout='packed' needs n_updownsample_blocks >= 1")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.layout == "packed":
+            return self.forward_packed(x, self.packed_input, self.packed_output)
         x = self.first(x)
         n = self.n_updownsample_blocks
         for i in range(n):
@@ -91,3 +148,56 @@ class ResnetGenerator(nn.Module):
         for i in range(n, 0, -1):
             x = getattr(self, f"up_{i - 1}")(x)
         return self.last_conv(x)
+
+    def forward_packed(self, x: torch.Tensor, packed_input: bool = False, packed_output: bool = False) -> torch.Tensor:
+        """The packed layout (``_packed_call`` of the JAX generator): x is
+        ``(B, 1, X, Y, Z)``, or f2-packed channels-last with
+        ``packed_input``; the output is ``(B, 1, X, Y, Z)``, or f4-packed
+        channels-last with ``packed_output``."""
+        self.check_packed()
+        n, dt = self.n_updownsample_blocks, self.dtype
+        if packed_input:
+            dims = tuple(2 * d for d in x.shape[1:4])
+            xp = x.to(dt)
+        else:
+            dims = tuple(x.shape[2:])
+            xp = space_to_depth(x.permute(0, 2, 3, 4, 1).to(dt), 2)
+        block = max(4, 2**n)
+        if any(d % block for d in dims):
+            raise ValueError(f"spatial dims {dims} must divide {block}")
+
+        # stem: reflect-padded 7^3, f2 -> f2
+        xp, o = reflect_pad_packed(xp, 2, 3)
+        sb = tuple(d // 2 for d in dims)
+        xp = _packed_stage(self.first, xp, 8, lambda v, k, b: packed_conv3d(
+            v, k, b, f_in=2, f_out=2, stride=1, o=(o, o, o), out_blocks=sb))
+        # downsamples f2 -> f2; the last one unpacks (f_out=1) into the
+        # bottleneck
+        for i in range(n):
+            f_out = 1 if i == n - 1 else 2
+            ob = tuple(d // 2 ** (i + 1) // f_out for d in dims)
+            xp = _packed_stage(getattr(self, f"down_{i}"), xp, f_out**3, lambda v, k, b, ob=ob, fo=f_out: packed_conv3d(
+                v, k, b, f_in=2, f_out=fo, stride=2, pad=1, out_blocks=ob))
+        # bottleneck: the direct ResNet blocks on a channels-last view
+        x = xp.permute(0, 4, 1, 2, 3)
+        for i in range(self.n_resnet_blocks):
+            x = getattr(self, f"resnet_{i}")(x)
+        # upsamples: dense stride-1 convs whose s=2-packed output is the f2
+        # layout of the full-resolution tensor (the JAX layout runs the
+        # inner ones as direct transpose convs: the same products; a
+        # forward conv needs no cuDNN backward-data kernel, slow under
+        # cudnn.deterministic); the inner ones unpack for the next
+        x = x.permute(0, 2, 3, 4, 1)
+        for i in range(n, 0, -1):
+            xp = _packed_stage(getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
+                v, k, b, stride=2, convention=self.tconv_placement))
+            if i > 1:
+                x = depth_to_space(xp, 2)
+        # the f2 -> f4 projection
+        xp, o2 = reflect_pad_packed(xp, 2, 3)
+        ob = tuple(d // 4 for d in dims)
+        yp = _packed_stage(self.last_conv, xp, 64, lambda v, k, b: packed_conv3d(
+            v, k, b, f_in=2, f_out=4, stride=1, o=(o2, o2, o2), out_blocks=ob))
+        if packed_output:
+            return yp
+        return depth_to_space(yp, 4).permute(0, 4, 1, 2, 3)

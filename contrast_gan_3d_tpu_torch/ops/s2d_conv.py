@@ -43,25 +43,20 @@ def _axis_map(k: int, f: int, s: int = 1) -> Tuple[np.ndarray, int]:
 
 def _axis_map_tensor(k: int, f: int, s: int, dtype, device) -> torch.Tensor:
     """:func:`_axis_map` built on ``device`` from aranges, so that no copy
-    from host memory runs inside a step a CUDA graph captures."""
-    K = (s * (f - 1) + k - 1) // f + 1
-    idx = lambda n: torch.arange(n, device=device)
-    q, d, r, T = idx(K)[:, None, None, None], idx(f)[:, None, None], idx(f)[:, None], idx(k)
-    return (f * q + d - s * r == T).to(dtype)
+    from host memory runs inside a step a CUDA graph captures (the
+    equal-block, zero-offset case of ``ops/packed._axis_map_packed_tensor``)."""
+    from contrast_gan_3d_tpu_torch.ops.packed import _axis_map_packed_tensor
+
+    return _axis_map_packed_tensor(k, f, f, s, 0, dtype, device)
 
 
 def transform_kernel(w: torch.Tensor, f: int, s: int = 1) -> torch.Tensor:
-    """(kx,ky,kz,Ci,Co) -> (Kx,Ky,Kz, f^3*Ci, f^3*Co) space-to-depth kernel
-    (the equal-block, zero-offset case of the JAX package's
-    ``transform_kernel_packed``)."""
-    kx, ky, kz, ci, co = w.shape
-    maps = [_axis_map_tensor(k, f, s, w.dtype, w.device) for k in (kx, ky, kz)]
-    # W'[qx,dx,rx, qy,dy,ry, qz,dz,rz, ci,co]
-    wp = torch.einsum("adrx,besy,cftz,xyzio->adrbescftio", *maps, w)
-    # -> (qx,qy,qz, dx,dy,dz,ci, rx,ry,rz,co)
-    wp = wp.permute(0, 3, 6, 1, 4, 7, 9, 2, 5, 8, 10)
-    Kx, Ky, Kz = (m.shape[0] for m in maps)
-    return wp.reshape(Kx, Ky, Kz, f**3 * ci, f**3 * co)
+    """(kx,ky,kz,Ci,Co) -> (Kx,Ky,Kz, f^3*Ci, f^3*Co) space-to-depth kernel:
+    the equal-block, zero-offset case of ``ops/packed.transform_kernel_packed``,
+    as in the JAX package (local import: ``packed`` imports this module)."""
+    from contrast_gan_3d_tpu_torch.ops.packed import transform_kernel_packed
+
+    return transform_kernel_packed(w, f, f, s, (0, 0, 0))
 
 
 def space_to_depth(x: torch.Tensor, f: int) -> torch.Tensor:
@@ -80,6 +75,72 @@ def depth_to_space(x: torch.Tensor, f: int) -> torch.Tensor:
     x = x.reshape(b, X, Y, Z, f, f, f, c)
     x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
     return x.reshape(b, X * f, Y * f, Z * f, c)
+
+
+def _tconv_axis_map(k: int = 3, s: int = 2) -> np.ndarray:
+    """(K, s, k) 0/1 array A[j, r, T] = [s*j - r == T] for flax's
+    ``ConvTranspose(kernel=k, stride=s, padding='SAME')`` convention
+    o[s*Y + r] = sum_j K[s*j - r] x[Y - 1 + j].
+
+    Derived and verified for the k=3 s=2 window only (the generator's up
+    path, the one transpose-conv shape of the model). Other kernels need a
+    different output-window placement; refuse rather than return wrong
+    values."""
+    return _tconv_axis_map_tensor(k, s, torch.float32, "cpu").numpy()
+
+
+def _tconv_axis_map_tensor(k: int, s: int, dtype, device) -> torch.Tensor:
+    """:func:`_tconv_axis_map` built on ``device`` from aranges (no copy
+    from host memory inside a captured step)."""
+    if k != 3 or s != 2:
+        raise NotImplementedError(
+            f"d2s/packed transpose conv is derived for kernel 3 stride 2 only (got k={k}, s={s}); "
+            "use a direct ConvTranspose for other shapes"
+        )
+    K = (k - 1) // s + 1
+    idx = lambda n: torch.arange(n, device=device)
+    j, r, T = idx(K)[:, None, None], idx(s)[:, None], idx(k)
+    return (s * j - r == T).to(dtype)
+
+
+def conv3d_cl(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """VALID 3D conv of a channels-last ``(B, X, Y, Z, Ci)`` tensor with a
+    ``(kx, ky, kz, Ci, Co)`` kernel, ``F.conv3d`` on the permuted views (the
+    input is then in ``channels_last_3d`` memory format, the output comes
+    back contiguous channels-last); x's dtype in and out."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), stride=stride)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def zero_pad_cl(x: torch.Tensor, pads) -> torch.Tensor:
+    """Zero-pad the spatial dims of a channels-last ``(B, X, Y, Z, C)``
+    tensor by ``pads = ((lo, hi), (lo, hi), (lo, hi))`` in one constant
+    ``F.pad`` (whose backward is a slice)."""
+    flat = [0, 0] + [p for lo_hi in reversed(pads) for p in lo_hi]
+    return F.pad(x, flat)
+
+
+def d2s_tconv3d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 2,
+    convention: str = "torch",
+) -> torch.Tensor:
+    """Exact stride-s transpose conv as a stride-1 conv producing s^3-packed
+    channels (``ops/packed.packed_tconv3d``), then depth-to-space. x (B, X,
+    Y, Z, Ci) channels-last; w (k, k, k, Ci, Co) in flax's unflipped layout;
+    out (B, sX, sY, sZ, Co) in x's dtype, the bias added after the
+    depth-to-space in x's dtype, as the JAX version adds it.
+
+    ``convention``: the window of the size-preserving output, one voxel
+    apart: "torch" (torch ``ConvTranspose(k, s, p=(k-1)//2, op=s-1)`` =
+    full[1 : sN+1], reference-checkpoint parity) or "same" (flax
+    ``ConvTranspose(padding='SAME')`` = full[0 : sN])."""
+    from contrast_gan_3d_tpu_torch.ops.packed import packed_tconv3d
+
+    out = depth_to_space(packed_tconv3d(x, w, None, stride, convention), stride)
+    return out if bias is None else out + bias.to(x.dtype)
 
 
 def check_padding_mode(padding_mode: str) -> str:

@@ -1,6 +1,5 @@
 """Sliding-window full-volume correction with Gaussian patch blending
-(counterpart of ``contrast_gan_3d_tpu/ops/sliding_window.py``, direct
-layout).
+(counterpart of ``contrast_gan_3d_tpu/ops/sliding_window.py``).
 
 The volume lives on the device; patches are gathered in batches, run
 through the generator, and their attenuation is accumulated with Gaussian
@@ -9,6 +8,15 @@ zero generator is the exact identity and blending never touches raw HU.
 The JAX package's ``lax.scan`` over full batches plus one remainder batch
 is a Python loop here, and its ``fori_loop`` scatter is a sequence of
 in-place adds in the same order (so the f32 sums agree).
+
+``packed_io=True`` runs the loop in block space (``ops/packed.py``): the
+volume is edge-padded to a multiple of 4 (and at least the patch) and
+packed f=2 once, patches are gathered as block slices, the generator
+takes f2-packed patches and returns the f4-packed attenuation, and the
+blend accumulates into an f4-packed f32 accumulator. Strides snap down to
+multiples of 4, so the grid, and with it the result, differs from the
+direct layout's wherever a stride or a dim is not a multiple of 4, as in
+the JAX package.
 """
 
 from functools import lru_cache
@@ -19,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
+from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
 
@@ -136,29 +145,11 @@ def num_patches(
     )
 
 
-def make_volume_corrector(
-    generator_apply: Callable[[torch.Tensor], torch.Tensor],
-    patch_size: Tuple[int, int, int] = (128, 128, 128),
-    overlap: float = 0.5,
-    batch_size: int = 4,
-    scaler: Scaler = FactorZeroCenterScaler(),
-    sigma_scale: float = 0.125,
-    device="cuda",
-    dtype: torch.dtype = torch.float32,
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Build ``correct(volume) -> corrected_volume`` on ``device``.
+def make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype):
+    """The direct layout's gather / forward / scatter over one batch of
+    start corners: ``run_batch(acc, starts)``."""
 
-    ``generator_apply``: (B, 1, *patch) scaled patches in ``dtype`` ->
-    (B, 1, *patch) attenuation in (-1, 1), on ``device``; the attenuation is
-    cast to f32 before the blend. ``volume``: a (W, H, D) HU array or tensor
-    (int16/float), scaled in f32; the result is an f32 HU tensor on
-    ``device``.
-    """
-    device = resolve_device(device)
-    patch_size, stride = plan_stride(patch_size, overlap, packed_io=False)
-    gw = torch.as_tensor(gaussian_weights(patch_size, sigma_scale), device=device)
-
-    def run_batch(vol, acc, starts):
+    def run_batch(acc, starts):
         patches = torch.stack([
             vol[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]]
             for x, y, z in starts
@@ -174,15 +165,72 @@ def make_volume_corrector(
         for i, (x, y, z) in enumerate(starts):
             acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * gw
 
+    return run_batch
+
+
+def make_packed_patch_loop(vp, patch_size, gw_p, generator_apply):
+    """Block-space counterpart of :func:`make_direct_patch_loop`: ``vp`` is
+    the f2-packed volume, ``generator_apply`` takes f2-packed patches
+    (B, p/2, p/2, p/2, 8) and returns the f4-packed attenuation (B, p/4,
+    p/4, p/4, 64), and the accumulator and window ``gw_p`` are f4-packed.
+    Every start is a multiple of 4."""
+    p2 = tuple(p // 2 for p in patch_size)
+    p4 = tuple(p // 4 for p in patch_size)
+
+    def run_batch(acc, starts):
+        patches = torch.stack([
+            vp[x // 2 : x // 2 + p2[0], y // 2 : y // 2 + p2[1], z // 2 : z // 2 + p2[2]]
+            for x, y, z in starts
+        ])
+        atten = generator_apply(patches).float()
+        for i, (x, y, z) in enumerate(starts):
+            acc[x // 4 : x // 4 + p4[0], y // 4 : y // 4 + p4[1], z // 4 : z // 4 + p4[2]] += atten[i] * gw_p
+
+    return run_batch
+
+
+def packed_padded_shape(shape, patch_size) -> Tuple[int, int, int]:
+    """The packed corrector's padded volume: at least the patch on every
+    axis and a multiple of 4 (a block-aligned grid)."""
+    return tuple(-(-max(s, p) // 4) * 4 for s, p in zip(shape, patch_size))
+
+
+def make_volume_corrector(
+    generator_apply: Callable[[torch.Tensor], torch.Tensor],
+    patch_size: Tuple[int, int, int] = (128, 128, 128),
+    overlap: float = 0.5,
+    batch_size: int = 4,
+    scaler: Scaler = FactorZeroCenterScaler(),
+    sigma_scale: float = 0.125,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+    packed_io: bool = False,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build ``correct(volume) -> corrected_volume`` on ``device``.
+
+    ``generator_apply``: (B, 1, *patch) scaled patches in ``dtype`` ->
+    (B, 1, *patch) attenuation in (-1, 1), on ``device``; with
+    ``packed_io`` the f2-packed patches -> the f4-packed attenuation
+    (``ResnetGenerator.forward_packed(x, True, True)``). The attenuation is
+    cast to f32 before the blend. ``volume``: a (W, H, D) HU array or
+    tensor (int16/float), scaled in f32; the result is an f32 HU tensor on
+    ``device``. Patch sizes must divide 4 with ``packed_io``.
+    """
+    device = resolve_device(device)
+    patch_size, stride = plan_stride(patch_size, overlap, packed_io)
+    gw = torch.as_tensor(gaussian_weights(patch_size, sigma_scale), device=device)
+    if packed_io:
+        gw_p = space_to_depth(gw[None, ..., None], 4)[0]  # (*p/4, 64)
+
     def correct(volume) -> torch.Tensor:
         """Correct one (W, H, D) HU volume; returns an f32 HU volume."""
         volume = torch.as_tensor(volume)
         shape = tuple(volume.shape)
-        # pad dims smaller than the patch (centered, edge values)
-        pad_cfg = []
-        for i in range(3):
-            p = max(0, patch_size[i] - shape[i])
-            pad_cfg.append((p // 2, p - p // 2))
+        # pad (centered, edge values) dims smaller than the patch; packed:
+        # also up to a multiple of 4
+        target = packed_padded_shape(shape, patch_size) if packed_io else \
+            tuple(max(s, p) for s, p in zip(shape, patch_size))
+        pad_cfg = [((t - s) // 2, (t - s) - (t - s) // 2) for s, t in zip(shape, target)]
         vol = scaler(volume.to(device=device, dtype=torch.float32))
         if any(p != (0, 0) for p in pad_cfg):
             flat = [v for lo_hi in reversed(pad_cfg) for v in lo_hi]
@@ -190,11 +238,20 @@ def make_volume_corrector(
         padded_shape = tuple(vol.shape)
 
         grid = _plan_grid(padded_shape, patch_size, stride).tolist()
-        acc = torch.zeros(padded_shape, dtype=torch.float32, device=device)
+        if packed_io:
+            # the volume, the window and the accumulator all live packed
+            vp = space_to_depth(vol[None, ..., None].to(dtype), 2)[0]
+            run_batch = make_packed_patch_loop(vp, patch_size, gw_p, generator_apply)
+            acc = torch.zeros((*(d // 4 for d in padded_shape), 64), dtype=torch.float32, device=device)
+        else:
+            run_batch = make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype)
+            acc = torch.zeros(padded_shape, dtype=torch.float32, device=device)
         # full batches, then the trailing n % batch_size patches as one
         # smaller batch (no zero-weighted padding patches)
         for b0 in range(0, len(grid), batch_size):
-            run_batch(vol, acc, grid[b0 : b0 + batch_size])
+            run_batch(acc, grid[b0 : b0 + batch_size])
+        if packed_io:
+            acc = depth_to_space(acc[None], 4)[0, ..., 0]
         wvecs = weight_vectors(padded_shape, patch_size, stride, sigma_scale)
         field = weight_field([torch.as_tensor(v, device=device) for v in wvecs])
         corrected = vol - acc / field

@@ -569,15 +569,24 @@ def test_bf16_correction_matches_jax():
     """A (24, 24, 20) int16 volume, 16^3 patches at 25% overlap, batch 3,
     corrected by a bf16 generator through ``CCTAContrastCorrector(dtype=
     torch.bfloat16)`` against the JAX corrector with ``dtype=jnp.bfloat16``
-    and a bf16 generator, in HU."""
+    and a bf16 generator, in HU, in the direct layout."""
+    _bf16_correction_matches_jax("direct")
+
+
+def test_bf16_correction_matches_jax_default_layout():
+    """The same in both packages' default layout, packed for this generator
+    and window."""
+    _bf16_correction_matches_jax("auto")
+
+
+def _bf16_correction_matches_jax(layout):
     variables, make, gen = carried(JaxGenerator, ResnetGenerator, GEN, (1, *PATCH, 1),
                                    generator_state_dict_from_jax, 14)
     vol = np.random.default_rng(15).integers(-1024, 1500, (24, 24, 20)).astype(np.int16)
-    kw = dict(inference_patch_size=PATCH, overlap=0.25, batch_size=3)
+    kw = dict(inference_patch_size=PATCH, overlap=0.25, batch_size=3, layout=layout)
 
     def run(dtype, jit, _):
-        corrector = JaxCorrector(make(dtype), variables["params"], variables["batch_stats"], layout="direct",
-                                 dtype=dtype, **kw)
+        corrector = JaxCorrector(make(dtype), variables["params"], variables["batch_stats"], dtype=dtype, **kw)
         return jit(corrector.correct_volume)(vol)
 
     j32, j16s = jax_runs(run)

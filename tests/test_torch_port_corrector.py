@@ -37,7 +37,8 @@ def test_corrector_matches_jax(carried, overlap, batch_size):
     )
     want = np.asarray(jcorr(vol))
     corr = CCTAContrastCorrector(
-        tgen, inference_patch_size=(16, 16, 16), overlap=overlap, batch_size=batch_size, device="cpu"
+        tgen, inference_patch_size=(16, 16, 16), overlap=overlap, batch_size=batch_size, layout="direct",
+        device="cpu"
     )
     got = corr(vol)
     assert got.dtype == torch.float32 and tuple(got.shape) == vol.shape
@@ -52,7 +53,8 @@ def test_corrector_pads_small_volumes(carried):
         jgen, variables["params"], variables["batch_stats"], inference_patch_size=(16, 16, 16),
         batch_size=2, layout="direct",
     )(vol))
-    corr = CCTAContrastCorrector(tgen, inference_patch_size=(16, 16, 16), batch_size=2, device="cpu")
+    corr = CCTAContrastCorrector(tgen, inference_patch_size=(16, 16, 16), batch_size=2, layout="direct",
+                                 device="cpu")
     got = corr(vol)
     assert tuple(got.shape) == vol.shape
     np.testing.assert_allclose(got.numpy(), want, atol=0.1)
@@ -106,13 +108,17 @@ def test_corrector_defaults_to_cuda_and_raises_without_it(carried):
 
 @pytest.mark.parametrize("kw", [dict(layout="packed"), dict(inference_patch_size=(16, 16))])
 def test_corrector_unported_options_point_to_roadmap(carried, kw):
-    """``layout="packed"`` still raises. A 2-element patch size (the 2D
-    corrector) raised until it was ported; it now selects the slice
+    """Both raised until they were ported. ``layout="packed"`` now selects
+    the packed sliding window, batch 24 as in JAX (parity in
+    ``tests/test_torch_port_packed_serving.py``), and refuses a window it
+    cannot run. A 2-element patch size (the 2D corrector) selects the slice
     corrector, batch 8 on the CPU as in JAX (parity in
     ``tests/test_torch_port_2d.py``)."""
     if "layout" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CCTAContrastCorrector(carried[2], device="cpu", **kw)
+        corrector = CCTAContrastCorrector(carried[2], inference_patch_size=(16, 16, 16), device="cpu", **kw)
+        assert corrector.packed and corrector.batch_size == 24
+        with pytest.raises(ValueError, match="unsupported"):
+            CCTAContrastCorrector(carried[2], inference_patch_size=(16, 16, 16), overlap=0.8, device="cpu", **kw)
         return
     corrector = CCTAContrastCorrector(carried[2], device="cpu", **kw)
     assert corrector.is_2d and corrector.batch_size == 8

@@ -506,6 +506,8 @@ def test_builder_matches_jax(name, backend):
     cfg = dataclasses.replace(config.PRESETS[name](), augment_backend=backend)
     jcfg = dataclasses.replace(jax_config.PRESETS[name](), augment_backend=backend)
     got, want = builder.build(cfg, device="cpu"), jax_builder.build(jcfg)
+    # generator_layout auto resolves as in JAX: packed for every 3D preset
+    assert got.generator.layout == want.generator.layout
     ps, js = got.step_config, want.step_config
     for f in ("weight_clip", "gp_weight", "gan_loss_weight", "sim_loss_weight", "hu_loss_weight", "hu_bounds",
               "gp_eps"):
@@ -544,8 +546,16 @@ def test_builder_matches_jax(name, backend):
     dict(sp_devices=2), dict(logger="wandb"), dict(logger="tensorboard"),
 ])
 def test_builder_raises_for_what_is_not_ported(change):
+    """``generator_layout="packed"`` raised until the packed layout was
+    ported; it now builds the packed generator (and raises for the 2D
+    family, as the packed generator does in JAX)."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
+    if change == dict(generator_layout="packed"):
+        assert builder.build(dataclasses.replace(cfg, **change), device="cpu").generator.layout == "packed"
+        with pytest.raises(ValueError, match="3D-only"):
+            builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         builder.build(dataclasses.replace(cfg, **change), device="cpu")
 

@@ -145,13 +145,9 @@ def test_generator_output_shape_matches_jax(dims, n):
 
 @pytest.mark.parametrize("kw", [dict(layout="packed"), dict(ndim=2), dict(norm="layer")])
 def test_unported_options_point_to_roadmap(kw):
-    """``layout="packed"`` still raises. ``ndim=2`` (the 2D family) and
-    ``norm="layer"`` raised until they were ported; they now build and
-    match the JAX generator (2D in depth: ``tests/test_torch_port_2d.py``)."""
-    if kw.get("layout") == "packed":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ResnetGenerator(**kw)
-        return
+    """All three raised until they were ported; they now build and match
+    the JAX generator (the packed layout in depth:
+    ``tests/test_torch_port_packed.py``; 2D: ``tests/test_torch_port_2d.py``)."""
     ndim = kw.get("ndim", 3)
     cfg = dict(TINY, **kw)
     jgen, variables, tgen = carried_generator(cfg, 8, shape=(1,) + (16,) * ndim + (1,))

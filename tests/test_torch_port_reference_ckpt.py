@@ -142,18 +142,29 @@ def test_port_round_trip_is_exact(tmp_path):
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_from_reference_checkpoint_matches_jax(tmp_path, ndim):
     """A JAX-written reference file corrects the same volume through the
-    port's and JAX's ``from_reference_checkpoint`` within 0.1 HU; the port
-    builds its generator with the torch transpose-conv placement."""
+    port's and JAX's ``from_reference_checkpoint`` within 0.1 HU, 3D in the
+    direct layout; the port builds its generator with the torch
+    transpose-conv placement."""
+    _reference_correction_matches_jax(tmp_path, ndim, "direct" if ndim == 3 else "auto")
+
+
+def test_from_reference_checkpoint_matches_jax_default_layout(tmp_path):
+    """The same in both packages' default layout, packed for this 3D
+    generator and window (the torch placement's one-voxel packed shift)."""
+    _reference_correction_matches_jax(tmp_path, 3, "auto")
+
+
+def _reference_correction_matches_jax(tmp_path, ndim, layout):
     _, gvars, _, _ = _jax_pair(ndim, 7)
     path = tmp_path / "100.pt"
     jax_torch_port.save_reference_checkpoint(path, gvars, iteration=100)
     patch = SHAPES[ndim]
     vol = np.random.default_rng(8).integers(-1024, 1500, (24, 24, 20) if ndim == 3 else (32, 32, 9)).astype(np.int16)
-    kw = dict(inference_patch_size=patch, overlap=0.25, batch_size=2)
-    want = np.asarray(JaxCorrector.from_reference_checkpoint(path, layout="direct", **kw)(vol)) if ndim == 3 \
-        else np.asarray(JaxCorrector.from_reference_checkpoint(path, **kw)(vol))
+    kw = dict(inference_patch_size=patch, overlap=0.25, batch_size=2, layout=layout)
+    want = np.asarray(JaxCorrector.from_reference_checkpoint(path, **kw)(vol))
     corrector = CCTAContrastCorrector.from_reference_checkpoint(path, device="cpu", **kw)
     assert corrector.generator.tconv_placement == "torch" and corrector.is_2d == (ndim == 2)
+    assert corrector.packed == (ndim == 3 and layout == "auto")
     got = corrector(vol).numpy()
     assert np.abs(got - want).max() <= 0.1
 
@@ -196,7 +207,9 @@ def test_correct_scans_reference_pt_equals_the_module_built_directly(tmp_path):
                                   "16", "16", "16", "--device", "cpu"])
     gen = ResnetGenerator(**GEN)
     gen.load_state_dict(generator_state_dict_from_jax(gvars), strict=True)
-    direct = CCTAContrastCorrector(gen, inference_patch_size=(16, 16, 16), batch_size=8, device="cpu")
+    # the command's defaults: layout "auto" (packed here) and its batch
+    direct = CCTAContrastCorrector(gen, inference_patch_size=(16, 16, 16), device="cpu")
+    assert direct.packed and direct.batch_size == 24
     np.testing.assert_array_equal(io_utils.read_image(written[0])[0], device_int16(direct(vol)).numpy())
     with pytest.raises(SystemExit):
         correct_scans.main([str(path), str(tmp_path / "out"), str(scan), "--reference-pt", "--iteration", "3",

@@ -278,7 +278,7 @@ def test_correct_file_matches_jax(carried, tmp_path, rng, dtype):
                          dtype=jnp.dtype(dtype), **kw)
     jcorr.correct_file(scan, tmp_path / "jax.mhd")
     pcorr = CCTAContrastCorrector.from_checkpoint(tmp_path / "ckpt", device="cpu", dtype=getattr(torch, dtype),
-                                                  **kw)
+                                                  layout="direct", **kw)
     got_f32 = pcorr.correct_file(scan, tmp_path / "port.mhd")
     (got, gmeta), (want, wmeta) = jio.read_mhd(tmp_path / "port.mhd"), jio.read_mhd(tmp_path / "jax.mhd")
     assert got.dtype == np.int16
@@ -289,7 +289,8 @@ def test_correct_file_matches_jax(carried, tmp_path, rng, dtype):
     # the file holds the returned volume, rounded half to even
     np.testing.assert_array_equal(got, np.clip(np.round(got_f32), -32768, 32767).astype(np.int16))
     if dtype == "bfloat16":
-        f32 = CCTAContrastCorrector.from_checkpoint(tmp_path / "ckpt", device="cpu", **kw).correct_file(scan)
+        f32 = CCTAContrastCorrector.from_checkpoint(tmp_path / "ckpt", device="cpu", layout="direct",
+                                                    **kw).correct_file(scan)
         assert not np.array_equal(f32, got_f32)  # the bf16 patches reached the generator
 
 
