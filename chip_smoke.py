@@ -215,7 +215,32 @@ failure raises and exits non-zero):
     ``combined_step``; C3 on it (phase 25) and its cycles (phase 24);
 29. packed ``correct_scans`` and the packed training run are phases 14,
     11 and 12 above; the ``kernels`` line counts the packed paths (no
-    launch) beside the direct ones.
+    launch) beside the direct ones;
+30. the serving daemon (``--only serve``, with 31): ``serve``'s
+    ``build_server`` on a run directory holding phase 3's seeded weights,
+    with the command's defaults (packed, bf16 patches, overlap 0.25, batch
+    24, ``--z-bucket 64``, warmed at 512x512x128), on 127.0.0.1: three
+    int16 volumes, 512x512x128 (f32 reply), x100 and x150 (int16 replies),
+    each reply bit-equal to the in-process correction (``device_int16``
+    for int16) under ``cudnn.deterministic``; ``/healthz`` names cuda and
+    the card, ``/stats`` counts 3 requests over the shapes [[512, 512, 128],
+    [512, 512, 192]]; no block-conv launch; a profile of one warm request
+    from the client to its reply and 8 requests from 4 concurrent clients
+    (requests/s, p50 and max latency at the client), each with cuDNN's TF32
+    off (this script's setting) and on (PyTorch's default; the checkpoint's
+    generator computes in f32); then a direct-layout
+    daemon, unwarmed, for one 512x512x128 request: B1 and B3 launch 8 times
+    each in its handler thread (f32: the checkpoint's generator is f32),
+    the reply equal to the in-process correction, the kernels not rebuilt;
+31. correction artifacts (``torch.export``): ``export_corrector`` writes the
+    packed corrector as a bundle at depths 128 and 192; loaded fresh
+    (``ArtifactBundle.from_dir``), warmed, timed warm beside the live
+    corrector, it serves a 512x512x150 request behind a daemon equal to the
+    live ``z_bucket`` corrector; a direct-layout artifact launches B1 and B3
+    (8 each) as its operators, equal to its live corrector; an artifact
+    exported on the CPU (256x256x128) loads onto the card
+    (``move_to_device_pass``), equal to the live corrector. Export, load, first-call and warm-call
+    seconds are printed.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -224,6 +249,7 @@ The last two lines are a ``{"kernels": [...]}`` JSON object and
 import argparse
 import collections
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import json
@@ -236,7 +262,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import types
 from functools import partial
 from pathlib import Path
@@ -245,7 +273,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from contrast_gan_3d_tpu_torch import correct_scans, native
+from contrast_gan_3d_tpu_torch import correct_scans, export_corrector, native, serve
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D, warp2d_int16, warp_coords, \
@@ -254,6 +282,7 @@ from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
 from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
 from contrast_gan_3d_tpu_torch.data.sampler import crop_pad_int16_reference
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.eval.export import ArtifactBundle, load_exported_corrector, save_exported_corrector
 from contrast_gan_3d_tpu_torch.eval.utils import correct_patients, device_int16, load_patient_or_scan
 from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import load_config
@@ -280,6 +309,7 @@ from contrast_gan_3d_tpu_torch.ops.resample import (
     trilinear_sample,
 )
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
+from contrast_gan_3d_tpu_torch.serving import CorrectionServer, correct_remote
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
@@ -2913,8 +2943,253 @@ def bare_packed_train_phase():
     train_parity_bf16_phase(rng, label="32^3 packed", gen_kw=dict(layout="packed"))
 
 
+# --- the serving daemon and correction artifacts (phases 30-31) -----------------
+
+# (shape, int16 reply): z 100 and 150 bucket to 128 and 192 (--z-bucket 64)
+SERVE_REQUESTS = (((512, 512, 128), False), ((512, 512, 100), True), ((512, 512, 150), True))
+SERVE_SHAPES = [[512, 512, 128], [512, 512, 192]]
+SERVE_LOAD_CLIENTS, SERVE_LOAD_PER_CLIENT = 4, 2
+SERVE_VOLUME = (512, 512, 128)
+CPU_EXPORT_VOLUME = (256, 256, 128)  # 9 patches: one generator forward to trace
+SERVE_DIRECT_B1 = 8  # 25 patches at batch 8: 4 forwards, 2 B1 (and B3) launches each
+HTTP_TIMEOUT = 600
+
+
+def serve_checkpoint(tmp: Path) -> Path:
+    """A run directory holding the seeded default generator (phase 3's
+    weights) as the port's ``<step>.pt``: what ``serve`` and
+    ``export_corrector`` load."""
+    tx = partial(make_optimizer, "adam", lr=2e-4, betas=(0.5, 0.999))
+    trainer = Trainer(seeded(ResnetGenerator(), 0), PatchGANDiscriminator(), tx, tx, device="cpu")
+    ckpt_lib.save_checkpoint(trainer.state, tmp / "run", meta=trainer._ckpt_meta)
+    return tmp / "run"
+
+
+def launches_during(fn, counts: dict):
+    """``fn()`` with every count set to 0 just before and read just after;
+    the launches are added to ``counts``."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in read_counts().items():
+        counts[k] = counts.get(k, 0) + v
+    return out
+
+
+def same_reply(got, want: torch.Tensor, what: str):
+    """A reply (or an artifact's output) bit-equal to the in-process
+    correction."""
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    want = want.cpu().numpy()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{got.shape} against {want.dtype}{want.shape}")
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    print(f"  {what}: max |reply - in-process| = {diff.max():.3e} over {diff.size} voxels", flush=True)
+    if diff.max() != 0:
+        raise AssertionError(f"{what}: {int((diff != 0).sum())} voxels differ from the in-process correction")
+
+
+def get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+        return json.loads(r.read())
+
+
+def serve_load(url: str, rng) -> dict:
+    """``SERVE_LOAD_CLIENTS`` clients, each sending ``SERVE_LOAD_PER_CLIENT``
+    512x512x128 int16 volumes one after another (int16 replies): requests/s
+    over the wall time and the latencies each client measured."""
+    vols = [rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16) for _ in range(SERVE_LOAD_CLIENTS)]
+    latencies, errors, lock = [], [], threading.Lock()
+
+    def client(vol):
+        try:
+            for _ in range(SERVE_LOAD_PER_CLIENT):
+                t0 = time.perf_counter()
+                out = correct_remote(url, vol, int16=True, timeout=HTTP_TIMEOUT)
+                dt = time.perf_counter() - t0
+                if out.shape != vol.shape or out.dtype != np.int16:
+                    raise AssertionError(f"load: reply {out.dtype}{out.shape}")
+                with lock:
+                    latencies.append(dt)
+        except Exception as e:  # raised in the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(v,)) for v in vols]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load: client failures {errors}")
+    n = len(latencies)
+    out = dict(requests=n, clients=SERVE_LOAD_CLIENTS, wall_s=wall, requests_per_s=n / wall,
+               p50_latency_s=statistics.median(latencies), max_latency_s=max(latencies))
+    print(f"serve load: {json.dumps(out)}", flush=True)
+    return out
+
+
+def serve_phase(tmp: Path, ckpt: Path):
+    """Phase 30: ``serve``'s daemon with its defaults (``serve.build_server``
+    on a run directory: packed bf16, overlap 0.25, batch 24, ``--z-bucket
+    64``) at full width, then a direct-layout daemon. Returns (launches by
+    dtype, results, the packed corrector)."""
+    t0 = time.perf_counter()
+    srv = serve.build_server(serve.parse_args([str(ckpt), "--host", "127.0.0.1", "--port", "0", "--warmup-shape",
+                                               *map(str, SERVE_VOLUME)]))
+    startup_s = time.perf_counter() - t0
+    corr = srv.service.corrector
+    if not (corr.packed and corr.batch_size == PACKED_BATCH and corr.z_bucket == 64 and corr.overlap == 0.25):
+        raise AssertionError("serve's defaults did not give the packed batch-24 corrector with z_bucket 64")
+    rng = np.random.default_rng(30)
+    counts, direct_counts = {}, {}
+    results = dict(startup_with_warmup_s=startup_s, requests=[])
+    lib_mtime = _build.library_path("block_conv").stat().st_mtime_ns
+    deterministic, allow_tf32 = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    srv.start()
+    try:
+        url = "http://%s:%d" % srv.address
+        torch.backends.cudnn.deterministic = True
+        for shape, int16 in SERVE_REQUESTS:
+            vol = rng.integers(-1024, 1500, shape).astype(np.int16)
+            t0 = time.perf_counter()
+            reply = launches_during(lambda: correct_remote(url, vol, int16=int16, timeout=HTTP_TIMEOUT), counts)
+            results["requests"].append(dict(shape=shape, int16=int16, seconds=time.perf_counter() - t0))
+            want = corr(vol)
+            same_reply(reply, device_int16(want) if int16 else want, f"serve {shape} int16={int16}")
+        health = get_json(url + "/healthz")
+        if health != {"status": "ok", "platform": "cuda", "device": torch.cuda.get_device_name(0)}:
+            raise AssertionError(f"/healthz: {health}")
+        stats = get_json(url + "/stats")
+        if stats["requests"] != len(SERVE_REQUESTS) or stats["compiled_shapes"] != SERVE_SHAPES:
+            raise AssertionError(f"/stats: {stats}")
+        print(f"serve: /healthz {health}; /stats {stats}", flush=True)
+        no_block_conv(counts, "serve (packed)")
+        vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
+        torch.backends.cudnn.deterministic = deterministic
+        # the checkpoint's generator computes in f32: timed with TF32 off,
+        # as this script runs, and with cuDNN's TF32 on, PyTorch's default
+        # (what a daemon started on its own runs with)
+        for tf32 in (False, True):
+            label = "tf32_on" if tf32 else "tf32_off"
+            torch.backends.cudnn.allow_tf32 = tf32
+            results[f"profile_{label}"] = profile(
+                lambda: correct_remote(url, vol, int16=True, timeout=HTTP_TIMEOUT),
+                f"serve one warm request 512x512x128 int16, client to reply (packed, {label})")
+            results[f"load_{label}"] = serve_load(url, rng)
+        results["stats"] = get_json(url + "/stats")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        srv.stop(drain_timeout=HTTP_TIMEOUT)
+    # the direct layout behind the daemon (no warmup: the handler thread's
+    # first call reaches the kernels) launches B1 and B3 in f32 (the
+    # checkpoint's generator is f32; bf16 rounds the patches)
+    direct = CCTAContrastCorrector(corr.generator, overlap=0.25, dtype=torch.bfloat16, z_bucket=64, layout="direct")
+    dsrv = CorrectionServer(direct, host="127.0.0.1", port=0)
+    dsrv.start()
+    try:
+        torch.backends.cudnn.deterministic = True
+        vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
+        t0 = time.perf_counter()
+        reply = launches_during(lambda: correct_remote("http://%s:%d" % dsrv.address, vol, int16=True,
+                                                       timeout=HTTP_TIMEOUT), direct_counts)
+        results["direct_first_request_s"] = time.perf_counter() - t0
+        same_reply(reply, device_int16(direct(vol)), "serve direct 512x512x128 int16")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dsrv.stop(drain_timeout=HTTP_TIMEOUT)
+    if direct_counts["block_conv3x3x3"] != SERVE_DIRECT_B1 or direct_counts["s2d_conv3d_block"] != SERVE_DIRECT_B1:
+        raise AssertionError(f"serve direct: launches {direct_counts}, expected {SERVE_DIRECT_B1} B1 and B3")
+    if _build.library_path("block_conv").stat().st_mtime_ns != lib_mtime:
+        raise AssertionError("serve direct: a handler thread rebuilt the kernels")
+    print(f"serve: {json.dumps(results)}; direct daemon launches {direct_counts}", flush=True)
+    return {torch.float32: direct_counts, torch.bfloat16: counts}, results, corr
+
+
+def export_phase(tmp: Path, ckpt: Path, live):
+    """Phase 31: correction artifacts at full width. ``export_corrector``
+    writes the packed bf16 corrector as a bundle at depths 128 and 192; the
+    bundle, loaded fresh, serves one 512x512x150 request behind a daemon
+    (``serve --artifact``'s path), equal to the live corrector ``live``
+    (z_bucket 64); a direct-layout artifact runs B1 and B3 as its operators
+    on the card, equal to its live corrector; an artifact exported on the
+    CPU (256x256x128) loads onto the card, equal to the live corrector.
+    Returns (launches by dtype, results)."""
+    counts, direct_counts, results = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    rng = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    export_corrector.main([str(ckpt), str(tmp / "bundle"), *[str(a) for shape in SERVE_SHAPES
+                                                             for a in ("--shape", *shape)]])
+    results["export_bundle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = ArtifactBundle.from_dir(tmp / "bundle")
+    results["load_bundle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle.warmup()
+    results["first_calls_s"] = time.perf_counter() - t0
+    vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bundle(vol)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    results["warm_call_s"] = statistics.median(warm)
+    t0 = time.perf_counter()
+    live(vol)
+    torch.cuda.synchronize()
+    results["live_warm_call_s"] = time.perf_counter() - t0
+    asrv = CorrectionServer(bundle, host="127.0.0.1", port=0)
+    asrv.start()
+    try:
+        torch.backends.cudnn.deterministic = True
+        vol = rng.integers(-1024, 1500, SERVE_REQUESTS[-1][0]).astype(np.int16)
+        reply = launches_during(lambda: correct_remote("http://%s:%d" % asrv.address, vol, timeout=HTTP_TIMEOUT),
+                                counts)
+        same_reply(reply, live(vol), "artifact bundle daemon 512x512x150")
+        no_block_conv(counts, "export (packed)")
+        direct = CCTAContrastCorrector(live.generator, overlap=0.25, dtype=torch.bfloat16, layout="direct")
+        t0 = time.perf_counter()
+        dart = load_exported_corrector(save_exported_corrector(tmp / "direct", direct, SERVE_VOLUME))
+        results["export_and_load_direct_s"] = time.perf_counter() - t0
+        vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
+        got = launches_during(lambda: dart(vol), direct_counts)
+        same_reply(got, direct(vol), "direct artifact 512x512x128")
+        cpu_corr = CCTAContrastCorrector(copy.deepcopy(live.generator), overlap=0.25, dtype=torch.bfloat16,
+                                         device="cpu")
+        t0 = time.perf_counter()
+        cpath = save_exported_corrector(tmp / "from_cpu", cpu_corr, CPU_EXPORT_VOLUME)
+        results["export_on_cpu_s"] = time.perf_counter() - t0
+        cart = load_exported_corrector(cpath)
+        if cart.platforms != ("cpu",) or cart.device.type != "cuda":
+            raise AssertionError(f"CPU artifact: platforms {cart.platforms}, device {cart.device}")
+        vol = rng.integers(-1024, 1500, CPU_EXPORT_VOLUME).astype(np.int16)
+        same_reply(cart(vol), live(vol), "CPU-exported artifact on the card 256x256x128")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        asrv.stop(drain_timeout=HTTP_TIMEOUT)
+    if direct_counts["block_conv3x3x3"] != SERVE_DIRECT_B1 or direct_counts["s2d_conv3d_block"] != SERVE_DIRECT_B1:
+        raise AssertionError(f"direct artifact: launches {direct_counts}, expected {SERVE_DIRECT_B1} B1 and B3")
+    print(f"export: {json.dumps(results)}; direct artifact launches {direct_counts}", flush=True)
+    return {torch.float32: direct_counts, torch.bfloat16: counts}, results
+
+
+def daemon_phases():
+    """Phases 30-31 (``--only serve``)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        tmp = Path(tmp)
+        ckpt = serve_checkpoint(tmp)
+        serve_launches, serve_results, live = serve_phase(tmp, ckpt)
+        export_launches, export_results = export_phase(tmp, ckpt, live)
+    return serve_launches, serve_results, export_launches, export_results
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
+    "serve": daemon_phases,
     "c3": c3_phase,
     "packed_ops": lambda: packed_ops_phase(torch.device("cuda"), torch.Generator().manual_seed(0)),
     "packed_serving": bare_packed_serving_phase,
@@ -3084,6 +3359,8 @@ def main(argv=None) -> int:
     c3 = c3_phase()
     cycles = {label: cycle_phase(name, label=label, **kw) for label, name, kw in CYCLE_RUNS}
     print(f"C3 and cycles: {time.perf_counter() - t_start:.1f} s", flush=True)
+    serve_launches, serve_results, export_launches, export_results = daemon_phases()
+    print(f"serve and export: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -3102,7 +3379,8 @@ def main(argv=None) -> int:
                    "models_2d": models_2d["launches"][key], "serving_2d": serving_2d["launches"][key],
                    "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key],
                    "cycles": sum(c["launches"][key] for r in cycles.values() for c in r["per_cycle"])
-                   if dtype == torch.bfloat16 else 0}
+                   if dtype == torch.bfloat16 else 0,
+                   "serve": serve_launches[dtype].get(key, 0), "export": export_launches[dtype].get(key, 0)}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -3115,7 +3393,7 @@ def main(argv=None) -> int:
         "serving_files": files_results, "small_patch": small_patch, "models_2d": models_2d,
         "serving_2d": serving_2d, "native_2d": native_2d, "augment_2d": augment_2d, "train_2d": train_2d,
         "fit_2d": fit_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm, "c3": c3,
-        "cycles": cycles,
+        "cycles": cycles, "serve": serve_results, "export": export_results,
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

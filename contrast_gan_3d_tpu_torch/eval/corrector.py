@@ -13,6 +13,7 @@ batches. Either way the f32 corrected HU volume comes back.
 """
 
 import logging
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -83,6 +84,16 @@ class CCTAContrastCorrector:
     Pass the generator plain: one built with ``packed_input`` or
     ``packed_output`` raises. ``batch_size`` None means the JAX choice: 24
     packed and 8 direct for 3D; for 2D 128 on the card and 8 on the CPU.
+
+    ``z_bucket`` > 0 edge-pads a volume's z extent up to the next multiple
+    of it, corrects, and crops back, as the JAX corrector does (a daemon
+    then sees few distinct shapes; ``serve`` defaults it to 64). For 2D
+    the padded slices are corrected on their own and cropped, so the
+    result is unchanged; in 3D the padded extent changes the patch grid
+    and with it the blend. 0, the default, corrects every extent as it
+    is. ``dispatched_shapes`` records each distinct (W, H, z) dispatched
+    after bucketing, once its correction has returned; read it under
+    ``_shapes_lock`` from other threads.
     """
 
     def __init__(
@@ -95,6 +106,7 @@ class CCTAContrastCorrector:
         layout: str = "auto",
         device="cuda",
         dtype: torch.dtype = torch.float32,
+        z_bucket: int = 0,
     ):
         self.device = resolve_device(device)
         if len(inference_patch_size) not in (2, 3):
@@ -115,6 +127,9 @@ class CCTAContrastCorrector:
         self.scaler = scaler
         self.inference_patch_size = tuple(inference_patch_size)
         self.overlap = overlap
+        self.z_bucket = int(z_bucket)
+        self.dispatched_shapes: set = set()
+        self._shapes_lock = threading.Lock()
         if batch_size is None:
             batch_size = (128 if self.device.type == "cuda" else 8) if self.is_2d else (24 if self.packed else 8)
         self.batch_size = batch_size
@@ -212,7 +227,24 @@ class CCTAContrastCorrector:
     def __call__(self, volume) -> torch.Tensor:
         """Correct one (W, H, D) HU volume (int16/float); f32 HU out, on
         ``self.device``."""
-        return self.correct_volume(volume)
+        return self.correct(volume)
+
+    def correct(self, volume) -> torch.Tensor:
+        """``__call__`` without its inference mode (``eval/export.py``
+        traces this under ``torch.no_grad``). ``pad`` is the one source of
+        both the padding and the recorded shape."""
+        volume = torch.as_tensor(volume)
+        d = volume.shape[2]
+        pad = self.z_bucket - d % self.z_bucket if self.z_bucket > 0 and d % self.z_bucket else 0
+        if pad:
+            volume = volume.to(self.device)
+            edge = volume[:, :, -1:].expand(-1, -1, pad)
+            corrected = self.correct_volume(torch.cat([volume, edge], dim=2))[:, :, :d]
+        else:
+            corrected = self.correct_volume(volume)
+        with self._shapes_lock:
+            self.dispatched_shapes.add((volume.shape[0], volume.shape[1], d + pad))
+        return corrected
 
     def correct_file(self, scan_path, out_path=None, meta=None) -> np.ndarray:
         """Load a scan file (``io_utils.load_scan``), correct it, and write

@@ -3,7 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface under ``build/torch_kernels/`` at the root of the checkout, and
 loads with ``ctypes``. A library newer than every source in ``csrc/`` is
-reused; a stale one is compiled again.
+reused; a stale one is compiled again. Builds and loads hold one lock, so
+two threads that reach a kernel first at once (the serving daemon's
+handlers) build it once.
 Nothing but the repo's own sources goes into a build.
 """
 
@@ -11,6 +13,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict
@@ -21,6 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -66,18 +70,18 @@ def _compile(name: str) -> None:
 
 def build_all() -> Dict[str, bool]:
     """Compile every stale ``csrc/*.cu``; returns {name: rebuilt}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    rebuilt = {}
-    for name in sorted(p.stem for p in CSRC.glob("*.cu")):
-        rebuilt[name] = _stale(name)
-        if rebuilt[name]:
-            _compile(name)
-    return rebuilt
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        rebuilt = {}
+        for name in sorted(p.stem for p in CSRC.glob("*.cu")):
+            rebuilt[name] = _stale(name)
+            if rebuilt[name]:
+                _compile(name)
+        return rebuilt
 
 
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built if stale)."""
-    if _stale(name):
-        build_all()
+    build_all()
     return ctypes.CDLL(str(library_path(name)))

@@ -34,6 +34,16 @@ XLA conv there, never a Pallas kernel). In bf16 both take dy rounded to
 bf16 and return bf16, as the VJP of XLA's bf16 conv does. On the CPU the
 forward and backward run the plain versions.
 
+The forward launch is the ``torch.library`` operator
+``contrast_gan_3d_torch::block_conv3x3x3`` (``block_conv_op``: the plain
+version as its CPU implementation, the counted launch as its CUDA one, a
+fake for shapes), which ``BlockConv3x3x3Function`` calls and which B1 and
+B2 call directly where no gradient is wanted; B3 without a gradient is the
+operator ``contrast_gan_3d_torch::s2d_conv3d_block``. ``torch.export``
+keeps operators whole, so an exported direct-layout correction
+(``eval/export.py``) runs these kernels on the card; importing this module
+registers them.
+
 Each wrapper counts, in its ``launches`` attribute, the times it launched
 the CUDA kernel (forward and backward); ``backward_launches`` counts the
 backward's share. A captured CUDA graph keeps the counts true through
@@ -69,6 +79,7 @@ _C_SYMBOLS = {
     ("zyx", torch.bfloat16): "block_conv3x3x3_v2_bf16",
 }
 ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
+OP_NAMESPACE = "contrast_gan_3d_torch"
 TF32_DROP = 0x1FFF  # the 13 low mantissa bits that TF32 does not keep
 
 
@@ -163,12 +174,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
             raise ValueError(f"{name} needs contiguous x and w")
 
 
-def _run(x: torch.Tensor, w_km: torch.Tensor, layout: str) -> torch.Tensor:
-    """One contraction with the K-major weight ``w_km`` (27, Co, Ci): the
-    plain version for a CPU tensor, one counted kernel launch for a CUDA
-    tensor (checked by ``_check``)."""
-    if x.device.type == "cpu":
-        return _reference(x, from_kmajor(w_km), layout)
+def _launch(x: torch.Tensor, w_km: torch.Tensor, layout: str) -> torch.Tensor:
+    """One counted kernel launch on CUDA tensors (checked by ``_check``)."""
     x, w_km = pad_channels(x, w_km)
     if x.data_ptr() % 16:  # a view at an odd offset; the copies are 16-byte
         x = x.clone()
@@ -191,6 +198,23 @@ def _run(x: torch.Tensor, w_km: torch.Tensor, layout: str) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::block_conv3x3x3", mutates_args=(), device_types="cpu")
+def block_conv_op(x: torch.Tensor, w_km: torch.Tensor, layout: str) -> torch.Tensor:
+    """One contraction with the K-major weight ``w_km`` (27, Co, Ci), as an
+    operator ``torch.export`` keeps whole: the plain version for a CPU
+    tensor, one counted kernel launch for a CUDA tensor; no other device."""
+    return _reference(x, from_kmajor(w_km), layout)
+
+
+block_conv_op.register_kernel("cuda")(_launch)
+
+
+@block_conv_op.register_fake
+def _(x, w_km, layout):
+    b, zi, d2, d3, _ = x.shape
+    return x.new_empty((b, zi - 2, d2 - 2, d3 - 2, w_km.shape[1]), dtype=torch.float32)
+
+
 class BlockConv3x3x3Function(torch.autograd.Function):
     """B1/B2 with a backward. ``apply(x, w, layout)``, layout ``"zxy"``
     (B1) or ``"zyx"`` (B2).
@@ -211,7 +235,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
     def forward(ctx, x, w, layout):
         ctx.layout = layout
         ctx.save_for_backward(x, w)
-        return _run(x, kmajor(w), layout)
+        return block_conv_op(x, kmajor(w), layout)
 
     @staticmethod
     @once_differentiable
@@ -222,7 +246,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
-            dx = _run(dy_pad, dx_weight(w), layout).to(x.dtype)
+            dx = block_conv_op(dy_pad, dx_weight(w), layout).to(x.dtype)
             if dx.is_cuda:
                 _WRAPPERS[layout].backward_launches += 1
         if ctx.needs_input_grad[1]:
@@ -250,14 +274,26 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, layout: str = "zxy") -> torch
 def block_conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """B1: VALID 3^3 conv, x (B, Z, X, Y, Ci) -> f32 (B, Z-2, X-2, Y-2, Co)."""
     _check(x, w, "block_conv3x3x3")
-    return BlockConv3x3x3Function.apply(x, w, "zxy")
+    return _contract(x, w, "zxy")
 
 
 def block_conv3x3x3_v2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """B2: VALID 3^3 conv, x (B, Z, Y, X, Ci) -> f32 (B, Z-2, Y-2, X-2, Co),
     w (3, 3, 3, Ci, Co) indexed [qx, qy, qz] as for B1."""
     _check(x, w, "block_conv3x3x3_v2")
-    return BlockConv3x3x3Function.apply(x, w, "zyx")
+    return _contract(x, w, "zyx")
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _contract(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
+    """Through ``BlockConv3x3x3Function`` where a gradient is wanted, else
+    the operator alone: what ``torch.export`` records, under no_grad."""
+    if _needs_grad(x, w):
+        return BlockConv3x3x3Function.apply(x, w, layout)
+    return block_conv_op(x, kmajor(w), layout)
 
 
 _WRAPPERS = {"zxy": block_conv3x3x3, "zyx": block_conv3x3x3_v2}
@@ -289,23 +325,31 @@ def s2d_conv3d_block(
     padding_mode: str = "zeros",
 ) -> torch.Tensor:
     """B3: drop-in for ``s2d_conv3d`` (stride 1, 3^3 block kernels — k in
-    5..8 at f=4) backed by B1; x (B, X, Y, Z, Ci), w (k, k, k, Ci, Co)."""
-    kx, ky, kz = w.shape[:3]
-    Ks = [_axis_map(k, f)[1] for k in (kx, ky, kz)]
-    B, X, Y, Z, ci = x.shape
-    if Ks != [3, 3, 3] or any(d % f for d in (X, Y, Z)):
+    5..8 at f=4) backed by B1; x (B, X, Y, Z, Ci), w (k, k, k, Ci, Co).
+    Where no gradient is wanted it runs as the operator
+    ``s2d_conv3d_block_op``, which ``torch.export`` keeps whole."""
+    Ks = [_axis_map(k, f)[1] for k in w.shape[:3]]
+    if Ks != [3, 3, 3] or any(d % f for d in x.shape[1:4]):
         return s2d_conv3d(x, w, bias, f=f, padding_mode=padding_mode)
+    check_padding_mode(padding_mode)
+    if _needs_grad(x, w, bias):
+        return _s2d_block(x, w, bias, f, padding_mode)
+    return s2d_conv3d_block_op(x, w, bias, f, padding_mode)
 
-    pads = [(k - 1) // 2 for k in (kx, ky, kz)]
+
+def _s2d_block(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f: int,
+               padding_mode: str) -> torch.Tensor:
+    """B3's glue around one B1 launch (counted here on the card): pad,
+    space-to-depth, B1, depth-to-space, bias in x's dtype."""
     mode = check_padding_mode(padding_mode)
+    kx, ky, kz = w.shape[:3]
+    B, X, Y, Z, ci = x.shape
+    pads = [(k - 1) // 2 for k in (kx, ky, kz)]
     xp = pad_spatial(x, [(p, p) for p in pads], mode)
     # right-pad bound as in the JAX wrapper: the padded length must divide f
     # AND give >= d/f + K - 1 blocks so the VALID block conv yields the full
     # output — even kernels (k=6: p=2) fall short of the second bound
-    extra = [
-        max((-(d + 2 * p)) % f, d + f * (K - 1) - (d + 2 * p))
-        for d, p, K in zip((X, Y, Z), pads, Ks)
-    ]
+    extra = [max((-(d + 2 * p)) % f, d + f * 2 - (d + 2 * p)) for d, p in zip((X, Y, Z), pads)]
     if any(extra):
         xp = pad_spatial(xp, [(0, e) for e in extra])
     xs = space_to_depth(xp, f)  # (B, Xb+2, Yb+2, Zb+2, f^3 ci)
@@ -320,6 +364,20 @@ def s2d_conv3d_block(
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+@torch.library.custom_op(f"{OP_NAMESPACE}::s2d_conv3d_block", mutates_args=(), device_types=("cpu", "cuda"))
+def s2d_conv3d_block_op(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f: int,
+                        padding_mode: str) -> torch.Tensor:
+    """B3 without a gradient, as one operator: ``_s2d_block``, whose B1 is
+    ``block_conv_op`` (the plain version on the CPU, the kernel on the
+    card)."""
+    return _s2d_block(x, w, bias, f, padding_mode)
+
+
+@s2d_conv3d_block_op.register_fake
+def _(x, w, bias, f, padding_mode):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]))
 
 
 s2d_conv3d_block.launches = 0
