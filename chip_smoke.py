@@ -4,6 +4,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --only cycle c3   # a partial run: no result lines
     python3 chip_smoke.py --only packed_ops packed_serving packed_train
+    python3 chip_smoke.py --only c6 preprocess resize learn
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -226,10 +227,11 @@ failure raises and exits non-zero):
     the card, ``/stats`` counts 3 requests over the shapes [[512, 512, 128],
     [512, 512, 192]]; no block-conv launch; a profile of one warm request
     from the client to its reply and 8 requests from 4 concurrent clients
-    (requests/s, p50 and max latency at the client), each with cuDNN's TF32
-    off (this script's setting) and on (PyTorch's default; the checkpoint's
-    generator computes in f32); then a direct-layout
-    daemon, unwarmed, for one 512x512x128 request: B1 and B3 launch 8 times
+    (requests/s, p50 and max latency at the client), each with the process's
+    cuDNN TF32 switch off (this script's setting) and on (PyTorch's
+    default, what a daemon started on its own runs with; since C6 the
+    service runs its f32 generator in full f32 under either); then a
+    direct-layout daemon, unwarmed, for one 512x512x128 request: B1 and B3 launch 8 times
     each in its handler thread (f32: the checkpoint's generator is f32),
     the reply equal to the in-process correction, the kernels not rebuilt;
 31. correction artifacts (``torch.export``): ``export_corrector`` writes the
@@ -241,6 +243,35 @@ failure raises and exits non-zero):
     exported on the CPU (256x256x128) loads onto the card
     (``move_to_device_pass``), equal to the live corrector. Export, load, first-call and warm-call
     seconds are printed.
+
+32. C6 (``--only c6``): one CT-like and one uniform-noise 512x512x128
+    volume through the f32 direct corrector (phase 3's weights) and through
+    ``serve``'s packed corrector (its f32 generator on bf16-rounded
+    patches), with cuDNN's TF32 on (PyTorch's default) and off: max |on -
+    off| in HU, the voxels over 0.1 HU, the int16 voxels that round apart;
+    then each entry point under PyTorch's default switches, bit-equal to
+    TF32 off (``utils/device.full_f32``), and its time beside the TF32-on
+    body's;
+33. offline preprocessing (``--only preprocess``): three CT-like
+    512x512x256 int16 raw scans at 0.39 x 0.39 x 0.625 mm, written
+    uncompressed, with ``vessel*.txt`` centerlines and ``ostia.xml``,
+    through ``preprocess.main --out-spacing 0.5`` on the card and with
+    ``--device cpu`` (399x399x320 patients): masks and meta bit-equal, scans
+    within 1 HU (voxels apart counted), the device ``sample_world_patch``
+    against the host ``extract_ostia_patch`` (19^3 at 0.5 mm, 1e-4 of
+    max|x|), ``trilinear_f32`` against the numpy engine (1e-5); seconds per
+    scan on each device and the resampler's ms alone;
+34. the resize branch (``--only resize``): phase 3's weights correct a
+    512x512x128 volume with 126^3 patches, direct f32 (the generator's
+    128^3 output resized back): one B1 and one B3 launch per forward, the
+    projection's route only, as JAX's wrapper routes it; the card against
+    the CPU at 96x96x64 with 62^3 patches within 0.5 HU;
+35. the learning check (``--only learn``): ``validate_learning.main`` with
+    the JAX record's recipe (800 iterations, cycles of 5, seed 3, eval
+    cohort 4) and ``eval_hu_shift`` on its lists, twice under deterministic
+    algorithms: the held-out LOW and HIGH scans must both move toward the
+    350-450 HU corridor, and the two runs must give the same summaries;
+    the port's numbers are printed beside the JAX record's.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -273,13 +304,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from contrast_gan_3d_tpu_torch import correct_scans, export_corrector, native, serve
+from contrast_gan_3d_tpu_torch import correct_scans, eval_hu_shift, export_corrector, native, preprocess, serve
+from contrast_gan_3d_tpu_torch import validate_learning
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D, warp2d_int16, warp_coords, \
     warp_int16
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
-from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
+from contrast_gan_3d_tpu_torch.data.preprocess import load_patient, write_patient
 from contrast_gan_3d_tpu_torch.data.sampler import crop_pad_int16_reference
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
 from contrast_gan_3d_tpu_torch.eval.export import ArtifactBundle, load_exported_corrector, save_exported_corrector
@@ -304,8 +336,11 @@ from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, reflect_pad, 
 from contrast_gan_3d_tpu_torch.ops.resample import (
     bilinear_sample,
     identity_grid,
+    make_volume_resampler,
     nearest_sample,
     nearest_sample_2d,
+    resample_output_shape,
+    sample_world_patch,
     trilinear_sample,
 )
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
@@ -315,7 +350,8 @@ from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, SCAN_TYPES, Trainer, TrainerConfig
-from contrast_gan_3d_tpu_torch.utils import io_utils
+from contrast_gan_3d_tpu_torch.utils import geometry, io_utils
+from contrast_gan_3d_tpu_torch.utils.device import tf32_flags
 from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint, save_reference_checkpoint
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
@@ -3068,9 +3104,10 @@ def serve_phase(tmp: Path, ckpt: Path):
         no_block_conv(counts, "serve (packed)")
         vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
         torch.backends.cudnn.deterministic = deterministic
-        # the checkpoint's generator computes in f32: timed with TF32 off,
-        # as this script runs, and with cuDNN's TF32 on, PyTorch's default
-        # (what a daemon started on its own runs with)
+        # the checkpoint's generator computes in f32: timed with the
+        # process's TF32 switches off, as this script runs, and with cuDNN's
+        # on, PyTorch's default (what a daemon started on its own runs
+        # with); the service runs in full f32 either way (C6)
         for tf32 in (False, True):
             label = "tf32_on" if tf32 else "tf32_off"
             torch.backends.cudnn.allow_tf32 = tf32
@@ -3187,6 +3224,348 @@ def daemon_phases():
     return serve_launches, serve_results, export_launches, export_results
 
 
+# --- C6, offline preprocessing, the resize branch, the learning check (32-35) ----
+
+C6_VOLUME = (512, 512, 128)
+C6_GATE_HU = 0.1  # the port's agreement with JAX on the corrected volume
+# PyTorch's default switches: cuDNN's TF32 on, cuBLAS's off
+TF32_DEFAULT = (True, False)
+
+
+def _set_tf32(flags):
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def c6_phase(tmp: Path):
+    """Phase 32 (``--only c6``): what TF32 does to the f32 correction. One
+    CT-like and one uniform-noise 512x512x128 int16 volume, corrected by
+    the f32 direct corrector (phase 3's weights, 128^3 patches, overlap
+    0.25, batch 8) and by ``serve``'s packed corrector (the checkpoint's f32
+    generator on bf16-rounded patches), each with cuDNN's TF32 on
+    (PyTorch's default) and off, under cuDNN's deterministic algorithms:
+    max |on - off| in HU, the share of voxels over 0.1 HU, the int16
+    voxels that round apart. Then the entry point, ``corrector(volume)``,
+    with the process's switches at PyTorch's default: bit-equal to TF32
+    off (``full_f32``). Then, with cuDNN free to choose, the entry point's
+    time beside the body's under PyTorch's default switches, in turns
+    (the repair's cost). Returns (f32 launches, results)."""
+    gen = seeded(ResnetGenerator(), 0)
+    srv = serve.build_server(serve.parse_args([str(serve_checkpoint(tmp)), "--host", "127.0.0.1", "--port", "0"]))
+    correctors = {
+        "f32_direct": CCTAContrastCorrector(gen, inference_patch_size=(128, 128, 128), overlap=0.25,
+                                            batch_size=BATCH, layout="direct"),
+        "serve_packed_bf16_patches": srv.service.corrector,
+    }
+    rng = np.random.default_rng(32)
+    volumes = {"ct_like": ct_like(rng, C6_VOLUME, 0.5),
+               "uniform": rng.integers(-1024, 1500, C6_VOLUME).astype(np.int16)}
+    flags, deterministic = tf32_flags(), torch.backends.cudnn.deterministic
+    results, launches, direct_calls = {}, {}, 0
+    torch.backends.cudnn.deterministic = True
+    try:
+        for cname, corr in correctors.items():
+            for vname, vol in volumes.items():
+                out = {}
+                for label, switches in (("tf32_on", TF32_DEFAULT), ("tf32_off", (False, False))):
+                    _set_tf32(switches)
+                    with torch.inference_mode():
+                        out[label] = launches_during(lambda: corr.correct(vol), launches)
+                _set_tf32(TF32_DEFAULT)
+                entry = launches_during(lambda: corr(vol), launches)
+                _set_tf32(TF32_DEFAULT)
+                direct_calls += 3 * (cname == "f32_direct")
+                if not torch.equal(entry, out["tf32_off"]) or tf32_flags() != TF32_DEFAULT:
+                    raise AssertionError(f"c6 {cname} {vname}: the entry point does not run TF32 off, or left "
+                                         f"the switches at {tf32_flags()}")
+                diff = (out["tf32_on"] - out["tf32_off"]).abs()
+                r = dict(max_abs_hu=diff.max().item(), share_over_gate=(diff > C6_GATE_HU).float().mean().item(),
+                         voxels_over_gate=int((diff > C6_GATE_HU).sum().item()),
+                         int16_voxels_apart=int((device_int16(out["tf32_on"]) != device_int16(out["tf32_off"]))
+                                                .sum().item()))
+                results[f"{cname}/{vname}"] = r
+                shape = "x".join(map(str, C6_VOLUME))
+                print(f"c6 {cname} {vname} {shape}: max |tf32 on - off| = {r['max_abs_hu']:.4f} HU, "
+                      f"{r['voxels_over_gate']} voxels ({r['share_over_gate']:.3e}) over {C6_GATE_HU} HU, "
+                      f"{r['int16_voxels_apart']} int16 voxels apart", flush=True)
+        # the repair's cost, with cuDNN free to choose (as the entry points
+        # run by default): the entry point (full f32) against the body under
+        # PyTorch's default switches, in turns, 3 rounds after a warm call
+        torch.backends.cudnn.deterministic = deterministic
+        _set_tf32(TF32_DEFAULT)
+        for cname, corr in correctors.items():
+            vol, times = volumes["ct_like"], {"entry_point_s": [], "tf32_on_body_s": []}
+            calls = {"entry_point_s": lambda: corr(vol), "tf32_on_body_s": lambda: corr.correct(vol)}
+            for i in range(4):
+                for label in (("entry_point_s", "tf32_on_body_s") if i % 2 else ("tf32_on_body_s", "entry_point_s")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        calls[label]()
+                    torch.cuda.synchronize()
+                    if i:
+                        times[label].append(time.perf_counter() - t0)
+            cost = {label: statistics.median(t) for label, t in times.items()}
+            results[f"{cname}/ct_like"].update(cost)
+            print(f"c6 {cname}: s per {'x'.join(map(str, C6_VOLUME))} volume, cuDNN free: entry point (full f32) "
+                  f"{cost['entry_point_s']:.4f}, TF32-on body {cost['tf32_on_body_s']:.4f}", flush=True)
+    finally:
+        _set_tf32(flags)
+        torch.backends.cudnn.deterministic = deterministic
+    # 2 B1 (and B3) launches per forward: 8 per direct 512x512x128 call
+    want = 2 * -(-num_patches(C6_VOLUME, (128, 128, 128), 0.25) // BATCH) * direct_calls
+    if launches["block_conv3x3x3"] != want or launches["s2d_conv3d_block"] != want:
+        raise AssertionError(f"c6: launches {launches}, expected {want} B1 and B3 (the direct corrector only)")
+    return launches, results
+
+
+PRE_SHAPE = (512, 512, 256)
+PRE_SPACING = (0.39, 0.39, 0.625)
+PRE_OUT_SPACING = 0.5
+PRE_SCANS = 3
+OSTIA_SIZE, OSTIA_SPACING = (19, 19, 19), 0.5
+# the device world patch computes its coordinates in f32, the host engine
+# in f64: a few 1e-5 voxel apart at these extents, times up to ~2500 HU
+# per voxel
+WORLD_PATCH_REL = 1e-4
+
+
+def raw_scan_cohort(root: Path, rng):
+    """``PRE_SCANS`` CT-like 512x512x256 int16 scans at 0.39 x 0.39 x 0.625
+    mm, written uncompressed, each with two ``vessel*.txt`` centerlines
+    (rows ``x y z r`` in world mm) and an ``ostia.xml`` of their first
+    points, in validate_learning's raw format."""
+    root.mkdir(parents=True, exist_ok=True)
+    extent = np.asarray(PRE_SHAPE) * PRE_SPACING
+    for i in range(PRE_SCANS):
+        origin = np.array([-100.0 + 7.5 * i, -120.0, -310.0 + 2.5 * i])
+        io_utils.write_mhd(ct_like(rng, PRE_SHAPE, float(i)), root / f"scan{i}.mhd", spacing=PRE_SPACING,
+                           origin=origin, compress=False)
+        pdir = root / f"scan{i}"
+        pdir.mkdir(exist_ok=True)
+        t = np.linspace(0, 1, 200)[:, None]
+        first = []
+        for v in range(2):
+            frac = np.concatenate([0.25 + 0.5 * t, 0.5 + 0.2 * np.sin(2 * np.pi * t + v), 0.15 + 0.7 * t], -1)
+            pts = origin + frac * extent
+            np.savetxt(pdir / f"vessel{v}.txt", np.concatenate([pts, np.full((len(pts), 1), 1.5)], -1))
+            first.append(pts[0])
+        (pdir / "ostia.xml").write_text("<XMarkerList><ListSize>2</ListSize>"
+                                        + "".join(f"<pos>{x} {y} {z}</pos>" for x, y, z in first)
+                                        + "</XMarkerList>")
+
+
+def _same_meta(a: dict, b: dict, what: str):
+    if sorted(a) != sorted(b) or any(
+            not (np.array_equal(a[k], b[k]) if isinstance(b[k], np.ndarray) else a[k] == b[k]) for k in b):
+        raise AssertionError(f"{what}: meta differs: {a} against {b}")
+
+
+def preprocess_phase(tmp: Path):
+    """Phase 33 (``--only preprocess``): the port's ``preprocess`` command
+    on a raw cohort at scan size (``raw_scan_cohort``) with ``--out-spacing
+    0.5`` (399x399x320 patients), on the card and with ``--device cpu``:
+    3 patients each; mask and meta bit-equal; the scans within 1 HU (the
+    count of voxels apart printed); the device ``sample_world_patch``
+    against the host ``extract_ostia_patch`` on the card's patients (19^3
+    at 0.5 mm, within 1e-4 of max|x|); the native ``trilinear_f32`` against
+    the numpy engine (rtol = atol = 1e-5). Seconds per scan on each device,
+    and the resampler's alone."""
+    rng = np.random.default_rng(33)
+    t0 = time.perf_counter()
+    raw_scan_cohort(tmp / "raw", rng)
+    results = dict(write_raw_cohort_s=time.perf_counter() - t0)
+    written = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        written[device] = preprocess.main([str(tmp / "raw"), str(tmp / device), "--out-spacing", str(PRE_OUT_SPACING),
+                                           "--device", device])
+        torch.cuda.synchronize()
+        results[f"{device}_s_per_scan"] = (time.perf_counter() - t0) / PRE_SCANS
+        if [p.name for p in written[device]] != [f"scan{i}.npy" for i in range(PRE_SCANS)]:
+            raise AssertionError(f"preprocess --device {device} wrote {written[device]}")
+    want_shape = resample_output_shape(PRE_SHAPE, PRE_SPACING, PRE_OUT_SPACING)
+    apart, patch_err, tri_err = [], 0.0, 0.0
+    for card_path, cpu_path in zip(written["cuda"], written["cpu"]):
+        card, card_meta = load_patient(card_path)
+        cpu, cpu_meta = load_patient(cpu_path)
+        if card.shape != (*want_shape, 2) or cpu.shape != card.shape:
+            raise AssertionError(f"preprocess {card_path.name}: shapes {card.shape} / {cpu.shape}, want {want_shape}")
+        _same_meta(card_meta, cpu_meta, card_path.name)
+        if not np.array_equal(card[..., 1], cpu[..., 1]) or not card[..., 1].any():
+            raise AssertionError(f"preprocess {card_path.name}: the card's mask differs from the CPU's (or is empty)")
+        diff = np.abs(card[..., 0].astype(np.int32) - cpu[..., 0])
+        apart.append(int((diff != 0).sum()))
+        if diff.max() > 1:
+            raise AssertionError(f"preprocess {card_path.name}: card and CPU scans {diff.max()} HU apart")
+        scan = np.ascontiguousarray(card[..., 0])
+        host = geometry.extract_ostia_patch(scan, card_meta["ostia_world"], card_meta["offset"], card_meta["spacing"],
+                                            OSTIA_SIZE, np.full(3, OSTIA_SPACING))
+        dev = sample_world_patch(torch.from_numpy(scan).cuda(), card_meta["ostia_world"] - card_meta["offset"],
+                                 card_meta["spacing"], OSTIA_SIZE, np.full(3, OSTIA_SPACING)).cpu().numpy()
+        err = np.abs(dev - host).max() / np.abs(host).max()
+        patch_err = max(patch_err, float(err))
+        if not err <= WORLD_PATCH_REL:
+            raise AssertionError(f"preprocess {card_path.name}: device world patch {err:.3e} of max|x| from the host's")
+        vol32 = scan.astype(np.float32)
+        coords = [rng.uniform(-4, n + 3, 100_000).astype(np.float32) for n in scan.shape]
+        got = native.trilinear_f32(vol32, *coords)
+        want = geometry.trilinear_interpolate(vol32, *coords)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        tri_err = max(tri_err, float(np.abs(got - want).max()))
+    # the resampler alone on one raw scan: CUDA events on the card, the host
+    # clock on the CPU
+    raw, meta = io_utils.load_scan(tmp / "raw" / "scan0.mhd")
+    for device in ("cuda", "cpu"):
+        fn, _ = make_volume_resampler(raw.shape, meta["spacing"], PRE_OUT_SPACING, device=device)
+        vol = torch.from_numpy(raw)
+        if device == "cuda":
+            vol = vol.cuda()
+            results["resample_ms_cuda"] = median_ms(lambda: fn(vol), reps=5, warmup=1)
+        else:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn(vol)
+                times.append(time.perf_counter() - t0)
+            results["resample_ms_cpu"] = 1e3 * statistics.median(times)
+    results.update(patients=PRE_SCANS, patient_shape=list(want_shape), voxels_apart_by_scan=apart,
+                   voxels_per_scan=int(np.prod(want_shape)), world_patch_max_rel_err=patch_err,
+                   trilinear_f32_max_abs_err=tri_err)
+    print(f"preprocess: {json.dumps(results)}", flush=True)
+    return results
+
+
+RESIZE_PATCH, RESIZE_PARITY_PATCH = (126, 126, 126), (62, 62, 62)
+RESIZE_VOLUME, RESIZE_PARITY_VOLUME = (512, 512, 128), (96, 96, 64)
+
+
+def resize_phase():
+    """Phase 34 (``--only resize``): the resize branch. Phase 3's weights
+    correct a 512x512x128 int16 volume with 126^3 patches (overlap 0.25,
+    batch 8; ``layout="auto"`` resolves direct, as in JAX): the generator's
+    ceil-rounded 128^3 output is resized back to 126^3. As JAX's wrapper
+    routes them, the 126^3 stem takes the plain conv (126 % 4 != 0) and the
+    128^3 projection B3 -> B1: one B1 and one B3 launch per forward. Then
+    96x96x64 with 62^3 patches on the card and on the CPU within 0.5 HU.
+    Returns (f32 launches, results)."""
+    gen = seeded(ResnetGenerator(), 0)
+    state = {k: v.clone() for k, v in gen.state_dict().items()}
+    corr = CCTAContrastCorrector(gen, inference_patch_size=RESIZE_PATCH, overlap=0.25, batch_size=BATCH)
+    if corr.packed:
+        raise AssertionError("resize: 126^3 patches resolved the packed layout")
+    rng = np.random.default_rng(34)
+    vol = rng.integers(-1024, 1500, RESIZE_VOLUME).astype(np.int16)
+    forwards = -(-num_patches(RESIZE_VOLUME, RESIZE_PATCH, 0.25) // BATCH)
+    launches = {}
+    t0 = time.perf_counter()
+    launches_during(lambda: corr(vol), launches)
+    first_s = time.perf_counter() - t0
+    want = dict(block_conv3x3x3=forwards, s2d_conv3d_block=forwards, block_conv3x3x3_v2=0,
+                block_conv3x3x3_backward=0)
+    if launches != want:
+        raise AssertionError(f"resize: launches {launches}, expected {want} (the projection's route only)")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = corr(vol)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    delta = (out.cpu() - torch.from_numpy(vol).float()).abs().max().item()
+    if tuple(out.shape) != vol.shape or not torch.isfinite(out).all() or not delta < 600.0 + 1e-2:
+        raise AssertionError(f"resize: corrected volume {tuple(out.shape)}, max |correction| {delta}")
+    small = rng.integers(-1024, 1500, RESIZE_PARITY_VOLUME).astype(np.int16)
+    kw = dict(inference_patch_size=RESIZE_PARITY_PATCH, overlap=0.25, batch_size=BATCH)
+    on_card = CCTAContrastCorrector(gen, **kw)(small).cpu()
+    gen_cpu = ResnetGenerator()
+    gen_cpu.load_state_dict(state, strict=True)
+    diff = (on_card - CCTAContrastCorrector(gen_cpu, device="cpu", **kw)(small)).abs().max().item()
+    if not diff <= PATH_TOL_HU:
+        raise AssertionError(f"resize: card and CPU corrections differ by {diff} HU")
+    results = dict(patches=num_patches(RESIZE_VOLUME, RESIZE_PATCH, 0.25), forwards=forwards, launches=launches,
+                   first_call_s=first_s, warm_s_per_volume=statistics.median(times), parity_max_abs_hu=diff)
+    print(f"resize: {json.dumps(results)}", flush=True)
+    return launches, results
+
+
+LEARN_ARGV = ["--iterations", "800", "--cycle-length", "5", "--seed", "3", "--eval-cohort", "4"]
+# the JAX package's record of the same recipe (reports/synthetic_study/:
+# validate_learning.json and hu_shift_corrected.json, made on the CPU)
+JAX_LEARN = {"centerline_mean_hu_before": 249.8, "centerline_mean_hu_after": 364.6,
+             "high_centerline_mean_hu_before": 550.0, "high_centerline_mean_hu_after": 491.8,
+             "corrected_low_centerline_mean": 361.3}
+# the same recipe at other training seeds (no eval cohort): the spread the
+# seed-3 figures sit in (the JAX record names about 80 HU across seeds)
+LEARN_SWEEP_SEEDS = (0, 1, 2, 4, 5, 6)
+
+
+def learn_phase(tmp: Path):
+    """Phase 35 (``--only learn``): the port learns the correction.
+    ``validate_learning.main`` on the card with the recipe of the JAX
+    record (800 iterations in cycles of 5, seed 3, 4 held-out LOW scans;
+    basic_3d's bf16 training, the f32 corrector), then ``eval_hu_shift`` on
+    its lists, twice, under cuDNN's and torch's deterministic algorithms.
+    Gate: the held-out LOW and HIGH scans both move toward the 350-450 HU
+    corridor; the two runs give the same summaries. Prints the port's
+    numbers beside the JAX record's, and the recipe's results at six other
+    training seeds (``LEARN_SWEEP_SEEDS``, no gate)."""
+    deterministic, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = []
+    zero_counts()
+    try:
+        for i in range(2):
+            wd = tmp / f"learn{i}"
+            t0 = time.perf_counter()
+            summary = validate_learning.main([*LEARN_ARGV, "--workdir", str(wd), "--out", str(wd / "summary.json")])
+            seconds = time.perf_counter() - t0
+            hu = eval_hu_shift.main([str(wd / "original_list.json"), str(wd / "hu_shift"), "--tag", "original",
+                                     "--workers", "4", "--series", f"corrected={wd / 'corrected_list.json'}"])
+            summary.pop("eval_lists")
+            runs.append(dict(summary=summary, hu_shift=hu, seconds=seconds))
+            print(f"learn run {i}: {seconds:.1f} s; {json.dumps(summary)}; corrected LOW centerlines "
+                  f"{json.dumps(hu['corrected']['LOW/centerlines'])}", flush=True)
+        sweep = {}
+        for seed in LEARN_SWEEP_SEEDS:
+            argv = [a if LEARN_ARGV[i - 1] != "--seed" else str(seed) for i, a in enumerate(LEARN_ARGV)]
+            got = validate_learning.main([*argv[:argv.index("--eval-cohort")], "--workdir", str(tmp / f"seed{seed}")])
+            sweep[seed] = {k: got[k] for k in ("centerline_mean_hu_after", "high_centerline_mean_hu_after",
+                                               "moved_toward_corridor", "high_moved_toward_corridor")}
+        print(f"learn: other training seeds, the same recipe {json.dumps(sweep)}", flush=True)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(algorithms)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+    launches = no_block_conv(read_counts(), "learn (packed)")
+    summary = runs[0]["summary"]
+    port = {k: summary[k] for k in JAX_LEARN if k in summary}
+    port["corrected_low_centerline_mean"] = round(runs[0]["hu_shift"]["corrected"]["LOW/centerlines"]["mean"], 1)
+    print(f"learn: port on the card {json.dumps(port)}; JAX record {json.dumps(JAX_LEARN)}", flush=True)
+    if not (summary["moved_toward_corridor"] and summary["high_moved_toward_corridor"]):
+        raise AssertionError(f"learn: the held-out scans did not both move toward the corridor: {summary}")
+    if runs[1]["summary"] != summary or runs[1]["hu_shift"] != runs[0]["hu_shift"]:
+        raise AssertionError(f"learn: two runs differ: {runs[0]} against {runs[1]}")
+    return launches, dict(runs=runs, port=port, jax_record=JAX_LEARN, repeats=True, other_seeds=sweep)
+
+
+def slice_11_phases():
+    """Phases 32-35."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s11_") as tmp:
+        tmp = Path(tmp)
+        c6_launches, c6 = c6_phase(tmp)
+        pre = preprocess_phase(tmp)
+        resize_launches, resize = resize_phase()
+        learn_launches, learn = learn_phase(tmp)
+    return dict(c6=(c6_launches, c6), preprocess=pre, resize=(resize_launches, resize),
+                learn=(learn_launches, learn))
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -3198,6 +3577,10 @@ ONLY = {
     "small_patch": lambda: (small_patch_phase(), small_patch_phase(name="gp_layernorm")),
     "fit": lambda: bare_fit_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_"))),
     "fit_2d": lambda: fit_2d_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))),
+    "c6": lambda: c6_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_c6_"))),
+    "preprocess": lambda: preprocess_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_pre_"))),
+    "resize": resize_phase,
+    "learn": lambda: learn_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_learn_"))),
 }
 
 
@@ -3361,6 +3744,8 @@ def main(argv=None) -> int:
     print(f"C3 and cycles: {time.perf_counter() - t_start:.1f} s", flush=True)
     serve_launches, serve_results, export_launches, export_results = daemon_phases()
     print(f"serve and export: {time.perf_counter() - t_start:.1f} s", flush=True)
+    s11 = slice_11_phases()
+    print(f"C6, preprocess, resize, learn: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -3380,7 +3765,12 @@ def main(argv=None) -> int:
                    "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key],
                    "cycles": sum(c["launches"][key] for r in cycles.values() for c in r["per_cycle"])
                    if dtype == torch.bfloat16 else 0,
-                   "serve": serve_launches[dtype].get(key, 0), "export": export_launches[dtype].get(key, 0)}
+                   "serve": serve_launches[dtype].get(key, 0), "export": export_launches[dtype].get(key, 0),
+                   # C6's and the resize branch's correctors are f32 direct;
+                   # preprocessing has no generator, the learning run is packed
+                   "c6": s11["c6"][0][key] if dtype == torch.float32 else 0,
+                   "resize": s11["resize"][0][key] if dtype == torch.float32 else 0,
+                   "learn": s11["learn"][0][key] if dtype == torch.bfloat16 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -3393,7 +3783,8 @@ def main(argv=None) -> int:
         "serving_files": files_results, "small_patch": small_patch, "models_2d": models_2d,
         "serving_2d": serving_2d, "native_2d": native_2d, "augment_2d": augment_2d, "train_2d": train_2d,
         "fit_2d": fit_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm, "c3": c3,
-        "cycles": cycles, "serve": serve_results, "export": export_results,
+        "cycles": cycles, "serve": serve_results, "export": export_results, "c6": s11["c6"][1],
+        "preprocess": s11["preprocess"], "resize": s11["resize"][1], "learn": s11["learn"][1],
     }))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,22 +1,63 @@
-"""Preprocessed patients on disk (counterpart of ``write_patient`` /
-``load_patient`` in ``contrast_gan_3d_tpu/data/preprocess.py``): one
-(W, H, D, 2) int16 ``<name>.npy`` (scan, centerline mask) and a
-``<name>_meta.pkl`` metadata pickle (spacing, offset, centerlines, name).
-The HDF5 format is not ported (no h5py on the card's machine; ROADMAP)."""
+"""Offline preprocessing: raw scans to patients (counterpart of
+``contrast_gan_3d_tpu/data/preprocess.py``).
 
+``create_patient`` loads a scan with its centerline point clouds and ostia
+markers, optionally resamples it to ``out_spacing`` on the card
+(``ops/resample.resample_volume``), rasterizes the centerlines into a mask
+on the final grid from their world coordinates (no mask interpolation),
+and writes one (W, H, D, 2) int16 ``<name>.npy`` (scan, centerline mask)
+with a ``<name>_meta.pkl`` metadata pickle (spacing, offset, ostia,
+centerlines, name). ``load_patient`` memory-maps it back, so training reads
+only the cropped pages. The HDF5 format is not ported: the card's machine
+has no h5py (ROADMAP.md, queue A item 6).
+"""
+
+import logging
 import pickle
 from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 
-from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
+from contrast_gan_3d_tpu_torch.ops.resample import resample_volume
+from contrast_gan_3d_tpu_torch.utils import geometry as geom
+from contrast_gan_3d_tpu_torch.utils import io_utils
 
+logger = logging.getLogger(__name__)
+
+HDF5_NOTE = "not ported: HDF5 needs h5py, which the card's machine lacks (ROADMAP.md, queue A item 6)"
 
 
 def _is_hdf5(path) -> bool:
     s = str(path)
     return "::" in s or s.lower().endswith((".h5", ".hdf5"))
+
+
+def create_patient(ccta_path, centerlines_dir, ostia_path, out_dir, out_spacing=None, fmt: str = "npy",
+                   device="cuda") -> Path:
+    """Preprocess one patient into ``<out_dir>/<name>.npy`` +
+    ``<name>_meta.pkl``; returns the ``.npy`` path.
+
+    ``out_spacing`` (a scalar or per-axis mm, optional) resamples the scan
+    on ``device`` (the card unless the caller names the CPU; it is used
+    only to resample) before the mask is rasterized; the default keeps the
+    native spacing, as the reference does."""
+    if fmt != "npy" or _is_hdf5(out_dir):
+        raise NotImplementedError(f"patient format {fmt!r} / HDF5 corpora are {HDF5_NOTE}")
+    logger.info("Preprocessing '%s'...", ccta_path)
+    volume, meta = io_utils.load_scan(ccta_path)  # (W, H, D) int16
+    ostia_world, _ = io_utils.load_mevis_coords(ostia_path)  # (2, 3)
+    centerlines_world = io_utils.load_centerlines(centerlines_dir)  # (N, 4)
+    if out_spacing is not None:
+        out_spacing = np.broadcast_to(np.asarray(out_spacing, np.float64), (3,)).copy()
+        volume = resample_volume(volume, meta["spacing"], out_spacing, device=device)
+        meta = dict(meta) | {"spacing": out_spacing}
+    mask = geom.world_to_grid_coords(centerlines_world[..., :3], meta["offset"], meta["spacing"], volume.shape)
+    name = io_utils.stem(ccta_path)
+    meta = dict(meta) | {"ostia_world": ostia_world, "centerlines_world": centerlines_world}
+    out_path = write_patient(volume, mask, meta, name, out_dir)
+    logger.info("Created patient '%s'", out_path)
+    return out_path
 
 
 def write_patient(volume: np.ndarray, centerlines_mask: np.ndarray, meta: Dict, name: str, out_dir,
@@ -25,7 +66,7 @@ def write_patient(volume: np.ndarray, centerlines_mask: np.ndarray, meta: Dict, 
     ``.npy`` path."""
     out_dir = Path(out_dir)
     if fmt != "npy" or _is_hdf5(out_dir):
-        raise NotImplementedError(f"patient format {fmt!r} / HDF5 corpora are {ROADMAP_NOTE}")
+        raise NotImplementedError(f"patient format {fmt!r} / HDF5 corpora are {HDF5_NOTE}")
     out_dir = out_dir.resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
     scan_and_mask = np.stack([volume.astype(np.int16), centerlines_mask.astype(np.int16)], axis=-1)
@@ -40,7 +81,7 @@ def load_patient(patient_path) -> Tuple[np.ndarray, Dict]:
     """mmap-load a preprocessed patient: ((W, H, D, 2) memmap, meta); the
     path may carry the ``.npy`` suffix or not."""
     if _is_hdf5(patient_path):
-        raise NotImplementedError(f"HDF5 patients are {ROADMAP_NOTE}")
+        raise NotImplementedError(f"HDF5 patients are {HDF5_NOTE}")
     path = str(patient_path)
     if path.endswith(".npy"):
         path = path[: -len(".npy")]

@@ -27,7 +27,7 @@ from contrast_gan_3d_tpu_torch.models.utils import derive_generator_arch
 from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.utils import io_utils
-from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
 from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -226,13 +226,16 @@ class CCTAContrastCorrector:
     @torch.inference_mode()
     def __call__(self, volume) -> torch.Tensor:
         """Correct one (W, H, D) HU volume (int16/float); f32 HU out, on
-        ``self.device``."""
-        return self.correct(volume)
+        ``self.device``. f32 convolutions run in full f32, whatever the
+        process's TF32 switches (``utils/device.full_f32``)."""
+        with full_f32():
+            return self.correct(volume)
 
     def correct(self, volume) -> torch.Tensor:
-        """``__call__`` without its inference mode (``eval/export.py``
-        traces this under ``torch.no_grad``). ``pad`` is the one source of
-        both the padding and the recorded shape."""
+        """``__call__`` without its inference mode and its f32 scope
+        (``eval/export.py`` traces this under ``torch.no_grad``; the
+        artifact sets the scope when it runs). ``pad`` is the one source
+        of both the padding and the recorded shape."""
         volume = torch.as_tensor(volume)
         d = volume.shape[2]
         pad = self.z_bucket - d % self.z_bucket if self.z_bucket > 0 and d % self.z_bucket else 0

@@ -28,7 +28,7 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 from contrast_gan_3d_tpu_torch.ops import block_conv  # noqa: F401  (registers the block-conv operators)
-from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
 
 ARTIFACT_SUFFIX = ".pt2corr"
 
@@ -103,7 +103,9 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 class ExportedCorrector:
     """A loaded correction artifact: checks a volume against the exported
-    contract, then runs the traced program on ``device``."""
+    contract, then runs the traced program on ``device``, its f32
+    convolutions in full f32 (``utils/device.full_f32``: the TF32 switches
+    act when a program runs, not when it is traced)."""
 
     def __init__(self, program, meta: dict, device: torch.device):
         self._module = program.module()
@@ -127,7 +129,7 @@ class ExportedCorrector:
                 info = torch.iinfo(self.in_dtype)
                 volume = torch.round(volume).clamp_(info.min, info.max)
             volume = volume.to(self.in_dtype)
-        with torch.no_grad():
+        with torch.no_grad(), full_f32():
             return self._module(volume)
 
 

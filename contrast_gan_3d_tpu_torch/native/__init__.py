@@ -1,7 +1,8 @@
 """The host data ops in C++ (the port's copy of ``contrast_gan_3d_tpu/native``):
 the sampler's zero-filled crop, the fused affine + elastic warp of the 3D
 host augmentation and the 2D family's rotate + mirror slice warp, which run
-in the loaders' worker threads.
+in the loaders' worker threads, and the geometry engine's trilinear
+interpolation.
 
 ``csrc/hostops.cpp`` (a verbatim copy of the JAX package's source) is
 compiled at first use with ``g++ -O3 -march=native -shared -fPIC -fopenmp``
@@ -14,9 +15,8 @@ Where the compiler has no OpenMP the build is retried without
 ``-fopenmp`` and :func:`warp_num_threads` reports 1. A failed build raises
 with the compiler's output; nothing falls back to another warp.
 
-Bound: ``crop_pad_int16``, ``warp_augment_int16``, ``warp_augment2d_int16``
-and ``warp_num_threads``. ``trilinear_f32`` stays unbound until its
-consumer, the ostia labelling, is ported (ROADMAP, A14).
+Bound: ``crop_pad_int16``, ``warp_augment_int16``, ``warp_augment2d_int16``,
+``warp_num_threads`` and ``trilinear_f32``.
 """
 
 import ctypes
@@ -112,6 +112,11 @@ def load() -> ctypes.CDLL:
                 ctypes.c_long, ctypes.c_long, ctypes.c_long,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            lib.trilinear_f32.restype = None
+            lib.trilinear_f32.argtypes = [
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
             ]
             lib.warp_augment2d_int16.restype = None
             lib.warp_augment2d_int16.argtypes = [
@@ -222,3 +227,21 @@ def warp_augment2d_int16(scan: np.ndarray, seg: np.ndarray, affine: np.ndarray):
 
 
 warp_augment2d_int16.calls = 0
+
+
+def trilinear_f32(volume: np.ndarray, xs: np.ndarray, ys: np.ndarray, zs: np.ndarray) -> np.ndarray:
+    """Trilinear samples of a (W, H, D) volume, as f32, at the fractional
+    voxel coordinates ``xs``, ``ys``, ``zs`` (flattened): the native
+    ``utils/geometry.trilinear_interpolate`` (truncated base, the +1
+    neighbour clipped on its own, extrapolating near the border)."""
+    lib = load()
+    vol = np.ascontiguousarray(volume, dtype=np.float32)
+    if vol.ndim != 3:
+        raise ValueError(f"trilinear_f32 takes a (W, H, D) volume, got {vol.shape}")
+    xs, ys, zs = (np.ascontiguousarray(c, dtype=np.float32).ravel() for c in (xs, ys, zs))
+    if not xs.shape == ys.shape == zs.shape:
+        raise ValueError(f"trilinear_f32: coordinate counts {xs.shape}, {ys.shape}, {zs.shape}")
+    out = np.empty(xs.shape, np.float32)
+    lib.trilinear_f32(vol.ctypes.data, *(int(d) for d in vol.shape), xs.ctypes.data, ys.ctypes.data,
+                      zs.ctypes.data, len(xs), out.ctypes.data)
+    return out

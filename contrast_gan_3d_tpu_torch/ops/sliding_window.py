@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
+from contrast_gan_3d_tpu_torch.ops.resample import resize_linear
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -156,11 +157,10 @@ def make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype):
         ])
         atten = generator_apply(patches[:, None].to(dtype))[:, 0]
         if tuple(atten.shape[1:]) != patch_size:
-            # the JAX version resizes a ceil-rounded generator output back
-            raise NotImplementedError(
-                f"generator output {tuple(atten.shape[1:])} != patch {patch_size}: "
-                "the resize branch is not ported yet; see ROADMAP.md"
-            )
+            # a patch the generator does not divide: its output is
+            # ceil-rounded, resized back in the generator's dtype before the
+            # f32 cast, as jax.image.resize(method="trilinear") does in JAX
+            atten = resize_linear(atten[..., None], patch_size)[..., 0]
         atten = atten.float()
         for i, (x, y, z) in enumerate(starts):
             acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * gw
@@ -214,7 +214,10 @@ def make_volume_corrector(
     (``ResnetGenerator.forward_packed(x, True, True)``). The attenuation is
     cast to f32 before the blend. ``volume``: a (W, H, D) HU array or
     tensor (int16/float), scaled in f32; the result is an f32 HU tensor on
-    ``device``. Patch sizes must divide 4 with ``packed_io``.
+    ``device``. Patch sizes must divide 4 with ``packed_io``. In the direct
+    layout a patch size the generator does not divide gives a ceil-rounded
+    attenuation, resized back to the patch (``resample.resize_linear``,
+    antialiased when it shrinks).
     """
     device = resolve_device(device)
     patch_size, stride = plan_stride(patch_size, overlap, packed_io)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from contrast_gan_3d_tpu_torch.eval.utils import device_int16
+from contrast_gan_3d_tpu_torch.utils.device import full_f32
 
 logger = logging.getLogger(__name__)
 
@@ -49,7 +50,9 @@ def _host(corrected) -> np.ndarray:
 
 
 class CorrectionService:
-    """Wraps a corrector with warmup, device serialization and stats."""
+    """Wraps a corrector with warmup, device serialization and stats. Its
+    device work runs in full f32 (``utils/device.full_f32``), whatever
+    corrector it wraps."""
 
     def __init__(self, corrector, warmup_shape: Optional[Tuple[int, ...]] = None):
         self.corrector = corrector
@@ -76,7 +79,7 @@ class CorrectionService:
         allocator's growth). Bypasses the request stats."""
         t0 = time.perf_counter()
         dummy = np.zeros(shape, np.int16)
-        with self._device_lock:
+        with self._device_lock, full_f32():
             _host(self.corrector(dummy))
         logger.info("Warmed up %s in %.1f s", shape, time.perf_counter() - t0)
 
@@ -84,7 +87,7 @@ class CorrectionService:
         """``int16=True`` rounds and clips on the device before the fetch:
         the conversion ``CCTAContrastCorrector.save`` applies on the host."""
         t0 = time.perf_counter()
-        with self._device_lock:
+        with self._device_lock, full_f32():
             out = self.corrector(volume)
             if int16:
                 out = device_int16(torch.as_tensor(out))

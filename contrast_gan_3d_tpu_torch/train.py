@@ -33,7 +33,7 @@ from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import ExperimentConfig, asdict_flat, load_config
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
 from contrast_gan_3d_tpu_torch.trainer.trainer import Trainer, install_preemption_handler
-from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
 
 logger = logging.getLogger("contrast_gan_3d_tpu_torch.train")
 
@@ -115,7 +115,10 @@ class TrainManager:
             budget_timer.daemon = True
             budget_timer.start()
         try:
-            trainer.fit(train_loaders, val_loaders)
+            # f32 work trains in full f32 (bf16 work is unaffected); the
+            # switches set at a cycle's capture bind the graph that replays it
+            with full_f32():
+                trainer.fit(train_loaders, val_loaders)
         finally:
             if budget_timer is not None:
                 budget_timer.cancel()

@@ -5,12 +5,13 @@ Reads .mhd/.mha and .nii/.nii.gz volumes, reorients them to LPS in index
 order (W, H, D), casts to int16 and shifts/clips into [MIN_HU, MAX_HU];
 writes compressed .mhd (with a .raw data file), .mha and .nii(.gz).
 HDF5 images raise ``NotImplementedError``: the card's machine has no h5py
-(ROADMAP, A8). The centerline and annotation parsers are not ported
-(ROADMAP, A14).
+(ROADMAP, A8). Parses the centerline point clouds (``vessel*.txt``), the
+MeVisLab ostia markers (``ostia.xml``) and ASOCA annotation files.
 """
 
 import gzip
 import logging
+import re
 import zlib
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
@@ -478,3 +479,54 @@ def save_scan(
         raise NotImplementedError(f"{savepath}: {HDF5_NOTE}")
     else:
         write_mhd(volume_whd, savepath, spacing=spacing, origin=offset, direction=direction)
+
+
+# ---------------------------------------------------------------------------
+# centerline / annotation parsers
+# ---------------------------------------------------------------------------
+
+
+def load_centerlines(folder_path: PathLike, glob_str: Optional[str] = None) -> np.ndarray:
+    """The ``vessel[0-9]*.txt`` point clouds of a folder, in sorted file
+    order, concatenated: (N, 4) f32 rows of ``x y z r`` (world mm)."""
+    files = sorted(Path(folder_path).glob(glob_str or "vessel[0-9]*.txt"))
+    parts = [np.loadtxt(f, dtype=np.float32, ndmin=2) for f in files]
+    if not parts:
+        return np.empty((0, 4), dtype=np.float32)
+    return np.concatenate(parts, axis=0, dtype=np.float32)
+
+
+_TAG_RE = re.compile(r"<(ListSize|pos|vec)>(.*?)</\1>")
+
+
+def load_mevis_coords(sourcefile: PathLike) -> Tuple[np.ndarray, np.ndarray]:
+    """A MeVisLab XML marker file as (points (N, 3), vectors (N, 3)) f32:
+    the first three values of each ``<pos>`` / ``<vec>``, cut to
+    ``<ListSize>`` when it is given."""
+    points, vecs = [], []
+    n = 0
+    with open(sourcefile) as fd:
+        for line in fd:
+            for m in _TAG_RE.finditer(line.strip()):
+                tag, body = m.groups()
+                if tag == "ListSize":
+                    n = int(body)
+                else:
+                    (points if tag == "pos" else vecs).append([float(v) for v in body.split()][:3])
+    pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
+    vcs = np.asarray(vecs, dtype=np.float32).reshape(-1, 3)
+    if n:
+        pts, vcs = pts[:n], vcs[:n]
+    return pts, vcs
+
+
+def load_ASOCA_annotated_centerlines(annotation_fname: PathLike) -> np.ndarray:
+    """An ASOCA annotation file, one marker per line ``label x y z ...``:
+    the values after the label as f64 rows (an empty array for none)."""
+    rows = []
+    with open(annotation_fname) as fd:
+        for line in fd:
+            parts = line.strip().split()
+            if len(parts) > 1:
+                rows.append([float(v) for v in parts[1:]])
+    return np.asarray(rows, dtype=np.float64) if rows else np.empty((0,))

@@ -135,6 +135,10 @@ def test_port_imports_nothing_of_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "contrast_gan_3d_tpu_torch").rglob("*.py")
     )
+    # the offline preprocessing and the learning check's modules and CLIs
+    assert {f"contrast_gan_3d_tpu_torch.{m}" for m in (
+        "preprocess", "eval_hu_shift", "validate_learning", "data.preprocess", "data.labeling",
+        "eval.hu_distribution_shift", "utils.geometry", "ops.resample")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
