@@ -5,6 +5,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only cycle c3   # a partial run: no result lines
     python3 chip_smoke.py --only packed_ops packed_serving packed_train
     python3 chip_smoke.py --only c6 preprocess resize learn
+    python3 chip_smoke.py --only init dp sharded memory learn
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -271,7 +272,34 @@ failure raises and exits non-zero):
     cohort 4) and ``eval_hu_shift`` on its lists, twice under deterministic
     algorithms: the held-out LOW and HIGH scans must both move toward the
     350-450 HU corridor, and the two runs must give the same summaries;
-    the port's numbers are printed beside the JAX record's.
+    the port's numbers are printed beside the JAX record's (the networks
+    draw flax's initial weights since C7's repair);
+36. flax's initial weights (``--only init``): six freshly built networks
+    (3D generator in both layouts, 2D generator, 3D critic with and
+    without BatchNorm, 2D critic) on the card: every kernel within the
+    2-std cut, its std within 5% of sqrt(1 / fan_in) (4096+ entries),
+    conv biases 0, BatchNorm 1 / 0;
+37. data parallelism (``--only dp``): a one-rank NCCL group in this
+    process: the bf16 ``combined_step`` (direct and packed) against the
+    step without a group after one update (metrics within one bf16
+    rounding, each leaf's gradients within twice the spread of two runs
+    without a group under deterministic algorithms, every parameter within
+    1e-5 unless its gradient's sign differs),
+    three 5-iteration direct cycles with the all-reduces captured in the
+    graph (each cycle's metrics within 1e-2 / 1e-4), ``train --dp-devices
+    1`` on ``basic_3d`` (logged losses within 1e-2 / 1e-4); then two gloo
+    ranks on the one card (NCCL refuses two ranks on one device), f32
+    packed WC and GP, against the one-rank step at JAX's DP tolerance
+    (metrics rtol 2e-4 / atol 1e-5; every parameter within rtol 2e-3 /
+    atol 2e-5 unless its gradient's sign differs), each leaf's gradients
+    equal on both ranks and within 1e-2 of its largest entry of the
+    one-rank step's; all timed;
+38. the sharded corrector (``--only sharded``): over ``[cuda:0]`` and
+    ``[cuda:0, cuda:0]``, direct and packed, f32, 512x512x128 at 25%,
+    within 0.01 HU of the unsharded corrector, timed beside it;
+    ``correct_scans --sharded`` (int16 within 1 HU of the plain command)
+    and ``serve --dp-devices 1`` (within 0.01 HU of ``serve``'s reply);
+39. the memory report (``--only memory``): ``memory_report`` on the card.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -302,10 +330,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch import correct_scans, eval_hu_shift, export_corrector, native, preprocess, serve
-from contrast_gan_3d_tpu_torch import validate_learning
+from contrast_gan_3d_tpu_torch import memory_report, validate_learning
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D, warp2d_int16, warp_coords, \
@@ -321,7 +350,8 @@ from contrast_gan_3d_tpu_torch.experiments.config import load_config
 from contrast_gan_3d_tpu_torch.models import blocks
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
-from contrast_gan_3d_tpu_torch.models.utils import count_parameters
+from contrast_gan_3d_tpu_torch.models.norm import BatchNorm
+from contrast_gan_3d_tpu_torch.models.utils import TRUNCATED_NORMAL_STD, count_parameters, flax_fan_in
 from contrast_gan_3d_tpu_torch.ops import _build
 from contrast_gan_3d_tpu_torch.ops.block_conv import (
     block_conv3x3x3,
@@ -344,6 +374,7 @@ from contrast_gan_3d_tpu_torch.ops.resample import (
     trilinear_sample,
 )
 from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
+from contrast_gan_3d_tpu_torch.parallel.mesh import DataMesh, data_mesh, free_port, spawn_ranks
 from contrast_gan_3d_tpu_torch.serving import CorrectionServer, correct_remote
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
@@ -887,16 +918,16 @@ def train_patches(rng, patch, mix, dev):
 
 
 def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, gen_kw=None, critic_kw=None,
-                 **trainer_kw):
+                 mesh=None, **trainer_kw):
     """A seeded trainer of ``mode``; ``gen_kw`` / ``critic_kw`` change the
-    networks (default: basic_3d's)."""
+    networks (default: basic_3d's); ``mesh``: a data-parallel rank's."""
     spec = TRAIN_MODES[mode]
     gen = seeded(ResnetGenerator(dtype=dtype, **(gen_kw or {})), seed)
     critic = seeded(PatchGANDiscriminator(norm=spec["norm"], dtype=dtype, **(critic_kw or {})), seed + 1)
     tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
     cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, dtype=dtype, **trainer_kw)
     schedule = TrainerConfig(train_critic_every=spec["critic_every"], train_generator_every=spec["generator_every"])
-    return Trainer(gen, critic, tx, tx, cfg, schedule, seed=seed, device=device)
+    return Trainer(gen, critic, tx, tx, cfg, schedule, seed=seed, device=device, mesh=mesh)
 
 
 def warm_seconds(fn, reps=TIMED_STEPS):
@@ -1445,6 +1476,20 @@ def _same_state(a, b, what):
         raise AssertionError(f"{what}: the generator state or the step differs")
 
 
+def fit_patients(tmp: Path) -> tuple:
+    """The fit phase's nine patients (3 per label, ``FIT_PATIENT``) under
+    ``tmp / "patients"``: (the splits pickle naming them, the fold)."""
+    rng = np.random.default_rng(40)
+    fold = []
+    for label, hu in ((0, 400), (-1, 250), (1, 600)):
+        for i in range(3):
+            vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
+            fold.append((str(write_patient(vol, mask, meta, f"synth_{label}_{i}", tmp / "patients")), label))
+    splits = tmp / "splits.pkl"
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    return splits, fold
+
+
 def fit_phase(bare_wc, tmp: Path, device="cuda"):
     """Phases 11 and 12 (module docstring): the CLI's ``main`` at full width,
     in ``tmp``. ``bare_wc`` holds phase 6's bf16 weight-clip step times.
@@ -1457,14 +1502,7 @@ def fit_phase(bare_wc, tmp: Path, device="cuda"):
     console.addHandler(capture)
     results = {}
     t0 = time.perf_counter()
-    rng = np.random.default_rng(40)
-    fold = []
-    for label, hu in ((0, 400), (-1, 250), (1, 600)):
-        for i in range(3):
-            vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
-            fold.append((str(write_patient(vol, mask, meta, f"synth_{label}_{i}", tmp / "patients")), label))
-    splits = tmp / "splits.pkl"
-    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    splits, fold = fit_patients(tmp)
     confs = {}
     for name, backend, extra in (("device", "device", {}), ("host", "host", {}),
                                  ("device_k1", "device", dict(cycle_length=1)),
@@ -3498,6 +3536,27 @@ JAX_LEARN = {"centerline_mean_hu_before": 249.8, "centerline_mean_hu_after": 364
 LEARN_SWEEP_SEEDS = (0, 1, 2, 4, 5, 6)
 
 
+@contextlib.contextmanager
+def deterministic_scope():
+    """cuDNN's and torch's deterministic algorithms (cuBLAS with a fixed
+    workspace) for the scope's length; the caller's settings after it."""
+    deterministic, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(algorithms)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+
+
 def learn_phase(tmp: Path):
     """Phase 35 (``--only learn``): the port learns the correction.
     ``validate_learning.main`` on the card with the recipe of the JAX
@@ -3508,14 +3567,9 @@ def learn_phase(tmp: Path):
     corridor; the two runs give the same summaries. Prints the port's
     numbers beside the JAX record's, and the recipe's results at six other
     training seeds (``LEARN_SWEEP_SEEDS``, no gate)."""
-    deterministic, algorithms = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
-    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
     runs = []
     zero_counts()
-    try:
+    with deterministic_scope():
         for i in range(2):
             wd = tmp / f"learn{i}"
             t0 = time.perf_counter()
@@ -3534,14 +3588,6 @@ def learn_phase(tmp: Path):
             sweep[seed] = {k: got[k] for k in ("centerline_mean_hu_after", "high_centerline_mean_hu_after",
                                                "moved_toward_corridor", "high_moved_toward_corridor")}
         print(f"learn: other training seeds, the same recipe {json.dumps(sweep)}", flush=True)
-    finally:
-        torch.cuda.synchronize()
-        torch.backends.cudnn.deterministic = deterministic
-        torch.use_deterministic_algorithms(algorithms)
-        if workspace is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
     launches = no_block_conv(read_counts(), "learn (packed)")
     summary = runs[0]["summary"]
     port = {k: summary[k] for k in JAX_LEARN if k in summary}
@@ -3566,6 +3612,514 @@ def slice_11_phases():
                 learn=(learn_launches, learn))
 
 
+# --- slice 12: flax's initial weights, data parallelism, the sharded
+# corrector, memory (phases 36-39) ---------------------------------------------------------------------------------
+
+INIT_STD_TOL = 0.05  # relative, kernels of 4096+ entries (tests/test_torch_port_init.py's tolerance)
+INIT_STD_MIN = 4096
+# JAX's own data-parallel tolerance (tests/test_parallel.py:49-84)
+DP_METRIC_TOL = dict(rtol=2e-4, atol=1e-5)
+DP_PARAM_TOL = dict(rtol=2e-3, atol=2e-5)
+# After one update the gradients both optimizers stepped with are held to
+# the reference's leaf by leaf: within DP_GRAD_REL of the leaf's largest
+# entry (a gradient counted N or 1/N times is 50% off), and equal on every
+# rank (a leaf left out of the all-reduce keeps its rank's own share). At
+# world size 1 in bf16 the first steps run under deterministic algorithms
+# and the limit is twice the spread of two runs without a group (0 when
+# they repeat: then the gradients must be bit-equal).
+# Adam's first update is lr * g / (|g| + eps), about lr * sign(g), so it
+# hides a constant factor: every parameter element must lie within the
+# strict tolerance unless its gradient has another sign in the two runs or
+# lies within ADAM_SIGN_FLOOR of 0 (float noise may step it the other way)
+DP_GRAD_REL = {torch.float32: 1e-2}
+ADAM_SIGN_FLOOR = 1e-6
+# Over several bf16 steps the two runs' roundings compound (Adam rescales
+# every gradient): the parameters are reported, and the gate is each
+# cycle's or logged boundary's metrics within DP_BF16_TRAJECTORY (relative,
+# absolute: a weight-clip D of 1e-5 is a few bf16 roundings of its logits),
+# which batches other than the reference run's would miss
+DP_BF16_TRAJECTORY = dict(rel_tol=1e-2, atol=1e-4)
+# bf16 at world size 1: one bf16 rounding of a metric; a parameter within
+# 1e-5 (a few f32 roundings of an Adam update)
+DP_BF16_METRIC_REL, DP_BF16_PARAM_ATOL = 2.0**-8, 1e-5
+DP_MIX = (6, 3, 3)
+DP_CYCLES = 3  # eager, capture + replay, replay
+DP_CLI_ITERATIONS = 10  # two 5-iteration cycles: the first eager, the second captured and replayed
+SHARD_VOLUME, SHARD_OVERLAP, SHARD_TOL_HU = (512, 512, 128), 0.25, 0.01
+SHARD_FILES = 2
+
+
+def init_phase():
+    """Phase 36 (``--only init``): C7's repair. Freshly built generators and
+    critics (3D both layouts and 2D; batch norm, none), moved to the card:
+    every conv and transpose-conv kernel within +-2 s, s = sqrt(1 / fan_in)
+    / 0.8796 (flax's fan-in: in_ch * prod(kernel) for both), its std within
+    5% of sqrt(1 / fan_in) for 4096+ entries, every conv bias 0, every
+    BatchNorm scale 1 and bias 0. The learning check under this init is
+    phase 35."""
+    nets = {"generator 3D": lambda: ResnetGenerator(), "generator 3D packed": lambda: ResnetGenerator(layout="packed"),
+            "generator 2D": lambda: ResnetGenerator(ndim=2), "critic 3D": lambda: PatchGANDiscriminator(),
+            "critic 3D no norm": lambda: PatchGANDiscriminator(norm=None),
+            "critic 2D": lambda: PatchGANDiscriminator(ndim=2)}
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d, torch.nn.ConvTranspose3d)
+    rows = {}
+    for name, build_net in nets.items():
+        torch.manual_seed(36)
+        net = build_net().cuda()
+        worst, kernels = 0.0, 0
+        for mname, m in net.named_modules():
+            if isinstance(m, convs):
+                kernels += 1
+                want = (1.0 / flax_fan_in(m)) ** 0.5
+                w = m.weight.detach()
+                if w.abs().max().item() > 2 * want / TRUNCATED_NORMAL_STD * (1 + 1e-6):
+                    raise AssertionError(f"init {name} {mname}: |w| {w.abs().max().item()} beyond the 2-sigma cut")
+                if w.numel() >= INIT_STD_MIN:
+                    rel = abs(w.std().item() / want - 1)
+                    worst = max(worst, rel)
+                    if rel > INIT_STD_TOL:
+                        raise AssertionError(f"init {name} {mname}: std {w.std().item():.5f}, flax's {want:.5f}")
+                if m.bias is not None and bool((m.bias != 0).any()):
+                    raise AssertionError(f"init {name} {mname}: a non-zero bias")
+            elif isinstance(m, BatchNorm) and not (bool((m.weight == 1).all()) and bool((m.bias == 0).all())):
+                raise AssertionError(f"init {name} {mname}: BatchNorm scale / bias not 1 / 0")
+        rows[name] = dict(kernels=kernels, worst_std_rel=worst)
+    print(f"init: flax's lecun_normal on the card, worst |std / sqrt(1/fan_in) - 1| by network "
+          f"{json.dumps({k: round(v['worst_std_rel'], 4) for k, v in rows.items()})}", flush=True)
+    return rows
+
+
+def grads_close(got: dict, want: dict, what: str, dtype=torch.float32, limit=None) -> float:
+    """The gradients of one update (by parameter name) leaf by leaf: within
+    ``limit`` (default ``DP_GRAD_REL``) of the leaf's largest entry. Returns
+    the worst ``max |got - want| / max |want|``."""
+    limit = DP_GRAD_REL[dtype] if limit is None else limit
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: gradients of {sorted(set(got) ^ set(want))} on one side only")
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].detach().float().cpu(), w.detach().float().cpu()
+        diff, scale = (g - w).abs().max().item(), w.abs().max().item()
+        rel = diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+        if rel > limit:
+            raise AssertionError(f"{what}: gradient {k} max |diff| {diff:.3e} against max |g| {scale:.3e}")
+        worst = max(worst, rel)
+    return worst
+
+
+def params_close(got: dict, want: dict, what: str, dtype=torch.float32, grads=None) -> dict:
+    """``got`` against ``want`` (state dicts). With ``grads``, the (got,
+    want) gradients of the one update both took from the same state: every
+    element of every leaf within ``DP_PARAM_TOL`` (bf16:
+    ``DP_BF16_PARAM_ATOL``) save those Adam's sign excuses (see
+    ``ADAM_SIGN_FLOOR``), and f32 BatchNorm statistics within it; raises
+    otherwise. Without ``grads`` (several updates) only reports. Returns
+    the worst difference, the elements outside the strict tolerance and
+    how many of them the sign excused."""
+    worst = dict(max_abs=0.0, outside_strict=0, sign_excused=0, elements=0)
+    for k, w in want.items():
+        g, w = got[k].detach().float().cpu(), w.detach().float().cpu()
+        diff = (g - w).abs()
+        if dtype == torch.float32 or k.endswith(("running_mean", "running_var")):
+            strict = diff <= DP_PARAM_TOL["atol"] + DP_PARAM_TOL["rtol"] * w.abs()
+        else:
+            strict = diff <= DP_BF16_PARAM_ATOL
+        outside = ~strict
+        if grads is not None and k in grads[1]:
+            ga, gb = (x[k].detach().float().cpu() for x in grads)
+            excused = outside & ((torch.sign(ga) != torch.sign(gb))
+                                 | (torch.minimum(ga.abs(), gb.abs()) <= ADAM_SIGN_FLOOR))
+            worst["sign_excused"] += int(excused.sum())
+            outside = outside & ~excused
+        stats_bf16 = dtype == torch.bfloat16 and k.endswith(("running_mean", "running_var"))
+        if grads is not None and outside.any() and not stats_bf16:
+            raise AssertionError(f"{what}: {int(outside.sum())} of {k}'s {diff.numel()} elements outside the strict "
+                                 f"tolerance with the same gradient sign (max |diff| {diff.max().item():.3e})")
+        worst["max_abs"] = max(worst["max_abs"], diff.max().item() if diff.numel() else 0.0)
+        worst["outside_strict"] += int((~strict).sum())
+        worst["elements"] += diff.numel()
+    return worst
+
+
+def _grads(trainer) -> dict:
+    """The gradients the last step's optimizers stepped with, per network,
+    by parameter name."""
+    return {net: {k: p.grad.detach().clone() for k, p in getattr(trainer.state, net).named_parameters()}
+            for net in ("generator", "critic")}
+
+
+def metrics_close(got: dict, want: dict, what: str, dtype=torch.float32, rel_tol=None,
+                  atol=DP_METRIC_TOL["atol"]) -> float:
+    """Every metric within ``DP_METRIC_TOL`` (bf16: one bf16 rounding), or
+    ``rel_tol`` / ``atol``; returns the largest relative difference."""
+    worst = 0.0
+    if rel_tol is None:
+        rel_tol = DP_METRIC_TOL["rtol"] if dtype == torch.float32 else DP_BF16_METRIC_REL
+    for k, w in want.items():
+        g, w = float(got[k]), float(w)
+        rel = abs(g - w) / max(abs(w), 1e-12)
+        worst = max(worst, rel)
+        ok = abs(g - w) <= atol + rel_tol * abs(w)
+        if not ok:
+            raise AssertionError(f"{what}: metric {k} {g} against {w}")
+    return worst
+
+
+def _states(trainer) -> tuple:
+    return ({k: v.detach().clone() for k, v in trainer.state.generator.state_dict().items()},
+            {k: v.detach().clone() for k, v in trainer.state.critic.state_dict().items()})
+
+
+def dp_world1_phase(mesh):
+    """Phase 37a: a one-rank NCCL group. The bf16 ``combined_step`` at full
+    width, direct and packed, and three 5-iteration basic_3d cycles (direct:
+    the first eager, the second captured with its all-reduces and replayed,
+    the third replayed), each against the same seeded trainer without a
+    group; timed beside it. Returns the direct paths' launches and the
+    figures."""
+    rng = np.random.default_rng(50)
+    patches = train_patches(rng, TRAIN_PATCH, DP_MIX, "cuda")
+    out, launches = {}, {}
+    nets = ("generator", "critic")
+    for layout in ("direct", "packed"):
+        ref = make_trainer("wc", seed=12, dtype=torch.bfloat16, gen_kw=dict(layout=layout))
+        twin = make_trainer("wc", seed=12, dtype=torch.bfloat16, gen_kw=dict(layout=layout))
+        par = make_trainer("wc", seed=12, dtype=torch.bfloat16, gen_kw=dict(layout=layout), mesh=mesh)
+        batch = ref._assemble(patches)[:3]
+        # the compared first steps under deterministic algorithms: without
+        # them the card's bf16 generator backward does not repeat (two runs
+        # without a group 9-10% of a leaf's largest gradient apart)
+        with deterministic_scope():
+            _, want = ref.steps.combined_step(ref.state, *batch)
+            twin.steps.combined_step(twin.state, *batch)
+        want_states, want_grads = _states(ref), _grads(ref)
+        # the card's own spread: a second run without a group, the same step
+        spread = {n: grads_close(_grads(twin)[n], want_grads[n], f"dp world 1 {layout} twin {n}", limit=float("inf"))
+                  for n in nets}
+        del twin
+        t_ref = warm_seconds(lambda: ref.steps.combined_step(ref.state, *batch))
+        zero_counts()
+        with deterministic_scope():
+            _, got = par.steps.combined_step(par.state, *par._assemble(patches)[:3])
+        got_grads = _grads(par)
+        rel = metrics_close(got, want, f"dp world 1 {layout} combined_step", torch.bfloat16)
+        grad_rel = {n: grads_close(got_grads[n], want_grads[n], f"dp world 1 {layout} {n}",
+                                   limit=2 * spread[n]) for n in nets}
+        close = [params_close(g, w, f"dp world 1 {layout} {n}", torch.bfloat16, (got_grads[n], want_grads[n]))
+                 for g, w, n in zip(_states(par), want_states, ("generator", "critic"))]
+        t_par = warm_seconds(lambda: par.steps.combined_step(par.state, *batch))
+        counts = read_counts()
+        if layout == "direct":
+            launches = counts
+        elif any(counts.values()):
+            raise AssertionError(f"dp world 1 packed: block-conv launches {counts}")
+        out[f"combined_step_{layout}"] = dict(seconds_no_group=t_ref, seconds_world1=t_par, overhead=t_par / t_ref,
+                                              metric_rel=rel, grad_rel=grad_rel, grad_spread=spread,
+                                              generator=close[0], critic=close[1])
+        print(f"dp world 1 bf16 combined_step {layout}: {t_par:.4f} s against {t_ref:.4f} s without a group "
+              f"({t_par / t_ref:.3f}x); metrics within {rel:.2e}; gradients within {grad_rel} (two runs without a "
+              f"group: {spread}); parameters {close}; launches {counts}", flush=True)
+        del ref, par
+        torch.cuda.empty_cache()
+    # cycles, direct: the all-reduces inside the captured graph; the
+    # counts cover the group's run only
+    pattern = schedule_branches(1, 5, 0, 5)
+    trainers = {"no group": make_trainer("wc", seed=13, dtype=torch.bfloat16),
+                "world 1": make_trainer("wc", seed=13, dtype=torch.bfloat16, mesh=mesh)}
+    seconds, cycle_metrics = {}, {}
+    for name, trainer in trainers.items():
+        if name == "world 1":
+            zero_counts()
+        cycle_metrics[name] = [{k: float(v) for k, v in trainer.train_step_cycle([patches] * 5, 5 * c, pattern)[0]
+                                .items()} for c in range(DP_CYCLES)]
+        torch.cuda.synchronize()
+        if name == "world 1":
+            states = _states(trainer)
+        else:
+            want_states = _states(trainer)
+        seconds[name] = warm_seconds(lambda t=trainer: t.train_step_cycle([patches] * 5, 5 * DP_CYCLES, pattern))
+    for k, v in read_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    par = trainers["world 1"]
+    calls = dict(par._cycle_cache[pattern].calls)
+    if par.cycle_dispatch != "graph" or calls != {"eager": 1, "capture": 1, "replay": DP_CYCLES - 1 + TIMED_STEPS}:
+        raise AssertionError(f"dp world 1 cycle: dispatch {par.cycle_dispatch}, calls {calls}")
+    rel = max(metrics_close(g, w, f"dp world 1 cycle {c}", torch.bfloat16, **DP_BF16_TRAJECTORY)
+              for c, (g, w) in enumerate(zip(cycle_metrics["world 1"], cycle_metrics["no group"])))
+    close = [params_close(g, w, f"dp world 1 cycle {n}", torch.bfloat16)
+             for g, w, n in zip(states, want_states, ("generator", "critic"))]
+    out["cycle"] = dict(seconds=seconds, overhead=seconds["world 1"] / seconds["no group"], calls=calls,
+                        metric_rel=rel, generator=close[0], critic=close[1])
+    print(f"dp world 1 replayed cycle (direct bf16): {seconds['world 1']:.4f} s against {seconds['no group']:.4f} "
+          f"s without a group ({out['cycle']['overhead']:.3f}x); calls {calls}; metrics within {rel:.2e}; "
+          f"parameters {close}", flush=True)
+    del trainers, par
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _gloo_rank(payload_path: str, out_dir: str):
+    """One of phase 37b's two gloo ranks on ``cuda:0``, in full f32 as the
+    script's own process runs (a spawned process starts with PyTorch's
+    default TF32 switches)."""
+    torch.cuda.set_device(0)
+    mesh = data_mesh(2, device="cuda:0")
+    payload = torch.load(payload_path, weights_only=False)
+    patches = {k: {n: torch.as_tensor(a, device="cuda:0") for n, a in v.items()} for k, v in payload.items()}
+    out = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for mode in ("wc", "gp"):
+        trainer = make_trainer(mode, seed=14, gen_kw=dict(layout="packed"), device="cuda:0", mesh=mesh)
+        batch = trainer._assemble(patches)[:3]
+        t0 = time.perf_counter()
+        _, metrics = trainer.steps.combined_step(trainer.state, *batch)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        out[mode] = dict(metrics={k: float(v) for k, v in metrics.items()}, first_s=first,
+                         states=tuple({k: v.cpu() for k, v in sd.items()} for sd in _states(trainer)),
+                         grads={n: {k: v.cpu() for k, v in g.items()} for n, g in _grads(trainer).items()},
+                         warm_s=warm_seconds(lambda: trainer.steps.combined_step(trainer.state, *batch)))
+        del trainer
+    torch.save(out, Path(out_dir) / f"rank{mesh.rank}.pt")
+
+
+def dp_gloo_phase(tmp: Path):
+    """Phase 37b: two gloo ranks on the one card (NCCL refuses two ranks on
+    one device), f32 packed, 6 + 3 + 3 split 3 + 3 per rank, WC and GP: one
+    ``combined_step`` against the one-process step on the global batch, at
+    JAX's DP tolerance (``DP_METRIC_TOL`` / ``DP_PARAM_TOL``)."""
+    rng = np.random.default_rng(51)
+    patches = train_patches(rng, TRAIN_PATCH, DP_MIX, "cpu")
+    torch.save({k: {n: a.numpy() for n, a in v.items()} for k, v in patches.items()}, tmp / "gloo_batch.pt")
+    t0 = time.perf_counter()
+    spawn_ranks(_gloo_rank, 2, (str(tmp / "gloo_batch.pt"), str(tmp)), backend="gloo")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    out = {"spawn_wall_s": wall}
+    for mode in ("wc", "gp"):
+        ref = make_trainer(mode, seed=14, gen_kw=dict(layout="packed"))
+        batch = ref._assemble({k: {n: a.cuda() for n, a in v.items()} for k, v in patches.items()})[:3]
+        _, want = ref.steps.combined_step(ref.state, *batch)
+        torch.cuda.synchronize()
+        want_states, want_grads = _states(ref), _grads(ref)
+        t_one = warm_seconds(lambda: ref.steps.combined_step(ref.state, *batch))
+        for n in ("generator", "critic"):
+            a, b = (rank[mode]["grads"][n] for rank in ranks)
+            unequal = [k for k in a if not torch.equal(a[k], b[k])]
+            if unequal:
+                raise AssertionError(f"dp gloo {mode}: the ranks' {n} gradients differ in {unequal}")
+        for r, got in enumerate(ranks):
+            rel = metrics_close(got[mode]["metrics"], want, f"dp gloo rank {r} {mode}")
+            grad_rel = {n: grads_close(got[mode]["grads"][n], want_grads[n], f"dp gloo rank {r} {mode} {n}")
+                        for n in ("generator", "critic")}
+            close = [params_close(g, w, f"dp gloo rank {r} {mode} {n}", grads=(got[mode]["grads"][n], want_grads[n]))
+                     for g, w, n in zip(got[mode]["states"], want_states, ("generator", "critic"))]
+        out[mode] = dict(one_rank_s=t_one, two_rank_s=[g[mode]["warm_s"] for g in ranks], metric_rel=rel,
+                         grad_rel=grad_rel, generator=close[0], critic=close[1])
+        print(f"dp gloo two ranks on one card, f32 packed {mode}: {out[mode]['two_rank_s']} s per step against "
+              f"{t_one:.4f} s for one rank; metrics within {rel:.2e}; gradients within {grad_rel} (equal on both "
+              f"ranks); parameters {close}", flush=True)
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_cli_phase(tmp: Path):
+    """Phase 37c: ``train --dp-devices 1`` on basic_3d over the fit phase's
+    patients (one NCCL rank in this process, its 5-iteration cycles
+    captured with their all-reduces) against the same run without it, one
+    loader thread per label: the same batches, so every logged loss within
+    ``DP_BF16_TRAJECTORY``; the parameters' differences are reported."""
+    splits, _ = fit_patients(tmp)
+    conf = tmp / "fit_dp.py"
+    # one loader thread per label: the batch stream repeats run to run
+    conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
+                    f"    return replace(base, augment_backend='device', num_workers=(1, 1), **{FIT_OVERRIDES!r})\n")
+    capture = LogCapture()
+    console = logging.getLogger("contrast_gan_3d_tpu_torch.trainer.logger")
+    console.setLevel(logging.INFO)
+    console.addHandler(capture)
+    runs, logged = {}, {}
+    try:
+        for name, extra in (("one card", []), ("dp-devices 1", ["--dp-devices", "1"])):
+            capture.records.clear()
+            t0 = time.perf_counter()
+            manager = train_cli.main(["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root",
+                                      str(tmp / "runs"), "--run-id", name.replace(" ", "_"), "--iterations",
+                                      str(DP_CLI_ITERATIONS), *extra])
+            torch.cuda.synchronize()
+            runs[name] = (manager.runs[0], time.perf_counter() - t0)
+            logged[name] = {it: {k: v for k, v in values.items() if k in ("D", "G", "G-full", "sim", "HU")}
+                            for stage, it, values in capture.records if stage == "train"}
+            for loaders in (manager.runs[0].train_loaders, manager.runs[0].val_loaders or {}):
+                for loader in loaders.values():
+                    loader.stop()
+    finally:
+        console.removeHandler(capture)
+    if sorted(logged["one card"]) != sorted(logged["dp-devices 1"]) or not logged["one card"]:
+        raise AssertionError(f"dp cli: logged boundaries {logged}")
+    rel = max(metrics_close(logged["dp-devices 1"][it], want, f"dp cli iteration {it}", torch.bfloat16,
+                            **DP_BF16_TRAJECTORY) for it, want in logged["one card"].items())
+    par = runs["dp-devices 1"][0].trainer
+    if not isinstance(par.mesh, DataMesh) or par.cycle_dispatch != "graph":
+        raise AssertionError(f"dp cli: mesh {par.mesh}, cycles {par.cycle_dispatch}")
+    calls = {str(p): dict(c.calls) for p, c in par._cycle_cache.items()}
+    close = [params_close(g, w, f"dp cli {n}", torch.bfloat16)
+             for g, w, n in zip(_states(par), _states(runs["one card"][0].trainer), ("generator", "critic"))]
+    out = dict(wall_s={k: v[1] for k, v in runs.items()}, calls=calls, metric_rel=rel, logged=logged,
+               generator=close[0], critic=close[1])
+    print(f"dp cli: train --dp-devices 1 on basic_3d, {DP_CLI_ITERATIONS} iterations: {json.dumps(out)}", flush=True)
+    return out
+
+
+def dp_phases():
+    """Phase 37 (``--only dp``): 37a and 37c in a one-rank NCCL group of
+    this process, 37b in two gloo processes."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = Path(tmp)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+        try:
+            mesh = data_mesh(1)
+            launches, world1 = dp_world1_phase(mesh)
+            cli = dp_cli_phase(tmp)
+        finally:
+            dist.destroy_process_group()
+        gloo = dp_gloo_phase(tmp)
+    return launches, dict(world1=world1, gloo=gloo, cli=cli)
+
+
+def sharded_phase(tmp: Path):
+    """Phase 38 (``--only sharded``): the patch-grid-sharded corrector over
+    ``[cuda:0]`` and ``[cuda:0, cuda:0]``, direct and packed, f32, phase 3's
+    weights, on 512x512x128 at 25% against the unsharded corrector (within
+    0.01 HU: the same grid, sums in another order), timed beside it; then
+    ``correct_scans --sharded`` on two 512x512x128 files against the command
+    without it (int16 within 1 HU), and ``serve --dp-devices 1``'s replies
+    against ``serve``'s (within 0.01 HU). Returns the direct sharded
+    corrector's launches and the figures."""
+    gen = seeded(ResnetGenerator(), 0)
+    vol = np.random.default_rng(52).integers(-1024, 1500, SHARD_VOLUME).astype(np.int16)
+    out, launches = {}, {}
+    for layout in ("direct", "packed"):
+        base = CCTAContrastCorrector(gen, inference_patch_size=TRAIN_PATCH, overlap=SHARD_OVERLAP, layout=layout)
+        want = base(vol)
+        t_base = warm_seconds(lambda: base(vol))
+        for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+            corrector = CCTAContrastCorrector(gen, inference_patch_size=TRAIN_PATCH, overlap=SHARD_OVERLAP,
+                                              layout=layout).shard_over(devices)
+            if corrector.packed != (layout == "packed"):
+                raise AssertionError(f"sharded: shard_over changed the layout {layout}")
+            zero_counts()
+            got = corrector(vol)
+            seconds = warm_seconds(lambda: corrector(vol))
+            counts = read_counts()
+            if layout == "direct":
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            elif any(counts.values()):
+                raise AssertionError(f"sharded packed: block-conv launches {counts}")
+            err = (got - want).abs().max().item()
+            key = f"{layout} x{len(devices)}"
+            out[key] = dict(seconds=seconds, unsharded_s=t_base, ratio=seconds / t_base, max_abs_err_hu=err,
+                            batch=corrector.batch_size, launches=counts)
+            print(f"sharded {key}: {seconds:.4f} s per 512x512x128 volume against {t_base:.4f} s unsharded "
+                  f"({seconds / t_base:.3f}x); max |sharded - unsharded| {err:.2e} HU; launches {counts}", flush=True)
+            if not err <= SHARD_TOL_HU:
+                raise AssertionError(f"sharded {key}: {err} HU from the unsharded corrector")
+    ckpt = serve_checkpoint(tmp)
+    rng = np.random.default_rng(53)
+    scans = []
+    for i in range(SHARD_FILES):
+        scans.append(tmp / f"scan_{i}.mhd")
+        io_utils.write_mhd(rng.integers(-1024, 1500, SHARD_VOLUME).astype(np.int16), scans[-1],
+                           spacing=(0.4, 0.4, 0.625), origin=(0.0, 0.0, 0.0))
+    files = {}
+    for name, extra in (("plain", []), ("sharded", ["--sharded"])):
+        t0 = time.perf_counter()
+        files[name] = correct_scans.main([str(ckpt), str(tmp / name), *map(str, scans), *extra])
+        files[name + "_s"] = time.perf_counter() - t0
+    apart = max(int(np.abs(io_utils.read_image(a)[0].astype(np.int32) - io_utils.read_image(b)[0]).max())
+                for a, b in zip(files["plain"], files["sharded"]))
+    out["correct_scans"] = dict(plain_s=files["plain_s"], sharded_s=files["sharded_s"], max_int16_apart=apart)
+    print(f"sharded correct_scans: {SHARD_FILES} files {files['sharded_s']:.1f} s sharded, {files['plain_s']:.1f} s "
+          f"plain; int16 at most {apart} apart", flush=True)
+    if apart > 1:
+        raise AssertionError(f"correct_scans --sharded: files {apart} HU from the plain command's")
+    servers = {name: serve.build_server(serve.parse_args([str(ckpt), "--host", "127.0.0.1", "--port", "0",
+                                                          *extra]))
+               for name, extra in (("serve", []), ("serve --dp-devices 1", ["--dp-devices", "1"]))}
+    replies = {}
+    try:
+        for name, srv in servers.items():
+            srv.start()
+            url = f"http://{srv.address[0]}:{srv.address[1]}"
+            correct_remote(url, vol, timeout=HTTP_TIMEOUT)  # warm
+            t0 = time.perf_counter()
+            replies[name] = correct_remote(url, vol, timeout=HTTP_TIMEOUT)
+            replies[name + " s"] = time.perf_counter() - t0
+    finally:
+        for srv in servers.values():
+            srv.stop(drain_timeout=HTTP_TIMEOUT)
+    err = float(np.abs(replies["serve --dp-devices 1"].astype(np.float64) - replies["serve"]).max())
+    out["serve"] = dict(seconds={k: v for k, v in replies.items() if k.endswith(" s")}, max_abs_err_hu=err)
+    print(f"sharded serve: --dp-devices 1 reply {replies['serve --dp-devices 1 s']:.3f} s, serve "
+          f"{replies['serve s']:.3f} s; max |apart| {err:.2e} HU", flush=True)
+    if not err <= SHARD_TOL_HU:
+        raise AssertionError(f"serve --dp-devices 1: {err} HU from serve's reply")
+    return launches, out
+
+
+def memory_phase(tmp: Path):
+    """Phase 39 (``--only memory``): ``memory_report`` on the card (the
+    packed corrector at 512x512x400, ``combined_step`` WC and GP at 6+3+3,
+    the 48+48 step), its peaks printed; then ``train --profiler-dir
+    --profiler-steps 2`` on basic_3d over the fit phase's patients (3
+    iterations, cycles of 1): a Chrome trace, the live-block table and the
+    heap profile of the traced window, whose recorded history must hold the
+    window's allocations."""
+    rows = memory_report.main(["--out", str(tmp / "memory")])
+    for r in rows:
+        if r["fits"] and not r["peak_bytes"]:
+            raise AssertionError(f"memory: no peak measured for {r['name']}")
+    splits, _ = fit_patients(tmp)
+    conf, prof = tmp / "fit_profiled.py", tmp / "profile"
+    conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
+                    f"    return replace(base, augment_backend='device', **{FIT_OVERRIDES!r})\n")
+    t0 = time.perf_counter()
+    manager = train_cli.main(["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root",
+                              str(tmp / "runs"), "--run-id", "profiled", "--iterations", "3", "--cycle-length", "1",
+                              "--profiler-dir", str(prof), "--profiler-steps", "2"])
+    wall = time.perf_counter() - t0
+    for loaders in (manager.runs[0].train_loaders, manager.runs[0].val_loaders or {}):
+        for loader in loaders.values():
+            loader.stop()
+    traces, tables = list(prof.glob("*.pt.trace.json")), list(prof.glob("memory_step*.txt"))
+    heaps = list(prof.glob("memory_step*.pickle"))
+    if len(traces) != 1 or len(tables) != 1 or len(heaps) != 1:
+        raise AssertionError(f"memory: --profiler-dir wrote {sorted(p.name for p in prof.iterdir())}")
+    with open(heaps[0], "rb") as f:
+        snapshot = pickle.load(f)
+    events = sum(len(t) for t in snapshot.get("device_traces", ()))
+    allocs = sum(1 for t in snapshot.get("device_traces", ()) for e in t if e.get("action") == "alloc")
+    if not allocs:
+        raise AssertionError(f"memory: the heap profile {heaps[0].name} recorded no allocation ({events} events)")
+    profiler = dict(wall_s=wall, heap_profile=heaps[0].name, heap_bytes=heaps[0].stat().st_size, events=events,
+                    allocs=allocs, segments=len(snapshot.get("segments", ())), table=tables[0].name)
+    print(f"memory: train --profiler-dir, 2 traced iterations: {json.dumps(profiler)}", flush=True)
+    return dict(report=[{k: v for k, v in r.items() if k != "live"} for r in rows], profiler=profiler)
+
+
+def slice_12_phases():
+    """Phases 36-39."""
+    init = init_phase()
+    dp_launches, dp = dp_phases()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s12_") as tmp:
+        tmp = Path(tmp)
+        sharded_launches, sharded = sharded_phase(tmp)
+        memory = memory_phase(tmp)
+    return dict(init=init, dp=(dp_launches, dp), sharded=(sharded_launches, sharded), memory=memory)
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -3581,6 +4135,10 @@ ONLY = {
     "preprocess": lambda: preprocess_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_pre_"))),
     "resize": resize_phase,
     "learn": lambda: learn_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_learn_"))),
+    "init": init_phase,
+    "dp": dp_phases,
+    "sharded": lambda: sharded_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))),
+    "memory": lambda: memory_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_mem_"))),
 }
 
 
@@ -3746,6 +4304,8 @@ def main(argv=None) -> int:
     print(f"serve and export: {time.perf_counter() - t_start:.1f} s", flush=True)
     s11 = slice_11_phases()
     print(f"C6, preprocess, resize, learn: {time.perf_counter() - t_start:.1f} s", flush=True)
+    s12 = slice_12_phases()
+    print(f"init, dp, sharded, memory: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -3770,7 +4330,13 @@ def main(argv=None) -> int:
                    # preprocessing has no generator, the learning run is packed
                    "c6": s11["c6"][0][key] if dtype == torch.float32 else 0,
                    "resize": s11["resize"][0][key] if dtype == torch.float32 else 0,
-                   "learn": s11["learn"][0][key] if dtype == torch.bfloat16 else 0}
+                   "learn": s11["learn"][0][key] if dtype == torch.bfloat16 else 0,
+                   # the data-parallel steps and cycles at world size 1 are
+                   # bf16 direct (the gloo ranks and the CLI run are packed);
+                   # the sharded corrector is f32 direct (its packed runs,
+                   # correct_scans and serve launch none)
+                   "dp": s12["dp"][0].get(key, 0) if dtype == torch.bfloat16 else 0,
+                   "sharded": s12["sharded"][0].get(key, 0) if dtype == torch.float32 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -3785,7 +4351,8 @@ def main(argv=None) -> int:
         "fit_2d": fit_2d, "reference_ckpt": reference, "gp_layernorm": gp_layernorm, "c3": c3,
         "cycles": cycles, "serve": serve_results, "export": export_results, "c6": s11["c6"][1],
         "preprocess": s11["preprocess"], "resize": s11["resize"][1], "learn": s11["learn"][1],
-    }))
+        "init": s12["init"], "dp": s12["dp"][1], "sharded": s12["sharded"][1], "memory": s12["memory"],
+    }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

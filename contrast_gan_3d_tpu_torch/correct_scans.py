@@ -14,9 +14,10 @@ in another order from one call to the next, and a scan corrected twice, or
 by the overlapped and the sequential cohort, would not give the same file.
 The corrector's default layout is the JAX command's ("auto": the packed
 sliding window for a 3D batch-norm generator, batch 24; otherwise direct,
-batch 8). The first SIGTERM or Ctrl-C finishes the volumes in flight and exits 0; a
-second one aborts.
-Sharding over several cards and HDF5 output are not ported (ROADMAP).
+batch 8). ``--sharded`` splits each volume's patch grid over every
+visible card (``CCTAContrastCorrector.shard_over``; on the CPU, one
+share). The first SIGTERM or Ctrl-C finishes the volumes in flight and
+exits 0; a second one aborts. HDF5 output is not ported (ROADMAP).
 """
 
 import argparse
@@ -30,6 +31,7 @@ import torch
 
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
 from contrast_gan_3d_tpu_torch.eval.utils import correct_patients
+from contrast_gan_3d_tpu_torch.parallel.inference import local_devices
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 from contrast_gan_3d_tpu_torch.utils.signals import install_graceful_stop
 
@@ -48,7 +50,8 @@ def parse_args(argv=None):
                    help="generator forward batch (default: the corrector's layout-aware choice, 24 packed / 8 direct)")
     p.add_argument("--reference-pt", action="store_true",
                    help="checkpoint is a reference torch .pt file (architecture read from its state_dict)")
-    p.add_argument("--sharded", action="store_true", help="not ported (ROADMAP, A10)")
+    p.add_argument("--sharded", action="store_true",
+                   help="split each volume's patch grid over every visible card (keeps the layout)")
     p.add_argument("--output-format", choices=("mhd", "nii", "nii.gz", "h5"), default="mhd",
                    help="corrected-scan format (h5 is not ported: ROADMAP, A8)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -61,14 +64,9 @@ def parse_args(argv=None):
 def main(argv=None) -> list:
     """Run the command in-process; returns the paths written."""
     args = parse_args(argv)
-    unported = {
-        "--sharded": (args.sharded, "sharded correction over several cards (ROADMAP.md, A10)"),
-        "--output-format h5": (args.output_format == "h5", "HDF5 output: no h5py on the card's machine "
-                                                           "(ROADMAP.md, A8)"),
-    }
-    for flag, (given, what) in unported.items():
-        if given:
-            raise NotImplementedError(f"{flag}: {what} is not ported yet; see ROADMAP.md")
+    if args.output_format == "h5":
+        raise NotImplementedError("--output-format h5: HDF5 output: no h5py on the card's machine (ROADMAP.md, A8) "
+                                  "is not ported yet; see ROADMAP.md")
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     device = resolve_device(args.device)
@@ -78,6 +76,9 @@ def main(argv=None) -> list:
         corrector = CCTAContrastCorrector.from_reference_checkpoint(args.checkpoint_dir, **kwargs)
     else:
         corrector = CCTAContrastCorrector.from_checkpoint(args.checkpoint_dir, iteration=args.iteration, **kwargs)
+    if args.sharded:
+        corrector.shard_over(local_devices(device))
+        logger.info("Patch grid sharded over %d device(s)", len(corrector.devices))
     stop = threading.Event()
     previous = install_graceful_stop(lambda name: stop.set(), stop.is_set)
     deterministic = torch.backends.cudnn.deterministic

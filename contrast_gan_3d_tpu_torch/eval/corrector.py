@@ -9,7 +9,8 @@ batches. Either way the f32 corrected HU volume comes back.
 ``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``,
 ``from_reference_checkpoint`` from a reference ``<iteration>.pt``;
 ``correct_file`` reads a scan file, corrects it and writes the result
-(``utils/io_utils.py``).
+(``utils/io_utils.py``). ``shard_over(devices)`` splits every volume's
+patch grid over several devices (``parallel/inference.py``).
 """
 
 import logging
@@ -25,6 +26,7 @@ from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models.generator import LAYOUTS, ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import derive_generator_arch
 from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
+from contrast_gan_3d_tpu_torch.parallel.inference import make_sharded_volume_corrector, replicas
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
@@ -128,6 +130,7 @@ class CCTAContrastCorrector:
         self.inference_patch_size = tuple(inference_patch_size)
         self.overlap = overlap
         self.z_bucket = int(z_bucket)
+        self.dtype = dtype
         self.dispatched_shapes: set = set()
         self._shapes_lock = threading.Lock()
         if batch_size is None:
@@ -207,6 +210,28 @@ class CCTAContrastCorrector:
         generator.load_state_dict(payload["generator"], strict=True)
         logger.info("Ported reference checkpoint '%s' @ iteration %d", pt_path, payload["iteration"])
         return cls(generator, dtype=dtype, **kwargs)
+
+    def shard_over(self, devices) -> "CCTAContrastCorrector":
+        """Split every volume's patch grid over ``devices`` (a list; a device
+        may repeat), keeping the layout: a packed corrector runs the packed
+        sharded window (``parallel/inference.make_sharded_volume_corrector``,
+        the JAX ``shard_over``). Each distinct device gets a replica of the
+        generator; the volume and the result live on ``devices[0]``, which
+        becomes ``self.device``. Returns ``self``."""
+        if self.is_2d:
+            raise ValueError("shard_over applies to the 3D sliding window only")
+        devices = [resolve_device(d) for d in devices]
+        reps = replicas(self.generator, devices)
+        if self.packed:
+            apply = lambda x, d: reps[d].forward_packed(x, packed_input=True, packed_output=True)
+        else:
+            apply = lambda x, d: reps[d](x)
+        self.correct_volume = make_sharded_volume_corrector(
+            apply, devices, patch_size=self.inference_patch_size, overlap=self.overlap, batch_size=self.batch_size,
+            scaler=self.scaler, dtype=self.dtype, packed_io=self.packed)
+        self.device = devices[0]
+        self.devices = devices
+        return self
 
     def _correct_2d(self, volume) -> torch.Tensor:
         """Axial-slice batched 2D correction: (W, H, D) -> (W, H, D) f32 HU."""

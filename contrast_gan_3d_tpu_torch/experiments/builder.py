@@ -21,7 +21,10 @@ What the JAX builder chooses automatically, the port resolves so:
   ``combined_step`` peaks at 8.28 GiB allocated on an NVIDIA H100 80GB
   HBM3 at 700 W (``chip_smoke.py``'s small_patch phase), a tenth of the
   card, and the math is the same either way;
-- ``dp_devices`` / ``sp_devices`` set -> raise;
+- ``dp_devices`` is the train CLI's: it starts the ranks and builds the
+  mesh (``parallel/mesh.py``), and each rank builds the same models here;
+  ``sp_devices`` (dp x sp spatial partitioning, which needs halo exchange
+  between ranks) raises, naming its ROADMAP item;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
   ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
   JAX builder falls back to the device augmentation where its native
@@ -34,7 +37,8 @@ What the JAX builder chooses automatically, the port resolves so:
 
 The networks' initial weights are drawn on the CPU from the config's seed
 (torch initialises a module when it is built, where the JAX package draws
-them from a key in ``init_state``), then move to ``device``.
+them from a key in ``init_state``), from flax's distributions
+(``models/utils.init_like_flax``), then move to ``device``.
 """
 
 import dataclasses
@@ -137,12 +141,13 @@ def _check_portable(cfg: ExperimentConfig):
     unported = []
     if cfg.remat:
         unported.append("remat")
-    if cfg.dp_devices is not None or cfg.sp_devices:
-        unported.append("meshes (dp_devices / sp_devices)")
     if cfg.logger in ("wandb", "tensorboard"):
         unported.append(f"the {cfg.logger} logger")
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} {ROADMAP_NOTE}")
+    if cfg.sp_devices:
+        raise NotImplementedError(f"{cfg.name}: sp_devices (dp x sp spatial partitioning, which needs halo exchange "
+                                  f"between ranks) is not ported yet; see ROADMAP.md, A10a")
     if cfg.augment_backend not in ("host", "device"):
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
     if cfg.logger not in ("file", "console", "none"):

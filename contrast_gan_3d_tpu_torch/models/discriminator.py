@@ -8,8 +8,9 @@ channels with ``norm`` ("batch", None for the gradient-penalty presets,
 "layer" for ``gp_layernorm``), then a k=4, s=1, p=1 conv to a 1-channel logit map: patch-wise
 realism scores with no global pooling. Module names ``first``,
 ``middle_{n}`` and ``last`` follow the flax ones. The default config has
-176,873 parameters. ``dtype`` is every block's compute dtype
-(``models/blocks.py``); the logits come out in it.
+176,873 parameters, drawn at construction as flax draws them
+(``models/utils.init_like_flax``). ``dtype`` is every block's compute
+dtype (``models/blocks.py``); the logits come out in it.
 """
 
 from typing import Optional
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock
+from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 
 
 class PatchGANDiscriminator(nn.Module):
@@ -43,6 +45,7 @@ class PatchGANDiscriminator(nn.Module):
             c_in = c_out
         self.last = ConvBlock(c_in, 1, kernel_size, stride=1, padding=1, norm=None, activation=None, dtype=dtype,
                               ndim=ndim)
+        init_like_flax(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.first(x)

@@ -11,7 +11,9 @@ map in (-1, 1) that the caller subtracts.
 In 3D with ``s2d_factor=4`` (the default) the stem and projection run
 through space-to-depth and the block-conv kernel (B3 -> B1). In 2D
 ``s2d_factor`` is ignored, as in the JAX block: every conv is cuDNN's.
-The default config has 1,035,297 parameters.
+The default config has 1,035,297 parameters. Its initial weights are
+drawn as flax draws the JAX generator's (``models/utils.init_like_flax``:
+``lecun_normal`` kernels, zero biases), in both layouts.
 
 ``layout="packed"`` (3D, ``norm="batch"``, ``n_updownsample_blocks >= 1``)
 runs the same modules and ``state_dict`` in block space (``ops/packed.py``):
@@ -42,6 +44,7 @@ import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock
+from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 
@@ -124,6 +127,7 @@ class ResnetGenerator(nn.Module):
             c0, 1, 7, padding=3, padding_mode="reflect", norm=None,
             activation="tanh", s2d=s2d_factor, dtype=dtype, ndim=ndim,
         )
+        init_like_flax(self)
 
     def check_packed(self) -> None:
         """The JAX package's guards of the packed layout."""

@@ -10,6 +10,12 @@
   caller's backward reaches the critic's parameters.
 - ``scale_bounds``: the intensity scaler applied to the HU corridor.
 
+Under a data-parallel group (``mesh``, a ``parallel/mesh.DataMesh``) every
+batch reduction runs over the GLOBAL batch, as the JAX package's GSPMD
+program computes it: means, the ZNCC's ddof=1 std, the HU loss's sums and
+the penalty's mean are this rank's partial sums all-reduced
+(``mesh.all_sum``), never per-rank losses averaged across ranks.
+
 On bf16 inputs the losses round as the JAX functions do: a mean or sum
 accumulates in f32 and returns the input's dtype (``jnp.mean``), the std
 is computed in f32 and returned in the input's dtype (``jnp.std``), and
@@ -22,50 +28,61 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-
-def _mean(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.mean``: accumulated in f32, returned in x's dtype."""
-    return x.mean(dtype=torch.float32).to(x.dtype)
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
-def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None) -> torch.Tensor:
-    ret = _mean(fake)
+def _mean(x: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
+    """``jnp.mean``: accumulated in f32, returned in x's dtype; over
+    ``mesh``'s global batch."""
+    return (mesh.all_sum(x.sum(dtype=torch.float32)) / (x.numel() * mesh.world_size)).to(x.dtype)
+
+
+def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None, mesh=LOCAL) -> torch.Tensor:
+    ret = _mean(fake, mesh)
     if real is not None:
-        ret = ret - _mean(real)
+        ret = ret - _mean(real, mesh)
     return ret
 
 
 class StableStd(torch.autograd.Function):
     """std with ddof=1; backward ``(2/(n-1)) * g / (2*std + 1e-6) * (x - mean)``
-    (the 1e-6 keeps a near-constant input's gradient finite)."""
+    (the 1e-6 keeps a near-constant input's gradient finite). The std, its
+    mean and ``n`` are ``mesh``'s global batch's, and the backward sums the
+    ranks' incoming gradients (``mesh.all_sum``'s convention)."""
 
     @staticmethod
-    def forward(ctx, x):
-        std = torch.std(x.float(), correction=1).to(x.dtype)
-        ctx.save_for_backward(x, std)
+    def forward(ctx, x, mesh=LOCAL):
+        n = x.numel() * mesh.world_size
+        xf = x.float()
+        mean = mesh.all_sum(xf.sum()) / n
+        var = mesh.all_sum((xf - mean).square().sum()) / (n - 1)
+        std = torch.sqrt(var).to(x.dtype)
+        ctx.save_for_backward(x, std, mean.to(x.dtype))
+        ctx.mesh, ctx.n = mesh, n
         return std
 
     @staticmethod
     def backward(ctx, g):
-        x, std = ctx.saved_tensors
-        n = x.numel()
-        return (2.0 / (n - 1.0)) * (g / (std * 2 + 1e-6)) * (x - _mean(x))
+        x, std, mean = ctx.saved_tensors
+        g = ctx.mesh.all_sum(g)
+        return (2.0 / (ctx.n - 1.0)) * (g / (std * 2 + 1e-6)) * (x - mean), None
 
 
-def zncc_loss(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """-ZNCC(source, target) over the whole batch."""
-    cc = _mean((source - _mean(source)) * (target - _mean(target)))
-    std = StableStd.apply(source) * StableStd.apply(target)
+def zncc_loss(source: torch.Tensor, target: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
+    """-ZNCC(source, target) over the whole (global) batch."""
+    cc = _mean((source - _mean(source, mesh)) * (target - _mean(target, mesh)), mesh)
+    std = StableStd.apply(source, mesh) * StableStd.apply(target, mesh)
     return -(cc / (std + 1e-8))
 
 
-def hu_loss(batch: torch.Tensor, mask: torch.Tensor, min_hu: float, max_hu: float) -> torch.Tensor:
+def hu_loss(batch: torch.Tensor, mask: torch.Tensor, min_hu: float, max_hu: float, mesh=LOCAL) -> torch.Tensor:
     """Two-sided HU-corridor MSE on masked (centerline) voxels; ``min_hu`` /
-    ``max_hu`` are in scaled units (``scale_bounds``)."""
+    ``max_hu`` are in scaled units (``scale_bounds``). ``sum(loss) /
+    sum(mask)`` over the whole (global) batch."""
     below = torch.square(torch.clamp(batch, max=min_hu) - min_hu)
     above = torch.square(torch.clamp(batch, min=max_hu) - max_hu)
-    loss = (below + above) * mask
-    return loss.sum() / (mask.sum() + 1e-8)
+    loss, count = mesh.all_sum(((below + above) * mask).sum()), mesh.all_sum(mask.sum())
+    return loss / (count + 1e-8)
 
 
 def gradient_penalty(
@@ -75,6 +92,7 @@ def gradient_penalty(
     generator: torch.Generator,
     lambda_: float = 10.0,
     eps: Optional[torch.Tensor] = None,
+    mesh=LOCAL,
 ) -> torch.Tensor:
     """WGAN-GP: ``lambda_ * mean((||d critic(interp) / d interp||_2 - 1)^2)``
     on ``interp = eps * real + (1 - eps) * fake``.
@@ -83,19 +101,33 @@ def gradient_penalty(
     only the critic). When batch sizes differ, both are resampled to the
     smaller one with ``generator``; ``eps`` (broadcastable to ``(n, 1, ...)``)
     fixes the interpolation, else it is drawn uniform per sample in
-    ``real``'s dtype, in which the interpolation runs."""
+    ``real``'s dtype, in which the interpolation runs.
+
+    ``real`` and ``fake`` are this rank's shares of ``mesh``'s global
+    batch: the resampling indices and ``eps`` are drawn for the global
+    batch on every rank (the generators stay in lockstep) and each rank
+    keeps its slice; the resampled global count must divide the ranks."""
     n = min(real.shape[0], fake.shape[0])
     dev = real.device
     if real.shape[0] != fake.shape[0]:
+        real, fake = mesh.all_gather(real), mesh.all_gather(fake)
+        n = min(real.shape[0], fake.shape[0])
         real = real[torch.randint(0, real.shape[0], (n,), generator=generator, device=dev)]
         fake = fake[torch.randint(0, fake.shape[0], (n,), generator=generator, device=dev)]
+        if n % mesh.world_size:
+            raise ValueError(f"the gradient penalty resamples {n} pairs, which do not split over "
+                             f"{mesh.world_size} ranks")
+        n //= mesh.world_size
+        keep = mesh.global_slice(n)
+        real, fake = real[keep], fake[keep]
     if eps is None:
-        eps = torch.rand((n,) + (1,) * (real.dim() - 1), generator=generator, device=dev, dtype=real.dtype)
+        eps = torch.rand((n * mesh.world_size,) + (1,) * (real.dim() - 1), generator=generator, device=dev,
+                         dtype=real.dtype)[mesh.global_slice(n)]
     interp = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(critic_fn(interp).sum(), interp, create_graph=True)
     sq = grads.reshape(n, -1).square().sum(-1, dtype=torch.float32).to(grads.dtype)
     grad_norms = torch.sqrt(sq + 1e-12)
-    return lambda_ * _mean((grad_norms - 1.0).square())
+    return lambda_ * _mean((grad_norms - 1.0).square(), mesh)
 
 
 def scale_bounds(scaler, bounds: Tuple[float, float]) -> Tuple[float, float]:

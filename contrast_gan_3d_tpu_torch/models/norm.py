@@ -19,6 +19,13 @@ NCHW), and the per-sample ``LayerNorm`` of the layer-norm critic.
   the statistics update (the critic in the generator's loss and in the
   gradient penalty, ``trainer/steps.py``).
 
+- Under a data-parallel group (``mesh``, a ``parallel/mesh.DataMesh``;
+  ``set_mesh``) train mode takes its statistics over the GLOBAL batch, as
+  the JAX package's GSPMD program does: the per-channel sums and sums of
+  squares of every rank are all-reduced (differentiably, as
+  ``SyncBatchNorm`` does), and the running variance's ``n`` is the global
+  count.
+
 Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
 ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
 """
@@ -28,6 +35,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
 class BatchNorm(nn.Module):
@@ -47,16 +56,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.update_stats = True
+        self.mesh = LOCAL
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = x.mean(axes, dtype=torch.float32)
-            mean2 = x.square().mean(axes, dtype=torch.float32)
+            n = x.numel() // x.shape[1] * self.mesh.world_size
+            sums = torch.cat([x.sum(axes, dtype=torch.float32), x.square().sum(axes, dtype=torch.float32)])
+            mean, mean2 = (self.mesh.all_sum(sums) / n).split(x.shape[1])
             var = torch.clamp(mean2 - mean.square(), min=0.0)
             if self.update_stats:
-                n = x.numel() // x.shape[1]
                 with torch.no_grad():
                     unbiased = var * (n / (n - 1)) if n > 1 else var
                     m = self.momentum
@@ -68,6 +78,14 @@ class BatchNorm(nn.Module):
         add = self.bias - mean * mult
         dtype = self.dtype or x.dtype
         return x.to(dtype) * mult.to(dtype).view(shape) + add.to(dtype).view(shape)
+
+
+def set_mesh(module: nn.Module, mesh) -> None:
+    """Take ``module``'s BatchNorm statistics over ``mesh``'s global batch
+    (``parallel/mesh.LOCAL``: this device's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 @contextmanager

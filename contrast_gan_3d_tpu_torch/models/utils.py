@@ -1,13 +1,46 @@
-"""Model introspection helpers (counterpart of
-``contrast_gan_3d_tpu/models/utils.py``): torch-style conv output shapes,
-the generator's architecture read back from its weights, and parameter
-counts."""
+"""Model helpers (counterpart of ``contrast_gan_3d_tpu/models/utils.py``):
+torch-style conv output shapes, the generator's architecture read back from
+its weights, parameter counts, and flax's initial weights
+(``init_like_flax``)."""
 
+import math
 import re
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 from torch import nn
+
+# flax's truncated_normal correction: the std of a unit normal cut at +-2
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+_CONVS = (nn.Conv2d, nn.Conv3d)
+_TCONVS = (nn.ConvTranspose2d, nn.ConvTranspose3d)
+
+
+def flax_fan_in(conv: nn.Module) -> int:
+    """The fan-in flax's ``lecun_normal`` gives the kernel this module
+    replaces: ``in_ch * prod(kernel)`` for a conv and for a transpose conv
+    alike (flax's kernel is ``(*k, in, out)``). torch's
+    ``_calculate_fan_in_and_fan_out`` reads a transpose conv's ``(in, out,
+    *k)`` weight as ``out * prod(kernel)``, so it is not used."""
+    return conv.in_channels * math.prod(conv.kernel_size)
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module) -> nn.Module:
+    """Draw ``module``'s initial weights as the JAX package's flax modules
+    draw theirs: every conv and transpose-conv kernel from ``lecun_normal``
+    (a normal cut at +-2 std, std ``sqrt(1 / fan_in) / 0.8796...``, the
+    fan-in of :func:`flax_fan_in`), every conv bias zero; norm scales stay
+    ones and norm biases zeros. Draws from torch's global generator (the
+    builder seeds it). Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, _CONVS + _TCONVS):
+            s = math.sqrt(1.0 / flax_fan_in(m)) / TRUNCATED_NORMAL_STD
+            nn.init.trunc_normal_(m.weight, std=s, a=-2.0 * s, b=2.0 * s)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
 
 
 def conv_output_shape(

@@ -148,9 +148,11 @@ def num_patches(
 
 def make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype):
     """The direct layout's gather / forward / scatter over one batch of
-    start corners: ``run_batch(acc, starts)``."""
+    start corners: ``run_batch(acc, starts, valid=None)``; ``valid`` is a
+    per-patch 0/1 weight vector for grids padded to uniform batches (the
+    sharded corrector)."""
 
-    def run_batch(acc, starts):
+    def run_batch(acc, starts, valid=None):
         patches = torch.stack([
             vol[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]]
             for x, y, z in starts
@@ -163,7 +165,8 @@ def make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype):
             atten = resize_linear(atten[..., None], patch_size)[..., 0]
         atten = atten.float()
         for i, (x, y, z) in enumerate(starts):
-            acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * gw
+            w = gw if valid is None else gw * float(valid[i])
+            acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * w
 
     return run_batch
 
@@ -173,20 +176,31 @@ def make_packed_patch_loop(vp, patch_size, gw_p, generator_apply):
     the f2-packed volume, ``generator_apply`` takes f2-packed patches
     (B, p/2, p/2, p/2, 8) and returns the f4-packed attenuation (B, p/4,
     p/4, p/4, 64), and the accumulator and window ``gw_p`` are f4-packed.
-    Every start is a multiple of 4."""
+    Every start is a multiple of 4. ``valid`` as in
+    :func:`make_direct_patch_loop`."""
     p2 = tuple(p // 2 for p in patch_size)
     p4 = tuple(p // 4 for p in patch_size)
 
-    def run_batch(acc, starts):
+    def run_batch(acc, starts, valid=None):
         patches = torch.stack([
             vp[x // 2 : x // 2 + p2[0], y // 2 : y // 2 + p2[1], z // 2 : z // 2 + p2[2]]
             for x, y, z in starts
         ])
         atten = generator_apply(patches).float()
         for i, (x, y, z) in enumerate(starts):
-            acc[x // 4 : x // 4 + p4[0], y // 4 : y // 4 + p4[1], z // 4 : z // 4 + p4[2]] += atten[i] * gw_p
+            w = gw_p if valid is None else gw_p * float(valid[i])
+            acc[x // 4 : x // 4 + p4[0], y // 4 : y // 4 + p4[1], z // 4 : z // 4 + p4[2]] += atten[i] * w
 
     return run_batch
+
+
+def scan_patch_batches_masked(run_batch, acc, starts_b, valid_b):
+    """The masked grid (the sharded corrector): uniform batches of starts,
+    each with its per-patch 0/1 validity vector, in order (the JAX
+    ``scan_patch_batches_masked``). Returns ``acc``."""
+    for starts, valid in zip(starts_b, valid_b):
+        run_batch(acc, starts, valid)
+    return acc
 
 
 def packed_padded_shape(shape, patch_size) -> Tuple[int, int, int]:

@@ -14,8 +14,10 @@ defaults are the JAX command's: 128^3 patches at overlap 0.25, bf16,
 window at batch 24 for a 3D batch-norm generator), port 8390 on every
 interface, 4 requests in flight. Runs on the card unless ``--device cpu``.
 SIGTERM or Ctrl-C drains the requests in flight and exits; a second one
-aborts the drain. Sharding each volume over several cards (``--dp-devices``)
-is not ported (ROADMAP.md, A10).
+aborts the drain. ``--dp-devices N`` splits each volume's patch grid over
+the first N cards (``CCTAContrastCorrector.shard_over``; on the CPU, N
+shares of it): 3D checkpoints only, not ``--artifact`` (an artifact is one
+exported single-device program) and not 2D, as in JAX.
 """
 
 import argparse
@@ -27,6 +29,7 @@ import torch
 
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
 from contrast_gan_3d_tpu_torch.eval.export import ArtifactBundle, load_exported_corrector
+from contrast_gan_3d_tpu_torch.parallel.inference import local_devices
 from contrast_gan_3d_tpu_torch.serving import CorrectionServer
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -57,7 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--max-inflight", type=int, default=4,
                    help="max concurrent requests holding volume bytes in host memory (held through the response "
                         "write); the excess queues before reading its body (default 4, min 1)")
-    p.add_argument("--dp-devices", type=int, default=None, help="not ported (ROADMAP.md, A10)")
+    p.add_argument("--dp-devices", type=int, default=None,
+                   help="shard each volume's patch grid over the first N cards (3D checkpoints only, not "
+                        "--artifact / 2D)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if len(args.patch) not in (2, 3):
@@ -65,8 +70,14 @@ def parse_args(argv=None):
     if args.max_inflight < 1:
         p.error("--max-inflight must be >= 1 (the cap is the host-memory bound; 0 would block every request)")
     if args.dp_devices is not None:
-        p.error("--dp-devices: sharding each volume's patch grid over several cards is not ported yet "
-                "(ROADMAP.md, A10)")
+        if args.artifact:
+            p.error("--dp-devices needs the live corrector; a correction artifact is exported for one device")
+        if len(args.patch) == 2:
+            p.error("--dp-devices applies to the 3D sliding window only")
+        if args.dp_devices < 1:
+            p.error("--dp-devices must be >= 1")
+        if args.device != "cpu" and torch.cuda.is_available() and args.dp_devices > torch.cuda.device_count():
+            p.error(f"--dp-devices {args.dp_devices}: only {torch.cuda.device_count()} CUDA devices are visible")
     return args
 
 
@@ -89,6 +100,9 @@ def build_server(args) -> CorrectionServer:
             corrector = CCTAContrastCorrector.from_reference_checkpoint(args.checkpoint, **kwargs)
         else:
             corrector = CCTAContrastCorrector.from_checkpoint(args.checkpoint, **kwargs)
+        if args.dp_devices is not None:
+            corrector.shard_over(local_devices(device, args.dp_devices))
+            logging.getLogger(__name__).info("serving with the patch grid sharded over %d devices", args.dp_devices)
         warmup = tuple(args.warmup_shape) if args.warmup_shape else None
     return CorrectionServer(corrector, host=args.host, port=args.port, warmup_shape=warmup,
                             max_inflight=args.max_inflight)

@@ -11,12 +11,31 @@ pickle holds ``{"train": [fold, ...], "test": [fold, ...]}``, a fold a list
 of (patient path, label). Runs on the card unless ``--device cpu``. A run
 whose checkpoint directory already holds checkpoints resumes from the
 latest (model, optimizers, random generator and data streams).
-Building folds from dataset sheets, wandb, the profiler and multi-host
-runs are not ported (ROADMAP).
+
+Data parallelism (``parallel/``): ``--dp-devices N`` trains on N cards, one
+rank each (``--dp-devices 0``: every visible card), on the batches a
+one-card run with the same seed trains on: every rank runs the same seeded
+loaders and keeps its share of each batch. Outside torchrun the command
+starts the N ranks itself; under ``torchrun --nproc-per-node N`` each
+process is one. ``--multihost`` joins torchrun's multi-node group (and
+implies ``--dp-devices 0``): each host samples its round-robin share of
+the fold (``multihost.host_fold_shard``) and its ranks split that host's
+batches. Train batches are rounded up to multiples of the world size, as
+JAX's CLI rounds them. On the CPU (``--device cpu``) the ranks are gloo
+processes.
+
+``--debug`` turns on autograd's anomaly mode and checks every step's
+metrics for NaN / inf (``utils/debug.py``); anomaly mode cannot run in a
+captured CUDA graph, so ``--debug`` dispatches every iteration eagerly
+(``cycle_length`` 1) and logs it. ``--profiler-dir`` traces steps with
+``torch.profiler`` (the first ``--profiler-steps``, or a
+``--profiler-schedule``) into Chrome traces there.
+Building folds from dataset sheets and wandb are not ported (ROADMAP).
 """
 
 import argparse
 import logging
+import os
 import pickle
 import signal
 import sys
@@ -27,13 +46,19 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
 from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import ExperimentConfig, asdict_flat, load_config
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
-from contrast_gan_3d_tpu_torch.trainer.trainer import Trainer, install_preemption_handler
+from contrast_gan_3d_tpu_torch.parallel import multihost
+from contrast_gan_3d_tpu_torch.parallel.mesh import DataMesh, data_mesh, spawn_ranks
+from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, install_preemption_handler
+from contrast_gan_3d_tpu_torch.utils.debug import enable_nan_debugging
 from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
+from contrast_gan_3d_tpu_torch.utils import memory as memory_lib
 
 logger = logging.getLogger("contrast_gan_3d_tpu_torch.train")
 
@@ -47,10 +72,74 @@ class FoldRun:
     val_loaders: Optional[dict]
 
 
+def round_train_batches(bs: dict, n: int) -> dict:
+    """The least rounding of the train batch sizes for ``n`` data-parallel
+    ranks, as JAX's CLI rounds them: the Trainer needs only ``opt % n ==
+    0`` and ``(LOW + HIGH) % n == 0``; the sub-optimal pad splits as evenly
+    as it can over LOW and HIGH."""
+    subopt = bs.get(LOW, 0) + bs.get(HIGH, 0)
+    opt_b = bs.get(OPT, 0)
+    if not (opt_b % n or subopt % n):
+        return dict(bs)
+    new_bs = dict(bs)
+    if opt_b % n:
+        new_bs[OPT] = -(-opt_b // n) * n
+    extra = (-subopt) % n
+    new_bs[LOW] = bs.get(LOW, 0) + (extra - extra // 2)
+    new_bs[HIGH] = bs.get(HIGH, 0) + extra // 2
+    return new_bs
+
+
+def make_profiler(out_dir, steps: int = 20, schedule: Optional[str] = None) -> torch.profiler.profile:
+    """A ``torch.profiler.profile`` that traces the first ``steps`` steps, or
+    ``schedule`` (``"skip_first=500,active=10[,wait=..,warmup=..,repeat=..]"``,
+    ``torch.profiler.schedule``'s arguments; repeat defaults to 1), and
+    writes each traced window as a Chrome trace into ``out_dir``. On the
+    card it also records the allocator's history over each window (from
+    its first warm-up or traced step) and writes it after the window as
+    ``memory_step<N>.pickle`` beside the live-block table
+    ``memory_step<N>.txt`` (``utils/memory.write_memory_snapshot``), the
+    counterpart of the JAX CLI's memory profile. CPU and, on the card, CUDA
+    activity, with memory."""
+    kwargs = dict(wait=0, warmup=0, active=steps, repeat=1, skip_first=0)
+    if schedule:
+        for part in schedule.split(","):
+            if part.strip():
+                k, v = part.split("=")
+                if k.strip() not in kwargs:
+                    raise ValueError(f"--profiler-schedule: unknown key {k.strip()!r} (expected {sorted(kwargs)})")
+                kwargs[k.strip()] = int(v)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    write_trace = torch.profiler.tensorboard_trace_handler(str(out_dir))
+    windows = torch.profiler.schedule(**kwargs)
+    recording = False
+
+    def schedule_fn(step: int) -> torch.profiler.ProfilerAction:
+        nonlocal recording
+        action = windows(step)
+        if action != torch.profiler.ProfilerAction.NONE and not recording:
+            recording = memory_lib.record_memory_history(True)
+        return action
+
+    def on_trace_ready(prof):
+        nonlocal recording
+        write_trace(prof)
+        memory_lib.write_memory_snapshot(out_dir, f"step{prof.step_num}")
+        if recording:
+            memory_lib.record_memory_history(False)
+            recording = False
+
+    return torch.profiler.profile(activities=activities, schedule=schedule_fn, on_trace_ready=on_trace_ready,
+                                  profile_memory=True, record_shapes=True)
+
+
 @dataclass
 class TrainManager:
-    """Per-fold orchestration (the JAX ``TrainManager`` without meshes,
-    wandb and the profiler)."""
+    """Per-fold orchestration (the JAX ``TrainManager`` without wandb).
+    ``mesh``: this rank's ``DataMesh`` in a data-parallel run."""
 
     config: ExperimentConfig
     train_folds: List
@@ -61,6 +150,8 @@ class TrainManager:
     max_folds: int = 1
     max_hours: Optional[float] = None
     device: str = "cuda"
+    mesh: Optional[DataMesh] = None
+    profiler_factory: Optional[object] = None  # () -> torch.profiler.profile
     runs: List[FoldRun] = field(default_factory=list)
     _t0: float = field(default_factory=time.monotonic)
 
@@ -76,7 +167,16 @@ class TrainManager:
                              f"{len(self.train_folds)} folds available")
 
     def _remaining_s(self) -> Optional[float]:
-        return None if self.max_hours is None else self.max_hours * 3600.0 - (time.monotonic() - self._t0)
+        """The --max-hours budget left; under a mesh rank 0's, so that every
+        rank makes the same decision."""
+        if self.max_hours is None:
+            return None
+        remaining = self.max_hours * 3600.0 - (time.monotonic() - self._t0)
+        if self.mesh is not None:
+            t = torch.tensor([remaining], dtype=torch.float64, device=self.mesh.device)
+            dist.broadcast(t, src=0, group=self.mesh.group)
+            remaining = float(t.item())
+        return remaining
 
     def run_fold(self, fold_idx: int, train_fold, val_fold):
         cfg = self.config
@@ -89,21 +189,49 @@ class TrainManager:
             run_name = f"{self.run_id}-fold{fold_idx}"
         ckpt_dir = Path(self.checkpoint_root) / run_name
 
+        mesh = self.mesh
+        loader_train_bs, loader_val_bs = dict(cfg.train_batch_size), dict(cfg.val_batch_size)
+        if mesh is not None:
+            rounded = round_train_batches(loader_train_bs, mesh.world_size)
+            if rounded != loader_train_bs:
+                logger.warning("Rounding train batch sizes %s -> %s to divide the %d data-parallel ranks",
+                               loader_train_bs, rounded, mesh.world_size)
+                cfg = replace(cfg, train_batch_size=rounded)
+                loader_train_bs = dict(rounded)
+            if mesh.hosts > 1:
+                bad = {k: v for k, v in loader_train_bs.items() if v % mesh.hosts}
+                if bad:
+                    raise SystemExit(f"train batch sizes {bad} must be divisible by the {mesh.hosts} hosts (each "
+                                     f"host loads its share)")
+                train_fold = multihost.host_fold_shard(train_fold, mesh.host_index, mesh.hosts)
+                if val_fold:
+                    val_fold = multihost.host_fold_shard(val_fold, mesh.host_index, mesh.hosts)
+                loader_train_bs = {k: v // mesh.hosts for k, v in loader_train_bs.items()}
+                loader_val_bs = {k: max(1, v // mesh.hosts) for k, v in loader_val_bs.items()}
+                logger.info("Host %d/%d: %d-patient fold shard, per-host train batches %s", mesh.host_index,
+                            mesh.hosts, len(train_fold), loader_train_bs)
+            if mesh.rank != 0 and cfg.logger == "file":
+                cfg = replace(cfg, logger="none")  # rank 0 writes the metrics
+
         built = build(cfg, checkpoint_dir=str(ckpt_dir), device=self.device)
         host_rng = np.random.default_rng(built.seed)
-        loader_kw = dict(to_device=True, device=self.device)
-        train_loaders = create_loaders(train_fold, cfg.train_patch_size, cfg.train_batch_size, host_rng,
+        if mesh is not None and mesh.hosts > 1:
+            # the hosts sample disjoint patients; their streams differ too
+            host_rng = host_rng.spawn(mesh.hosts)[mesh.host_index]
+        # under a mesh a rank moves only its share of each batch (Trainer._assemble)
+        loader_kw = dict(to_device=mesh is None, device=self.device)
+        train_loaders = create_loaders(train_fold, cfg.train_patch_size, loader_train_bs, host_rng,
                                        num_threads=cfg.num_workers[0], prefetch=cfg.prefetch_depth,
                                        augmenter=built.host_augmenter,
                                        p_centerline_3d=0.0 if cfg.is_2d else cfg.p_centerline_3d,
                                        **loader_kw)
         val_loaders = None
         if cfg.validate_every is not None and val_fold:
-            val_loaders = create_loaders(val_fold, cfg.val_patch_size, cfg.val_batch_size, host_rng,
+            val_loaders = create_loaders(val_fold, cfg.val_patch_size, loader_val_bs, host_rng,
                                          num_threads=cfg.num_workers[1], prefetch=1, **loader_kw)
         trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
                           built.trainer_config, seed=built.seed, logger_interface=built.logger_interface,
-                          device=self.device)
+                          device=self.device, mesh=mesh)
         logger.info("Fold %d | G params %s | D params %s | config %s", fold_idx,
                     f"{count_parameters(trainer.state.generator):,}", f"{count_parameters(trainer.state.critic):,}",
                     asdict_flat(cfg))
@@ -117,8 +245,9 @@ class TrainManager:
         try:
             # f32 work trains in full f32 (bf16 work is unaffected); the
             # switches set at a cycle's capture bind the graph that replays it
+            profiler = self.profiler_factory() if self.profiler_factory and trainer.is_writer else None
             with full_f32():
-                trainer.fit(train_loaders, val_loaders)
+                trainer.fit(train_loaders, val_loaders, profiler=profiler)
         finally:
             if budget_timer is not None:
                 budget_timer.cancel()
@@ -140,29 +269,96 @@ def parse_args(argv=None):
                    help="wall-clock budget: when it expires the trainer finishes the iteration, "
                         "checkpoints and exits 0; resume with the same command")
     p.add_argument("--checkpoint-keep", type=int, default=None, help="keep only the newest N checkpoints")
+    p.add_argument("--cycle-length", type=int, default=None,
+                   help="schedule iterations per dispatch. Omitted: auto (the schedule period, 5 for every preset "
+                        "but train_generator_more, when every cadence divides it; replayed as one CUDA graph on "
+                        "the card). 1 forces per-iteration dispatch; K > 1 forces K")
     p.add_argument("--logger", choices=["file", "console", "none"], default=None)
+    p.add_argument("--dp-devices", type=int, default=None,
+                   help="data-parallel over N cards, one rank each (0 = every visible card); on the CPU, N gloo "
+                        "ranks")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's multi-node process group (one torchrun per host); each host samples its "
+                        "share of the fold and its ranks split its batches. Implies --dp-devices 0")
+    p.add_argument("--profiler-dir", default=None, help="write torch.profiler Chrome traces here")
+    p.add_argument("--profiler-steps", type=int, default=20, help="trace the first N steps")
+    p.add_argument("--profiler-schedule", default=None,
+                   help="'skip_first=500,active=10[,wait=..,warmup=..,repeat=..]' (torch.profiler.schedule); "
+                        "with cycles a step is one cycle")
+    p.add_argument("--debug", action="store_true",
+                   help="autograd anomaly mode and a finite check of every step's metrics; dispatches every "
+                        "iteration eagerly (no CUDA graphs)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.dp_devices is not None and args.dp_devices < 0:
+        p.error("--dp-devices must be >= 0")
+    if args.dp_devices and args.device != "cpu" and torch.cuda.is_available() \
+            and args.dp_devices > torch.cuda.device_count() and "RANK" not in os.environ:
+        p.error(f"--dp-devices {args.dp_devices}: only {torch.cuda.device_count()} CUDA devices are visible")
+    if args.dp_devices == 0 and args.device == "cpu" and not args.multihost:
+        p.error("--dp-devices 0 means every visible card; on the CPU give the number of ranks")
+    return args
 
 
-def main(argv=None) -> TrainManager:
+def main(argv=None) -> Optional[TrainManager]:
     """Run the CLI in-process; returns the manager (its ``runs`` hold each
-    fold's trainer and loaders)."""
+    fold's trainer and loaders), or None in the process that started the
+    data-parallel ranks (they ran the folds)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     device = str(resolve_device(args.device))
     cfg = load_config(args.conf)
+    if args.multihost and args.dp_devices is None and cfg.dp_devices is None and not cfg.sp_devices:
+        # --multihost means one model over every host: data-parallel over
+        # every device, not one independent run per host
+        logger.info("--multihost without a mesh config: defaulting --dp-devices 0")
+        args.dp_devices = 0
     overrides = {k: v for k, v in (("train_iterations", args.iterations), ("checkpoint_keep", args.checkpoint_keep),
-                                   ("logger", args.logger)) if v is not None}
+                                   ("logger", args.logger), ("cycle_length", args.cycle_length),
+                                   ("dp_devices", args.dp_devices)) if v is not None}
     if overrides:
         cfg = replace(cfg, **overrides)
+    backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
+    mesh = None
+    owns_group = False
+    if cfg.dp_devices is not None:
+        if not dist.is_initialized():
+            if "RANK" not in os.environ and not args.multihost:
+                # no launcher: start the ranks here, one per card
+                n = cfg.dp_devices or torch.cuda.device_count()
+                logger.info("Starting %d data-parallel ranks (%s)", n, backend)
+                spawn_ranks(main, n, (argv,), backend=backend)
+                return None
+            multihost.initialize(backend)
+            owns_group = True
+        host, hosts = multihost.host_topology()
+        mesh_device = None if backend == "nccl" else "cpu"
+        mesh = data_mesh(cfg.dp_devices or None, device=mesh_device, hosts=hosts)
+        device = str(mesh.device)
+        logger.info("Data-parallel rank %d/%d on %s (host %d/%d)", mesh.rank, mesh.world_size, device, host, hosts)
+    anomaly = torch.is_anomaly_enabled()
+    if args.debug:
+        enable_nan_debugging()
+        logger.warning("--debug: autograd anomaly mode cannot run inside a captured CUDA graph; every iteration "
+                       "dispatches eagerly (cycle_length %s -> 1), and every step's metrics are checked for NaN / "
+                       "inf", cfg.cycle_length if cfg.cycle_length is not None else "auto")
+        cfg = replace(cfg, cycle_length=1)
     with open(args.cval_splits, "rb") as fd:
         splits = pickle.load(fd)
+    profiler_factory = None
+    if args.profiler_dir:
+        profiler_factory = lambda: make_profiler(args.profiler_dir, args.profiler_steps, args.profiler_schedule)
     manager = TrainManager(cfg, splits["train"], splits["test"], checkpoint_root=Path(args.checkpoint_root),
                            run_id=args.run_id, starting_fold=args.starting_fold, max_folds=args.max_folds,
-                           max_hours=args.max_hours, device=device)
-    manager()
+                           max_hours=args.max_hours, device=device, mesh=mesh, profiler_factory=profiler_factory)
+    try:
+        manager()
+    finally:
+        enable_nan_debugging(anomaly)
+        if owns_group:
+            dist.destroy_process_group()
     return manager
 
 

@@ -57,8 +57,12 @@ def meta_path(ckpt_dir, step: int) -> Path:
     return Path(ckpt_dir) / f"{int(step)}.meta.json"
 
 
-def data_state_path(ckpt_dir, step: int) -> Path:
-    return Path(ckpt_dir) / f"{int(step)}.data.pkl"
+def data_state_path(ckpt_dir, step: int, host_index: int = 0, host_count: int = 1) -> Path:
+    """``<step>.data.pkl``; a multi-host run writes one per host
+    (``<step>.data.host<i>.pkl``: the hosts' fold shards differ), as the
+    JAX package does."""
+    host = "" if host_count == 1 else f".host{host_index}"
+    return Path(ckpt_dir) / f"{int(step)}.data{host}.pkl"
 
 
 def find_latest_checkpoint(ckpt_dir) -> Optional[Path]:
@@ -191,35 +195,40 @@ def maybe_restore(state, ckpt_dir):
     return state if latest is None else load_checkpoint(latest, state)
 
 
-def save_data_state(loaders: Dict, ckpt_dir, step: int) -> Path:
-    """Write the loaders' stream states beside ``<step>.pt``."""
+def save_data_state(loaders: Dict, ckpt_dir, step: int, host_index: int = 0, host_count: int = 1) -> Path:
+    """Write the loaders' stream states beside ``<step>.pt`` (this host's,
+    in a multi-host run)."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     payload = {
         "format": 2,
-        "process_count": 1,
-        "process_index": 0,
+        "process_count": host_count,
+        "process_index": host_index,
         "loaders": {label: loader.get_state() for label, loader in loaders.items()},
     }
-    path = data_state_path(ckpt_dir, step)
+    path = data_state_path(ckpt_dir, step, host_index, host_count)
     tmp = path.with_suffix(".pkl.tmp")
     tmp.write_bytes(pickle.dumps(payload))
     tmp.rename(path)
     return path
 
 
-def maybe_restore_data_state(loaders: Dict, ckpt_dir, step: int) -> bool:
+def maybe_restore_data_state(loaders: Dict, ckpt_dir, step: int, host_index: int = 0, host_count: int = 1) -> bool:
     """Restore the loader states saved at ``step`` (loaders not started).
     True only when every loader's stream was restored; a missing sidecar,
-    another process count, a missing loader or another patient list
+    another host count, a missing loader or another patient list
     leaves those streams fresh, with a warning (the model restores
     either way)."""
-    path = data_state_path(ckpt_dir, step)
+    path = data_state_path(ckpt_dir, step, host_index, host_count)
     if not path.exists():
+        others = sorted(Path(ckpt_dir).glob(f"{int(step)}.data*.pkl"))
+        if others:
+            logger.warning("No data-stream sidecar for this host at step %d, but %s exist (another host count); "
+                           "starting fresh data streams", int(step), [p.name for p in others])
         return False
     payload = pickle.loads(path.read_bytes())  # written by save_data_state
     if isinstance(payload, dict) and payload.get("format") == 2:
-        if payload["process_count"] != 1:
+        if payload["process_count"] != host_count:
             logger.warning("Data-stream sidecar '%s' was written by a %d-process run; starting fresh data streams",
                            path, payload["process_count"])
             return False

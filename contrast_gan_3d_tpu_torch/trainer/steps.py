@@ -34,6 +34,20 @@ iterations as one ``CycleStep``: a replayed CUDA graph on the card, the
 loop over the steps on the CPU (the JAX package's fused schedule cycles). ``StepConfig.dtype`` bf16 with networks
 built with ``dtype=torch.bfloat16`` is the JAX package's default training
 (parameters, optimizer state and BatchNorm statistics stay f32).
+
+Data parallelism (``state.mesh``, a ``parallel/mesh.DataMesh``; the JAX
+steps under a ``mesh``; one device is ``parallel/mesh.LOCAL``, whose
+collectives are identities): each rank passes its share of the global batch
+(``Trainer._assemble`` slices it). The augmentation draws and the penalty's
+``eps`` are drawn for the global batch on every rank, in lockstep, and each
+rank keeps its slice; BatchNorm's statistics and every loss reduce over the
+global batch (``models/norm.py``, ``models/losses.py``); after each backward
+the parameters' gradients are all-reduced as one flattened buffer and
+divided by the world size (``DataMesh.reduce_gradients``: the
+differentiable reductions already give each rank its share of the
+gradient of the sum of the ranks' equal losses). Weight clipping runs on
+every rank, and the metrics are the global values. The state's networks
+must start equal on every rank (``init_state`` broadcasts rank 0's).
 """
 
 import gc
@@ -49,8 +63,9 @@ from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models import losses
 from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE
-from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats
+from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats, set_mesh
 from contrast_gan_3d_tpu_torch.ops.block_conv import add_launch_counts, launch_counts
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -93,8 +108,9 @@ class StepConfig:
 @dataclass
 class GANTrainState:
     """Both networks (their parameters and BatchNorm statistics), both
-    optimizers with their schedules, the random generator and the
-    iteration counter."""
+    optimizers with their schedules, the random generator, the iteration
+    counter, and the data-parallel mesh the steps run over (``LOCAL``: one
+    device)."""
 
     step: int
     generator: nn.Module
@@ -102,6 +118,7 @@ class GANTrainState:
     gen_opt: ScheduledOptimizer
     critic_opt: ScheduledOptimizer
     rng: torch.Generator
+    mesh: object = LOCAL
 
     @property
     def device(self) -> torch.device:
@@ -115,15 +132,22 @@ def init_state(
     critic_tx: Callable[..., ScheduledOptimizer],
     seed: int = 0,
     device="cuda",
+    mesh=None,
 ) -> GANTrainState:
     """Move both networks to ``device`` in train mode and build their
     optimizers (``gen_tx(params)``, e.g. ``partial(make_optimizer, "adam")``)
-    and a ``torch.Generator`` on that device seeded with ``seed``."""
+    and a ``torch.Generator`` on that device seeded with ``seed``. With a
+    ``mesh`` (None: ``LOCAL``) their BatchNorms take global statistics and
+    rank 0's weights are broadcast to every rank."""
     device = resolve_device(device)
     if any(isinstance(m, nn.Dropout) for m in generator.modules()):
         raise NotImplementedError(f"generator dropout in the train step is {ROADMAP_NOTE}")
+    mesh = mesh or LOCAL
     generator.to(device).train()
     critic.to(device).train()
+    for module in (generator, critic):
+        set_mesh(module, mesh)
+        mesh.broadcast_module(module)
     return GANTrainState(
         step=0,
         generator=generator,
@@ -131,6 +155,7 @@ def init_state(
         gen_opt=gen_tx(generator.parameters()),
         critic_opt=critic_tx(critic.parameters()),
         rng=torch.Generator(device=device).manual_seed(seed),
+        mesh=mesh,
     )
 
 
@@ -160,12 +185,14 @@ class TrainSteps(NamedTuple):
     generator_phase: Callable      # phase hands its prepared batch over
 
 
-def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_opt: int):
+def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_opt: int, mesh=LOCAL):
     """The step's augmentation draws, sub-optimal batch first (the order
-    ``build_preview_step`` relies on), or None without augmentation."""
+    ``build_preview_step`` relies on), or None without augmentation: the
+    draws of ``mesh``'s global batch, this rank's slice kept."""
     if cfg.augment is None:
         return None
-    return draw(rng, n_subopt, cfg.augment), draw(rng, n_opt, cfg.augment)
+    drawn = [(draw(rng, n * mesh.world_size, cfg.augment), n) for n in (n_subopt, n_opt)]
+    return tuple(type(d)(*(t[mesh.global_slice(n)] for t in d)) for d, n in drawn)
 
 
 def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
@@ -182,7 +209,7 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
     def critic_loss(state: GANTrainState, real, fake):
         real_logits = state.critic(real)
         fake_logits = state.critic(fake)
-        loss = cfg.gan_loss_weight * losses.wasserstein_loss(fake_logits, real_logits)
+        loss = cfg.gan_loss_weight * losses.wasserstein_loss(fake_logits, real_logits, state.mesh)
         if use_gp:
             eps = None
             if cfg.gp_eps is not None:
@@ -190,7 +217,7 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
                 eps = torch.full((n,) + (1,) * (real.dim() - 1), cfg.gp_eps, dtype=real.dtype, device=real.device)
             with frozen_batch_stats(state.critic):
                 loss = loss + losses.gradient_penalty(
-                    state.critic, real, fake, state.rng, cfg.gp_weight, eps=eps
+                    state.critic, real, fake, state.rng, cfg.gp_weight, eps=eps, mesh=state.mesh
                 )
         return loss
 
@@ -198,6 +225,7 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
         state.critic_opt.optimizer.zero_grad(set_to_none=True)
         loss = critic_loss(state, real, fake.detach())
         loss.backward()
+        state.mesh.reduce_gradients([p.grad for p in state.critic.parameters() if p.grad is not None])
         state.critic_opt.step()
         if cfg.weight_clip is not None:
             clip_params(state.critic, cfg.weight_clip)
@@ -208,19 +236,22 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
         optimizer step from gradients over the generator's parameters."""
         with frozen_batch_stats(state.critic):
             fake_logits = state.critic(opt_hat)
-        loss_g = cfg.gan_loss_weight * -losses.wasserstein_loss(fake_logits)
-        loss_sim = cfg.sim_loss_weight * losses.zncc_loss(opt_hat, subopt)
-        loss_hu = cfg.hu_loss_weight * losses.hu_loss(opt_hat, mask, hu_lo, hu_hi)
+        mesh = state.mesh
+        loss_g = cfg.gan_loss_weight * -losses.wasserstein_loss(fake_logits, mesh=mesh)
+        loss_sim = cfg.sim_loss_weight * losses.zncc_loss(opt_hat, subopt, mesh)
+        loss_hu = cfg.hu_loss_weight * losses.hu_loss(opt_hat, mask, hu_lo, hu_hi, mesh)
         full = loss_g + loss_sim + loss_hu
         params = list(state.generator.parameters())
-        for p, g in zip(params, torch.autograd.grad(full, params)):
+        grads = torch.autograd.grad(full, params)
+        mesh.reduce_gradients(grads)
+        for p, g in zip(params, grads):
             p.grad = g
         state.gen_opt.step()
         return {"G": loss_g.detach(), "G-full": full.detach(), "sim": loss_sim.detach(), "HU": loss_hu.detach()}
 
     def begin(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         state.step += 1
-        draws = _draw_augment(cfg, draw, state.rng, len(subopt_b), len(opt_b))
+        draws = _draw_augment(cfg, draw, state.rng, len(subopt_b), len(opt_b), state.mesh)
         return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device, draws)
 
     def critic_phase(state: GANTrainState, opt_b, subopt_b, subopt_mask):
@@ -261,7 +292,8 @@ def build_preview_step(cfg: StepConfig):
     """``preview(state, rng_state, subopt, mask)``: the augmented sub-optimal
     batch a train step trained on, re-derived for image logging from
     ``rng_state``, the ``state.rng.get_state()`` saved before that step
-    (the sub-optimal draws come first in a step). Returns the scaled batch,
+    (the sub-optimal draws come first in a step; under a mesh, this rank's
+    share of the global draws). Returns the scaled batch,
     the eval-mode reconstruction and attenuation, and the augmented mask,
     NCDHW or NCHW (the counterpart of the JAX ``build_preview_step``)."""
     if cfg.augment is None:
@@ -271,7 +303,8 @@ def build_preview_step(cfg: StepConfig):
         rng = torch.Generator(device=state.device)
         rng.set_state(rng_state)
         subopt, mask = (torch.as_tensor(b).to(state.device, torch.float32) for b in (subopt, mask))
-        subopt, mask = aug.augment_batch(subopt, mask, aug.draw(rng, len(subopt), cfg.augment), cfg.augment)
+        draws = _draw_augment(cfg, aug.draw, rng, len(subopt), 0, state.mesh)[0]
+        subopt, mask = aug.augment_batch(subopt, mask, draws, cfg.augment)
         x = _scaled(cfg, subopt, state.device, cfg.dtype)
         with torch.no_grad(), _eval_mode(state.generator):
             atten = state.generator(x)
@@ -299,6 +332,13 @@ def schedule_branches(
     return tuple(out)
 
 
+def graphed(state: GANTrainState) -> bool:
+    """Whether a cycle on ``state`` runs as a replayed CUDA graph: on the
+    card, on one device or a mesh whose collectives can be captured (NCCL);
+    gloo's cannot, so a gloo mesh runs its cycles eagerly."""
+    return state.device.type == "cuda" and state.mesh.capturable
+
+
 class CycleStep:
     """``len(pattern)`` schedule iterations as one call (the counterpart of
     the JAX ``build_cycle_step``): ``cycle(state, opt_c, subopt_c, mask_c)
@@ -308,8 +348,9 @@ class CycleStep:
     Metrics: the last value of each key, except ``D``, the mean over the
     cycle's critic updates.
 
-    On the CPU the cycle is the loop over the per-iteration steps. On a
-    CUDA state the cycle is one CUDA graph:
+    On the CPU, and under a gloo mesh, the cycle is the loop over the
+    per-iteration steps. On a CUDA state (under an NCCL mesh with its
+    all-reduces captured) the cycle is one CUDA graph:
     - the first call runs the loop eagerly on a side stream: real training
       iterations, which also warm the allocator, cuDNN and the optimizers'
       state;
@@ -367,7 +408,7 @@ class CycleStep:
     def __call__(self, state: GANTrainState, opt_c, subopt_c, mask_c):
         if len(opt_c) != len(self.pattern):
             raise ValueError(f"{len(opt_c)} stacked batches for a cycle of {len(self.pattern)}")
-        if state.device.type != "cuda" or all(b == "none" for b in self.pattern):
+        if not graphed(state) or all(b == "none" for b in self.pattern):
             self.calls["eager"] += 1
             return self.run_eager(state, opt_c, subopt_c, mask_c)
         if self.calls["eager"] == 0:
@@ -459,22 +500,24 @@ def _wcast(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.reshape((-1,) + (1,) * (x.dim() - 1)).float()
 
 
-def _masked_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Mean over valid samples only (``x.mean()`` when w is all ones)."""
+def _masked_mean(x: torch.Tensor, w: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
+    """Mean over valid samples only (``x.mean()`` when w is all ones), over
+    ``mesh``'s global batch."""
     per = x.numel() // x.shape[0]
-    return (x.float() * _wcast(w, x)).sum() / (w.sum() * per)
+    return mesh.all_sum((x.float() * _wcast(w, x)).sum()) / mesh.all_sum(w.sum() * per)
 
 
-def _masked_zncc(source: torch.Tensor, target: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _masked_zncc(source: torch.Tensor, target: torch.Tensor, w: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
     """``zncc_loss`` restricted to valid samples (ddof=1 std, same
-    epsilons)."""
+    epsilons), over ``mesh``'s global batch."""
     wf = _wcast(w, source)
-    n = w.sum() * (source.numel() // source.shape[0])
-    ms = (source * wf).sum() / n
-    mt = (target * wf).sum() / n
-    cc = ((source - ms) * (target - mt) * wf).sum() / n
-    std = torch.sqrt(((source - ms).square() * wf).sum() / (n - 1)) * torch.sqrt(
-        ((target - mt).square() * wf).sum() / (n - 1)
+    total = mesh.all_sum
+    n = total(w.sum() * (source.numel() // source.shape[0]))
+    ms = total((source * wf).sum()) / n
+    mt = total((target * wf).sum()) / n
+    cc = total(((source - ms) * (target - mt) * wf).sum()) / n
+    std = torch.sqrt(total(((source - ms).square() * wf).sum()) / (n - 1)) * torch.sqrt(
+        total(((target - mt).square() * wf).sum()) / (n - 1)
     )
     return -(cc / (std + 1e-8))
 
@@ -497,13 +540,16 @@ def build_val_steps(cfg: StepConfig):
     ``val_subopt_step`` runs the generator on sub-optimal data and returns
     (realism, ZNCC similarity, corrected batch, attenuation), NCDHW / NCHW. As in
     the JAX val steps the scaled batch stays f32 whatever ``cfg.dtype``:
-    the networks' first blocks cast it, and the corrected batch is f32."""
+    the networks' first blocks cast it, and the corrected batch is f32.
+    Under ``state.mesh`` each rank passes its share of a batch padded to the
+    ranks (``parallel/mesh.pad_batch_to_multiple``) and the masked
+    reductions run over the global batch."""
 
     def val_opt_step(state: GANTrainState, batch, w):
         x = _scaled(cfg, batch, state.device)
         w = torch.as_tensor(w).to(state.device, torch.float32)
         with torch.no_grad(), _eval_mode(state.critic):
-            return _masked_mean(state.critic(x), w)
+            return _masked_mean(state.critic(x), w, state.mesh)
 
     def val_subopt_step(state: GANTrainState, batch, w):
         x = _scaled(cfg, batch, state.device)
@@ -511,7 +557,7 @@ def build_val_steps(cfg: StepConfig):
         with torch.no_grad(), _eval_mode(state.generator, state.critic):
             atten = state.generator(x)
             sample_hat = x - atten
-            loss_fake = _masked_mean(state.critic(sample_hat), w)
-            return loss_fake, _masked_zncc(sample_hat, x, w), sample_hat, atten
+            loss_fake = _masked_mean(state.critic(sample_hat), w, state.mesh)
+            return loss_fake, _masked_zncc(sample_hat, x, w, state.mesh), sample_hat, atten
 
     return val_opt_step, val_subopt_step

@@ -1,5 +1,5 @@
 """The training loop around the steps (counterpart of
-``contrast_gan_3d_tpu/trainer/trainer.py`` without meshes):
+``contrast_gan_3d_tpu/trainer/trainer.py``):
 ``Trainer.train_step`` runs the branch the schedule makes due,
 ``Trainer.train_step_cycle`` runs ``cycle_length`` iterations as one
 ``steps.CycleStep`` (one replayed CUDA graph per branch pattern on the
@@ -15,6 +15,15 @@ has passed (the lagged fetch): the wait covers the previous boundary's
 work only, not the work dispatched since. ``patches_per_sec`` is measured
 between those reads. ``TimeBudget`` charges the loop's wall time to its
 phases.
+
+Under a data-parallel mesh (``Trainer(mesh=...)``, one process per device,
+``parallel/mesh.py``) every rank runs this loop in lockstep on the same
+schedule: it loads its host's batches and trains on its share
+(``_assemble``, which refuses batches the ranks do not divide, as JAX's
+Trainer does), validates on its share of batches padded to the ranks,
+stops where every rank stops (the stop flags are all-reduced every
+``stop_sync_every`` iterations), and leaves the checkpoint, the logs and
+each host's data sidecar to one rank.
 """
 
 import itertools
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL, DataMesh, pad_batch_to_multiple
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import LoggerInterface, NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer
@@ -40,9 +50,11 @@ from contrast_gan_3d_tpu_torch.trainer.steps import (
     build_preview_step,
     build_train_steps,
     build_val_steps,
+    graphed,
     init_state,
     schedule_branches,
 )
+from contrast_gan_3d_tpu_torch.utils.debug import check_finite
 from contrast_gan_3d_tpu_torch.utils.signals import install_graceful_stop
 
 logger = logging.getLogger(__name__)
@@ -66,9 +78,9 @@ class TrainerConfig:
     checkpoint_every: Optional[int] = 1000
     checkpoint_keep: Optional[int] = None
     checkpoint_dir: Optional[str] = None
-    # the JAX package's multi-process stop-sync cadence; the port runs one
-    # process and checks its stop flag at every cycle boundary, and keeps
-    # the field so that the builder resolves cycle_length as JAX does
+    # data-parallel runs agree on a graceful stop every N iterations (ranks
+    # receive signals at different times); one process checks its flag at
+    # every cycle boundary
     stop_sync_every: int = 10
     # schedule iterations per dispatch (fused schedule cycles): 1 dispatches
     # each iteration; K > 1 runs K iterations as one CycleStep
@@ -136,7 +148,9 @@ class Trainer:
     ``checkpoint_dir`` the state resumes from its latest checkpoint.
     ``split_combined=True`` runs the combined branch as the two phases
     (``critic_phase``, ``generator_phase``) and forces ``cycle_length`` 1,
-    as the JAX Trainer does."""
+    as the JAX Trainer does. ``mesh``: this rank's ``DataMesh`` (data
+    parallelism; its device is ``device``), or None for one device
+    (``parallel/mesh.LOCAL``)."""
 
     def __init__(
         self,
@@ -151,6 +165,7 @@ class Trainer:
         logger_interface: Optional[LoggerInterface] = None,
         device="cuda",
         split_combined: bool = False,
+        mesh=None,
     ):
         trainer_config = trainer_config or TrainerConfig()
         if split_combined and trainer_config.cycle_length > 1:
@@ -162,12 +177,16 @@ class Trainer:
         self.cfg = trainer_config
         self.split_combined = split_combined
         self.step_cfg = step_config or StepConfig()
-        self.logger_interface = logger_interface or NoopLogger()
+        self.mesh = mesh = mesh or LOCAL
+        # rank 0 logs and checkpoints for every rank (their states are equal)
+        self.is_writer = mesh.rank == 0
+        self.logger_interface = (logger_interface if self.is_writer else None) or NoopLogger()
         # module semantics the state_dict cannot encode, for inference
         self._ckpt_meta = {"generator": {k: getattr(generator, k) for k in ("tconv_placement", "norm")
                                          if hasattr(generator, k)}}
         self._stop_event = threading.Event()
-        self.state = init_state(generator, critic, gen_tx, critic_tx, seed=seed, device=device)
+        self._warned_images = False
+        self.state = init_state(generator, critic, gen_tx, critic_tx, seed=seed, device=device, mesh=mesh)
         if self.cfg.checkpoint_dir:
             self.state = ckpt_lib.maybe_restore(self.state, self.cfg.checkpoint_dir)
         self.steps = build_train_steps(self.step_cfg)
@@ -197,19 +216,39 @@ class Trainer:
     def iteration(self) -> int:
         return int(self.state.step)
 
+    @property
+    def cycle_dispatch(self) -> str:
+        """How a cycle runs: "graph" (a replayed CUDA graph, under an NCCL
+        mesh with its all-reduces captured) or "eager" (the loop over the
+        steps: on the CPU, and under gloo, whose collectives a graph
+        cannot capture)."""
+        return "graph" if graphed(self.state) else "eager"
+
     def _assemble(self, patches: Dict[int, Dict]) -> tuple:
         """3-stream batches -> (opt, subopt, subopt_mask, names) on the
         state's device; the sub-optimal streams join in the order LOW, HIGH.
         Tensors the loaders already put on the device are used as they
-        are; only host batches are copied."""
+        are; only host batches are copied. The rank keeps its slice of the
+        joined batches (``DataMesh.batch_slice``; one device keeps them
+        whole), which the host's ranks must divide: a padded train batch
+        would bias the losses and BatchNorm's statistics, so it raises
+        instead."""
         dev = self.state.device
         low, high = patches[LOW], patches[HIGH]
         names = list(low.get("name", [])) + list(high.get("name", []))
-        on_dev = lambda a: torch.as_tensor(a, device=dev)
-        opt = on_dev(patches[OPT]["data"])
-        subopt = torch.cat([on_dev(low["data"]), on_dev(high["data"])])
-        mask = torch.cat([on_dev(low["seg"]), on_dev(high["seg"])])
-        return opt, subopt, mask, names
+        # this rank's slices, then to its device
+        opt = torch.as_tensor(patches[OPT]["data"])
+        subopt = torch.cat([torch.as_tensor(low["data"]), torch.as_tensor(high["data"])])
+        mask = torch.cat([torch.as_tensor(low["seg"]), torch.as_tensor(high["seg"])])
+        n = self.mesh.ranks_per_host
+        if opt.shape[0] % n or subopt.shape[0] % n:
+            raise ValueError(
+                f"host-local train batch sizes (opt {opt.shape[0]}, subopt {subopt.shape[0]}) must be divisible by "
+                f"the {n} data-parallel ranks on this host; round them up to multiples of {n} (train does this) or "
+                f"pick dp_devices that divides them")
+        keep = self.mesh.batch_slice(subopt.shape[0])
+        opt = opt[self.mesh.batch_slice(opt.shape[0])]
+        return opt.to(dev), subopt[keep].to(dev), mask[keep].to(dev), names[keep]
 
     def train_step(self, patches: Dict[int, Dict], iteration: int):
         """One schedule-aware step; returns (metrics, (subopt, mask, names))."""
@@ -276,6 +315,37 @@ class Trainer:
     def stop_requested(self) -> bool:
         return self._stop_event.is_set()
 
+    def _stop_due(self, iteration: int) -> bool:
+        """Whether :meth:`fit` stops at this boundary. One process reads its
+        flag. Under a mesh of several ranks the decision is collective: the
+        flags are all-reduced every ``stop_sync_every`` iterations (every
+        rank runs the same iterations, so the syncs line up) and every rank
+        stops at the same boundary, as the JAX Trainer's ``_stop_due``
+        does."""
+        if self.mesh.world_size == 1:
+            return self.stop_requested
+        if iteration % max(1, self.cfg.stop_sync_every):
+            return False
+        if self.mesh.any(self.stop_requested):
+            self._stop_event.set()  # the ranks that saw no signal
+            return True
+        return False
+
+    def _can_log_images(self) -> bool:
+        """Image logging needs a logger that takes images; under a mesh of
+        several ranks a rank holds only its share of each batch, so it is
+        off (as under the JAX package's multi-process meshes)."""
+        if not self.logger_interface.logs_images:
+            return False
+        if self.mesh.world_size > 1:
+            if not self._warned_images:
+                self._warned_images = True
+                logger.warning("image logging is off under a data-parallel mesh of %d ranks (a rank holds only its "
+                               "share of each batch); set log_images_every=None to silence this",
+                               self.mesh.world_size)
+            return False
+        return True
+
     # -- the loop ---------------------------------------------------------------
     def _flush_oldest_log(self):
         """Convert and emit the oldest pending log boundary. Its work is a
@@ -293,9 +363,12 @@ class Trainer:
         host.update(e["tb"])
         self.logger_interface.log_scalars(host, e["iteration"], "train")
 
-    def fit(self, train_loaders: Dict[int, Iterable], val_loaders: Optional[Dict[int, Iterable]] = None):
+    def fit(self, train_loaders: Dict[int, Iterable], val_loaders: Optional[Dict[int, Iterable]] = None,
+            profiler=None):
         """Train from the state's step to ``train_iterations``; returns the
-        state."""
+        state. ``profiler``: a ``torch.profiler.profile`` (the train CLI's
+        ``--profiler-*``), started here, stepped after every dispatch (a
+        cycle is one step) and stopped at the end."""
         start = self.start_iteration = self.iteration
         if start and self.cfg.checkpoint_dir:
             self._data_state(train_loaders, "restore", start)
@@ -303,10 +376,19 @@ class Trainer:
         if val_loaders and self.cfg.val_every:
             self._manage_loaders(val_loaders, "start")
         logger.info("Training from iteration %d to %d", start, self.cfg.train_iterations)
+        if self.cfg.cycle_length > 1:
+            logger.info("%d-iteration cycles run %s%s", self.cfg.cycle_length,
+                        "as replayed CUDA graphs" if self.cycle_dispatch == "graph" else "eagerly",
+                        "" if not isinstance(self.mesh, DataMesh) else f" ({self.mesh.world_size} ranks, "
+                        f"{'all-reduces captured' if self.mesh.capturable else 'gloo cannot be captured'})")
         self._pending_logs = []
         self._last_fetch = (start, None)
         budget = self.time_budget = TimeBudget()
+        if profiler is not None:
+            profiler.start()
         checkpointing = bool(self.cfg.checkpoint_dir) and self.cfg.checkpoint_every is not None
+        # a data-parallel host loads 1/hosts of each global batch
+        hosts = self.mesh.hosts
         K = max(1, int(self.cfg.cycle_length))
         iteration = start
         while iteration < self.cfg.train_iterations:
@@ -316,7 +398,7 @@ class Trainer:
             # horizon's tail is short too
             k_len = min(K - iteration % K, self.cfg.train_iterations - iteration)
             budget.mark("other")
-            if self.stop_requested:
+            if self._stop_due(iteration):
                 logger.warning("Stopping at iteration %d (graceful stop)%s", iteration,
                                "" if checkpointing else f"; checkpointing is disabled, so progress since "
                                                         f"iteration {start} is discarded")
@@ -329,8 +411,7 @@ class Trainer:
                 patches_list = [{st: next(train_loaders[st]) for st in SCAN_TYPES} for _ in range(k_len)]
                 patches = patches_list[0]  # the per-iteration batch sizes
             budget.mark("data_wait")
-            images_due = (_due(iteration, self.cfg.log_images_every, skip_zero=False)
-                          and self.logger_interface.logs_images)
+            images_due = _due(iteration, self.cfg.log_images_every, skip_zero=False) and self._can_log_images()
             if images_due and pattern is not None:
                 # the preview pairs the cycle's FIRST batch with the
                 # pre-cycle rng; a "none" first branch never draws from it,
@@ -344,13 +425,16 @@ class Trainer:
             else:
                 metrics, (subopt, mask, names) = self.train_step_cycle(patches_list, iteration, pattern)
             budget.mark("dispatch")
+            if metrics and torch.is_anomaly_enabled():
+                # --debug (utils/debug): the losses' own check, a host sync
+                check_finite(metrics, iteration)
             if metrics and _due(iteration, self.cfg.log_every, skip_zero=False):
                 host, event = _start_host_copy(metrics)
                 self._pending_logs.append({
                     "iteration": iteration,
                     "metrics": host,
                     "event": event,
-                    "n_patches": sum(p["data"].shape[0] for p in patches.values()),
+                    "n_patches": hosts * sum(p["data"].shape[0] for p in patches.values()),
                     "tb": budget.window_scalars(),
                 })
                 while len(self._pending_logs) > 1:
@@ -363,21 +447,28 @@ class Trainer:
                 self.validate(val_loaders, iteration)
                 budget.mark("validation")
             if checkpointing and _due(iteration, self.cfg.checkpoint_every):
-                ckpt_lib.save_checkpoint(self.state, self.cfg.checkpoint_dir, keep=self.cfg.checkpoint_keep,
-                                         async_=True, meta=self._ckpt_meta)
+                if self.is_writer:
+                    ckpt_lib.save_checkpoint(self.state, self.cfg.checkpoint_dir, keep=self.cfg.checkpoint_keep,
+                                             async_=True, meta=self._ckpt_meta)
                 self._data_state(train_loaders, "save", self.iteration)
                 budget.mark("checkpoint")
+            if profiler is not None:
+                profiler.step()
             iteration += k_len
 
         budget.mark("other")
+        if profiler is not None:
+            profiler.stop()
         while self._pending_logs:
             self._flush_oldest_log()
         budget.mark("sync_log")
         logger.info(budget.summary())
         if checkpointing:
-            ckpt_lib.save_checkpoint(self.state, self.cfg.checkpoint_dir, keep=self.cfg.checkpoint_keep,
-                                     meta=self._ckpt_meta)
+            if self.is_writer:
+                ckpt_lib.save_checkpoint(self.state, self.cfg.checkpoint_dir, keep=self.cfg.checkpoint_keep,
+                                         meta=self._ckpt_meta)
             self._data_state(train_loaders, "save", self.iteration)
+            self.mesh.barrier()  # the checkpoint is on disk before any rank returns
             budget.mark("checkpoint")
         self._manage_loaders(train_loaders, "end")
         if val_loaders:
@@ -392,13 +483,11 @@ class Trainer:
         them. The scalars keep the reference's normalisation."""
         loss_sim = loss_G = loss_real_C = loss_fake_C = 0.0
         loggable = []
-        collect_images = self.cfg.log_images_every is not None and self.logger_interface.logs_images
+        collect_images = self.cfg.log_images_every is not None and self._can_log_images()
         n_subopt = self.cfg.val_iterations * (len(SCAN_TYPES) - 1)
-        dev = self.state.device
         for i, st in itertools.product(range(self.cfg.val_iterations), SCAN_TYPES):
             batch = next(val_loaders[st])
-            data = torch.as_tensor(batch["data"], device=dev)
-            w = torch.ones((data.shape[0],), device=dev)
+            data, w = self._put_val(batch["data"])
             if st == OPT:
                 loss_real_C -= float(self.val_opt_step(self.state, data, w))
             else:
@@ -425,6 +514,17 @@ class Trainer:
             "sim": loss_sim / n_subopt,
         }, train_iteration, "validation")
 
+    def _put_val(self, data):
+        """(data, validity weights) on the state's device. The batch is
+        padded to the host's ranks (repeating its first sample, weight 0)
+        and the rank keeps its share: the val steps' masked reductions drop
+        the padding exactly (the JAX Trainer's ``_put_val``)."""
+        dev = self.state.device
+        data = torch.as_tensor(data, device=dev)
+        data, w = pad_batch_to_multiple(data, self.mesh.ranks_per_host)
+        keep = self.mesh.batch_slice(data.shape[0])
+        return data[keep], torch.as_tensor(w[keep], device=dev)
+
     def _log_train_images(self, subopt, mask, names, iteration: int, rng_before=None):
         """Render the batch the step trained on: with on-device augmentation
         the preview re-derives it from ``rng_before``; otherwise the batch
@@ -446,10 +546,13 @@ class Trainer:
         stateful = {k: v for k, v in loaders.items() if hasattr(v, "get_state") and hasattr(v, "set_state")}
         if not stateful:
             return
+        # the ranks of a host share its loaders' streams: one writes them
+        host = (self.mesh.host_index, self.mesh.hosts)
         if action == "save":
-            ckpt_lib.save_data_state(stateful, self.cfg.checkpoint_dir, step)
+            if self.mesh.local_index == 0:
+                ckpt_lib.save_data_state(stateful, self.cfg.checkpoint_dir, step, *host)
         else:
-            ckpt_lib.maybe_restore_data_state(stateful, self.cfg.checkpoint_dir, step)
+            ckpt_lib.maybe_restore_data_state(stateful, self.cfg.checkpoint_dir, step, *host)
 
     @staticmethod
     def _manage_loaders(loaders: Dict[int, Iterable], event: str):

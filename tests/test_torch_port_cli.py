@@ -1,0 +1,143 @@
+"""The port's CLI flags and tools of this slice, on the CPU: the train CLI's
+``--cycle-length``, ``--debug``, ``--profiler-*`` and ``--dp-devices``
+usage errors against the JAX CLI's parser, the finite check,
+``memory_report --tiny`` and ``correct_scans --sharded``. Tiny sizes: the
+fit tests' patients and override file (16^3 patches, narrow networks)."""
+
+import json
+import logging
+import pickle
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import train as jax_train_cli
+from contrast_gan_3d_tpu_torch import correct_scans, memory_report
+from contrast_gan_3d_tpu_torch import train as train_cli
+from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.eval.utils import device_int16, load_patient_or_scan
+from contrast_gan_3d_tpu_torch.utils.debug import check_finite
+from contrast_gan_3d_tpu_torch.utils import memory as memory_lib
+from contrast_gan_3d_tpu_torch.utils.io_utils import read_image
+from tests.test_torch_port_fit import OVERRIDE, fold  # noqa: F401  (a fixture)
+from tests.test_torch_port_serving_files import _port_checkpoint, cohort  # noqa: F401  (a fixture)
+
+
+def _args(tmp_path, fold, *extra):
+    conf, splits = tmp_path / "tiny.py", tmp_path / "splits.pkl"
+    conf.write_text(OVERRIDE)
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    return ["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root", str(tmp_path / "runs"),
+            "--run-id", "r", "--device", "cpu", "--iterations", "2", *extra]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cycle-length", "2"], ["--debug"], ["--profiler-dir", "P", "--profiler-steps", "3"],
+    ["--profiler-dir", "P", "--profiler-schedule", "skip_first=1,active=2"], ["--dp-devices", "2"],
+    ["--multihost"],
+])
+def test_train_flags_parse_as_the_jax_cli_parses_them(tmp_path, flags):
+    base = ["--cval-splits", "s.pkl", "--checkpoint-root", "r"]
+    got, want = vars(train_cli.parse_args(base + flags)), vars(jax_train_cli.parse_args(base + flags))
+    for k in ("cycle_length", "debug", "profiler_dir", "profiler_steps", "profiler_schedule", "dp_devices",
+              "multihost"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("bad", [["--dp-devices", "-1"], ["--dp-devices", "0", "--device", "cpu"]])
+def test_train_dp_devices_usage_errors(bad):
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--cval-splits", "s.pkl", "--checkpoint-root", "r", *bad])
+
+
+def test_cycle_length_reaches_the_trainer(fold, tmp_path):  # noqa: F811
+    """The override file's cadences (2 and 3) make ``auto`` resolve to 1;
+    ``--cycle-length 2`` forces 2-iteration cycles."""
+    auto = train_cli.main(_args(tmp_path, fold, "--run-id", "auto"))
+    forced = train_cli.main(_args(tmp_path, fold, "--cycle-length", "2"))
+    assert auto.runs[0].trainer.cfg.cycle_length == 1 and auto.config.cycle_length is None
+    assert forced.config.cycle_length == 2 and forced.runs[0].trainer.cfg.cycle_length == 2
+    assert forced.runs[0].trainer.iteration == 2
+
+
+def test_debug_dispatches_eagerly_and_says_so(fold, tmp_path, caplog):  # noqa: F811
+    before = torch.is_anomaly_enabled()
+    with caplog.at_level(logging.WARNING, logger="contrast_gan_3d_tpu_torch.train"):
+        manager = train_cli.main(_args(tmp_path, fold, "--cycle-length", "2", "--debug"))
+    trainer = manager.runs[0].trainer
+    assert trainer.cfg.cycle_length == 1 and trainer.cycle_dispatch == "eager"
+    assert any("--debug" in r.message and "cycle_length 2 -> 1" in r.getMessage() for r in caplog.records)
+    assert torch.is_anomaly_enabled() == before  # restored when the command returns
+
+
+def test_check_finite_names_the_iteration():
+    check_finite({"D": torch.tensor(1.0)}, 3)
+    with pytest.raises(FloatingPointError, match="iteration 7.*'G'"):
+        check_finite({"D": torch.tensor(1.0), "G": torch.tensor(float("nan"))}, 7)
+
+
+@pytest.mark.parametrize("flags,traces", [(["--profiler-steps", "2"], 1),
+                                          (["--profiler-schedule", "skip_first=1,active=1"], 1)])
+def test_profiler_writes_traces(fold, tmp_path, flags, traces, monkeypatch):  # noqa: F811
+    """A Chrome trace per window, and after it the live-block table and the
+    heap profile of the allocator's history recorded over the window. The
+    CPU has no allocator history: the card's recording and dump are
+    stood in for by fakes that log their order (the card runs the real
+    ones: ``chip_smoke.py``'s memory phase)."""
+    events = []
+
+    def record(enabled=True, max_entries=0):
+        events.append("start" if enabled else "stop")
+        return True
+
+    def dump(path):
+        events.append("dump")
+        Path(path).write_bytes(b"snapshot")
+        return True
+
+    monkeypatch.setattr(memory_lib, "record_memory_history", record)
+    monkeypatch.setattr(memory_lib, "dump_heap_profile", dump)
+    out = tmp_path / "prof"
+    train_cli.main(_args(tmp_path, fold, "--profiler-dir", str(out), *flags))
+    assert len(list(out.glob("*.pt.trace.json"))) == traces
+    tables, profiles = list(out.glob("memory_step*.txt")), list(out.glob("memory_step*.pickle"))
+    assert len(tables) == len(profiles) == traces and profiles[0].read_bytes() == b"snapshot"
+    assert events == ["start", "dump", "stop"] * traces
+    with pytest.raises(ValueError, match="unknown key"):
+        train_cli.make_profiler(out, schedule="skip=1")
+
+
+def test_memory_report_tiny_on_the_cpu(tmp_path):
+    rows = memory_report.main(["--out", str(tmp_path), "--tiny", "--device", "cpu"])
+    assert [r["name"].split(" ")[0] for r in rows] == ["packed", "combined_step", "combined_step", "combined_step"]
+    assert all(r["fits"] and r["peak_bytes"] is None and r["argument_bytes"] > 0 for r in rows)
+    saved = json.loads((tmp_path / "memory_report.json").read_text())
+    assert saved["card"] == "CPU" and len(saved["rows"]) == 4
+    assert "not measured" in (tmp_path / "memory_report.md").read_text()
+
+
+def test_correct_scans_sharded_equals_unsharded(cohort, tmp_path):  # noqa: F811
+    """``--sharded`` on the CPU (one share, the masked grid) writes what the
+    corrector's ``shard_over`` gives; where the scan's dims are multiples
+    of 4 that is the unsharded file up to the order of the sums (int16
+    within 1 HU). Elsewhere the sharded packed grid pads at the high end,
+    as JAX's does, and the files differ."""
+    paths, gen = cohort
+    _port_checkpoint(gen, tmp_path / "ckpt")
+    common = [str(tmp_path / "ckpt"), "--patch-size", "16", "16", "16", "--batch-size", "3", "--device", "cpu"]
+    plain = correct_scans.main([common[0], str(tmp_path / "plain"), *map(str, paths), *common[1:]])
+    sharded = correct_scans.main([common[0], str(tmp_path / "sharded"), *map(str, paths), *common[1:],
+                                  "--sharded"])
+    corrector = CCTAContrastCorrector.from_checkpoint(tmp_path / "ckpt", inference_patch_size=(16, 16, 16),
+                                                      batch_size=3, device="cpu").shard_over(["cpu"])
+    aligned = 0
+    for src, a, b in zip(paths, plain, sharded):
+        vol = load_patient_or_scan(src)[0]
+        np.testing.assert_array_equal(read_image(b)[0], device_int16(corrector(vol)).numpy())
+        if all(d % 4 == 0 for d in vol.shape):
+            aligned += 1
+            diff = np.abs(read_image(a)[0].astype(np.int32) - read_image(b)[0].astype(np.int32))
+            assert diff.max() <= 1, (a, diff.max())
+    assert aligned

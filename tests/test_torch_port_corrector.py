@@ -138,7 +138,10 @@ def test_port_imports_nothing_of_jax():
     # the offline preprocessing and the learning check's modules and CLIs
     assert {f"contrast_gan_3d_tpu_torch.{m}" for m in (
         "preprocess", "eval_hu_shift", "validate_learning", "data.preprocess", "data.labeling",
-        "eval.hu_distribution_shift", "utils.geometry", "ops.resample")} <= set(mods)
+        "eval.hu_distribution_shift", "utils.geometry", "ops.resample",
+        # meshes, the memory and debug tools
+        "parallel.mesh", "parallel.multihost", "parallel.inference", "utils.memory", "utils.debug",
+        "memory_report")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"

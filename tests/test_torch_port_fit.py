@@ -548,9 +548,18 @@ def test_builder_matches_jax(name, backend):
 def test_builder_raises_for_what_is_not_ported(change):
     """``generator_layout="packed"`` raised until the packed layout was
     ported; it now builds the packed generator (and raises for the 2D
-    family, as the packed generator does in JAX)."""
+    family, as the packed generator does in JAX). ``dp_devices`` raised
+    until data parallelism was ported: it now builds (the train CLI starts
+    the ranks); ``sp_devices`` still raises, naming ROADMAP A10."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
+    if change == dict(dp_devices=1):
+        assert builder.build(dataclasses.replace(cfg, **change), device="cpu").config.dp_devices == 1
+        return
+    if change == dict(sp_devices=2):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10"):
+            builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        return
     if change == dict(generator_layout="packed"):
         assert builder.build(dataclasses.replace(cfg, **change), device="cpu").generator.layout == "packed"
         with pytest.raises(ValueError, match="3D-only"):

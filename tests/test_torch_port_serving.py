@@ -365,8 +365,9 @@ def test_max_inflight_zero_is_rejected():
 def test_serve_cli_round_trip(carried, tmp_path):
     """``serve <run dir>`` with the JAX command's arguments: a warm daemon
     whose replies equal its corrector's; ``--device`` defaults to the card
-    (and raises without one); ``--dp-devices`` is a usage error naming
-    ROADMAP A10."""
+    (and raises without one); ``--dp-devices`` (a usage error until the
+    sharded corrector was ported) shards the patch grid, with JAX's usage
+    errors: not with ``--artifact``, not 2D, at least 1."""
     _, _, tgen = carried
     tx = partial(make_optimizer, "adam", lr=1e-3)
     trainer = Trainer(copy.deepcopy(tgen), PatchGANDiscriminator(init_channels_out=2, discriminator_depth=1), tx, tx, device="cpu")
@@ -377,8 +378,12 @@ def test_serve_cli_round_trip(carried, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.build_server(serve.parse_args(argv))
-    with pytest.raises(SystemExit):
-        serve.parse_args(argv + ["--dp-devices", "2"])
+    for bad in (["--dp-devices", "0"], ["--dp-devices", "2", "--artifact"],
+                ["--dp-devices", "2", "--patch", "16", "16"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(argv + bad)
+    sharded = serve.build_server(serve.parse_args(argv + ["--device", "cpu", "--dp-devices", "2"]))
+    assert sharded.service.corrector.devices == [torch.device("cpu")] * 2
     srv = serve.build_server(serve.parse_args(argv + ["--device", "cpu"]))
     srv.start()
     try:
@@ -387,5 +392,6 @@ def test_serve_cli_round_trip(carried, tmp_path):
         vol = _vol(8)
         np.testing.assert_array_equal(correct_remote(_url(srv), vol, timeout=TIMEOUT), corr(vol).numpy())
         assert srv.service.stats()["compiled_shapes"] == [[20, 20, 24]]
+        np.testing.assert_allclose(sharded.service.corrector(vol).numpy(), corr(vol).numpy(), rtol=1e-4, atol=5e-2)
     finally:
         srv.stop(drain_timeout=TIMEOUT)

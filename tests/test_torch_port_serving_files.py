@@ -409,12 +409,13 @@ def test_correct_scans_command_writes_the_outputs(cohort, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--reference-pt"], ["--sharded"], ["--output-format", "h5"]])
 def test_correct_scans_unported_options_point_at_the_roadmap(tmp_path, flag):
-    """``--sharded`` and HDF5 output still raise. ``--reference-pt`` raised
-    until it was ported; it now reads the reference file it is given (a
-    missing one is a missing file; the correction itself is held in
-    ``tests/test_torch_port_reference_ckpt.py``)."""
+    """HDF5 output still raises. ``--reference-pt`` and ``--sharded`` raised
+    until they were ported; they now read the checkpoint they are given (a
+    missing one is a missing file; the corrections themselves are held in
+    ``tests/test_torch_port_reference_ckpt.py`` and
+    ``tests/test_torch_port_cli.py``)."""
     args = [str(tmp_path / "none.pt"), str(tmp_path / "out"), "x.mhd", *flag, "--device", "cpu"]
-    if flag == ["--reference-pt"]:
+    if flag in (["--reference-pt"], ["--sharded"]):
         with pytest.raises(FileNotFoundError):
             correct_scans.main(args)
         return
