@@ -6,6 +6,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only packed_ops packed_serving packed_train
     python3 chip_smoke.py --only c6 preprocess resize learn
     python3 chip_smoke.py --only init dp sharded memory learn
+    python3 chip_smoke.py --only dataset recall overlap flops
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -301,6 +302,27 @@ failure raises and exits non-zero):
     and ``serve --dp-devices 1`` (within 0.01 HU of ``serve``'s reply);
 39. the memory report (``--only memory``): ``memory_report`` on the card.
 
+40. labels and folds (``--only dataset``): ``create_dataset`` on nine
+    399x399x320 patients (3 per label, an aortic-root lumen of 220, 400 or
+    600 HU at the ostia) on the card and with ``--device cpu``: the labels
+    the cohort's; card and CPU the same mixture sizes, (mu, std) within
+    0.01 HU, the same sheet rows and folds; ``train --cval-splits`` on the
+    written pickle runs 2 iterations; seconds per patient;
+41. marker recall (``--only recall``): ``synthetic_tracker`` and
+    ``eval_marker_recall`` on phase 35's held-out lists (a learning run
+    first where phase 35 did not run), the tracker on the card and on the
+    CPU: points bit-equal, original OPT recall 1.0, no point on an original
+    LOW scan; the corrected LOW recall beside the JAX record (no gate); the
+    tracker's seconds per 512x512x128 scan;
+42. overlap (``--only overlap``): ``eval_overlap_quality --iterations 0``
+    at 512x512x400: three finite corrections, the 25% and 50% centerline
+    means within 1 HU, their latencies (``--only overlap_trained``: the
+    400-iteration study, outside the whole run);
+43. FLOPs (``--only flops``): ``flops_accounting --json``, both layouts:
+    the B1 / B3 operators' counts equal their formulas over their launches;
+    the achieved TFLOPS of the bare bf16 ``combined_step`` and the packed
+    forward, executed and on model FLOPs, against the bf16 peak.
+
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -335,8 +357,11 @@ import torch.nn.functional as F
 
 from contrast_gan_3d_tpu_torch import correct_scans, eval_hu_shift, export_corrector, native, preprocess, serve
 from contrast_gan_3d_tpu_torch import memory_report, validate_learning
+from contrast_gan_3d_tpu_torch import create_dataset, eval_marker_recall, eval_overlap_quality, flops_accounting, \
+    synthetic_tracker
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
+from contrast_gan_3d_tpu_torch.data.labeling import read_sheet
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D, warp2d_int16, warp_coords, \
     warp_int16
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
@@ -3600,14 +3625,13 @@ def learn_phase(tmp: Path):
     return launches, dict(runs=runs, port=port, jax_record=JAX_LEARN, repeats=True, other_seeds=sweep)
 
 
-def slice_11_phases():
-    """Phases 32-35."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_s11_") as tmp:
-        tmp = Path(tmp)
-        c6_launches, c6 = c6_phase(tmp)
-        pre = preprocess_phase(tmp)
-        resize_launches, resize = resize_phase()
-        learn_launches, learn = learn_phase(tmp)
+def slice_11_phases(tmp: Path):
+    """Phases 32-35, their files under ``tmp`` (phase 35's first learning
+    run, ``tmp / "learn0"``, feeds phase 41)."""
+    c6_launches, c6 = c6_phase(tmp)
+    pre = preprocess_phase(tmp)
+    resize_launches, resize = resize_phase()
+    learn_launches, learn = learn_phase(tmp)
     return dict(c6=(c6_launches, c6), preprocess=pre, resize=(resize_launches, resize),
                 learn=(learn_launches, learn))
 
@@ -4120,6 +4144,283 @@ def slice_12_phases():
     return dict(init=init, dp=(dp_launches, dp), sharded=(sharded_launches, sharded), memory=memory)
 
 
+# --- slice 13: the study tools: labels and folds, marker recall, overlap,
+# FLOPs (phases 40-43) ---------------------------------------------------------------------------------------------
+
+DATASET_SHAPE, DATASET_SPACING = (399, 399, 320), 0.5  # phase 33's patients
+DATASET_HU = {-1: 220, 0: 400, 1: 600}  # inside each label's corridor
+DATASET_LUMEN = (200, 190, 150), 12  # the aortic-root lumen's centre and radius, voxels
+# card against CPU: the f32 patch sampler's last-bit differences between the
+# devices move a fitted mean or std by far less than this
+DATASET_MU_TOL = 0.01
+DATASET_TRAIN = '''
+from dataclasses import replace
+
+
+def config(base):
+    return replace(base, validate_every=None, checkpoint_every=None, logger="console", num_workers=(1, 1))
+'''
+RECALL_SCAN = (512, 512, 128)
+# the JAX package's record of the same study (reports/synthetic_study/
+# marker_recall_summary.json, made on the CPU)
+JAX_RECALL = {"original_opt_points": [575, 575], "original_low_points": [0, 0, 0, 0],
+              "corrected_low_points": [93, 86, 84, 81], "corrected_low_recall": 1.0}
+OVERLAP_CTL_TOL = 1.0  # HU, the 25% against the 50% correction's centerline mean
+OVERLAP_TRAINED_ITERATIONS = 400
+
+
+def dataset_cohort(root: Path, rng) -> dict:
+    """Nine preprocessed patients at phase 33's size (399x399x320 int16,
+    0.5 mm), three per label: soft tissue (10-70 HU) with a spherical
+    aortic-root lumen of the label's HU (N(hu, 20)); the first ostium in
+    the lumen, the second at its edge, both off the voxel grid. Returns
+    {name: label}."""
+    (cx, cy, cz), radius = DATASET_LUMEN
+    offset = np.array([-99.5, -120.0, -310.0])
+    r = radius + 2
+    sub = np.stack(np.meshgrid(*[np.arange(-r, r + 1)] * 3, indexing="ij"), -1)
+    ball = np.linalg.norm(sub, axis=-1) < radius
+    labels = {}
+    for i in range(9):
+        label = (-1, 0, 1)[i % 3]
+        vol = rng.integers(10, 70, DATASET_SHAPE, dtype=np.int16)
+        block = vol[cx - r:cx + r + 1, cy - r:cy + r + 1, cz - r:cz + r + 1]
+        block[ball] = rng.normal(DATASET_HU[label], 20, int(ball.sum())).round().astype(np.int16)
+        ostia = np.array([[cx + 0.37, cy + 0.61, cz + 0.23], [cx + radius - 0.4, cy + 0.5, cz - 0.3]])
+        meta = {"spacing": np.full(3, DATASET_SPACING), "offset": offset,
+                "ostia_world": (offset + DATASET_SPACING * ostia).astype(np.float32),
+                "centerlines_world": np.zeros((0, 4), np.float32)}
+        name = f"case{i}"
+        write_patient(vol, np.zeros(DATASET_SHAPE, np.uint8), meta, name, root)
+        labels[name] = label
+    return labels
+
+
+def dataset_phase(tmp: Path):
+    """Phase 40 (``--only dataset``): ``create_dataset`` on nine patients at
+    phase 33's size (``dataset_cohort``), on the card and with ``--device
+    cpu``. Gates: the labels are the cohort's; card and CPU fit the same
+    mixture sizes, (mu, std) within ``DATASET_MU_TOL``, and write the same
+    sheet rows (ID, path, label, order) and folds; ``train --cval-splits``
+    on the card's pickle runs 2 iterations of basic_3d. Seconds per
+    patient on each device."""
+    rng = np.random.default_rng(40)
+    t0 = time.perf_counter()
+    labels = dataset_cohort(tmp / "patients", rng)
+    results = dict(write_cohort_s=time.perf_counter() - t0, patient_shape=list(DATASET_SHAPE))
+    launches = {}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = launches_during(
+            lambda: create_dataset.main([str(tmp / "patients"), str(tmp / f"dataset_{device}"), "--device", device]),
+            launches)
+        results[f"{device}_s_per_patient"] = (time.perf_counter() - t0) / len(labels)
+        results[f"{device}_sample_s_per_patient"] = runs[device]["sample_seconds"] / len(labels)
+    card, cpu = runs["cuda"], runs["cpu"]
+    got = {r["ID"]: r["label"] for r in card["rows"]}
+    if got != labels:
+        raise AssertionError(f"dataset: labels {got}, the cohort's {labels}")
+    if card["components"] != cpu["components"]:
+        raise AssertionError(f"dataset: mixture sizes {card['components']} on the card, {cpu['components']} on the CPU")
+    diff = max(max(abs(a["mu"] - b["mu"]), abs(a["std"] - b["std"])) for a, b in zip(card["ostia"], cpu["ostia"]))
+    if not diff <= DATASET_MU_TOL:
+        raise AssertionError(f"dataset: card and CPU (mu, std) {diff} HU apart")
+    sheet = {d: [(r["ID"], r["path"], r["label"]) for r in read_sheet(runs[d]["sheet"])] for d in runs}
+    if sheet["cuda"] != sheet["cpu"] or (card["train"], card["test"]) != (cpu["train"], cpu["test"]):
+        raise AssertionError(f"dataset: sheets or folds differ: {sheet}")
+    conf = tmp / "dataset_train.py"
+    conf.write_text(DATASET_TRAIN)
+    t0 = time.perf_counter()
+    manager = launches_during(lambda: train_cli.main(
+        ["--conf", str(conf), "--cval-splits", str(card["splits"]), "--checkpoint-root", str(tmp / "runs"),
+         "--run-id", "dataset", "--iterations", "2"]), launches)
+    trainer = manager.runs[0].trainer
+    if trainer.iteration != 2:
+        raise AssertionError(f"dataset: train --cval-splits stopped at iteration {trainer.iteration}")
+    results.update(train_2_iterations_s=time.perf_counter() - t0, sheet=sheet["cuda"],
+                   components=card["components"], mu_std_max_abs_diff_hu=diff,
+                   ostia={d: [(r["mu"], r["std"]) for r in runs[d]["ostia"]] for d in runs},
+                   folds=[len(f) for f in card["test"]])
+    print(f"dataset: {json.dumps(results)}", flush=True)
+    return no_block_conv(launches, "dataset"), results
+
+
+def tracker_scan(root: Path) -> Path:
+    """A CT-like 512x512x128 int16 scan (``ct_like``: a +410 HU tube inside
+    soft tissue), uncompressed, and an eval list of it."""
+    rng = np.random.default_rng(41)
+    scan = root / "ct.mhd"
+    io_utils.write_mhd(ct_like(rng, RECALL_SCAN, 0.5), scan, spacing=(0.4, 0.4, 0.5), origin=(-100.0, -100.0, 0.0),
+                       compress=False)
+    (root / "ct").mkdir(exist_ok=True)
+    listing = root / "ct_list.json"
+    listing.write_text(json.dumps([[[str(scan), str(root / "ct"), None], 0]]))
+    return listing
+
+
+def recall_phase(tmp: Path, learn_dir=None):
+    """Phase 41 (``--only recall``): the marker-recall study on phase 35's
+    held-out lists (one learning run at phase 35's recipe first, where
+    phase 35 did not run): ``synthetic_tracker`` on the original list
+    (``--annotations-out``) and on the corrected one, on the card and with
+    ``--device cpu``, then ``eval_marker_recall`` on the card's tracks.
+    Gates: the tracked points bit-equal card against CPU; the original OPT
+    recall 1.0; no point tracked on an original LOW scan. The corrected
+    LOW recall and point counts are printed beside the JAX record
+    (``JAX_RECALL``), without a gate: they depend on learning (C7). Then
+    the tracker's seconds per 512x512x128 scan on each device (points
+    bit-equal)."""
+    if learn_dir is None or not (learn_dir / "original_list.json").is_file():
+        learn_dir = tmp / "learn"
+        argv = [*LEARN_ARGV, "--workdir", str(learn_dir)]
+        with deterministic_scope():
+            print(f"recall: learning run first: {json.dumps(validate_learning.main(argv))}", flush=True)
+    launches, points, results = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        out = tmp / f"recall_{device}"
+        t0 = time.perf_counter()
+        orig = launches_during(lambda: synthetic_tracker.main(
+            [str(learn_dir / "original_list.json"), str(out / "tracked_original"), "--annotations-out",
+             str(out / "annotations"), "--device", device]), launches)
+        corr = launches_during(lambda: synthetic_tracker.main(
+            [str(learn_dir / "corrected_list.json"), str(out / "tracked_corrected"), "--device", device]), launches)
+        results[f"{device}_tracker_s"] = time.perf_counter() - t0
+        points[device] = {**{f"original/{k}": v for k, v in orig["points"].items()},
+                          **{f"corrected/{k}": v for k, v in corr["points"].items()}}
+    if points["cuda"].keys() != points["cpu"].keys() or not all(
+            np.array_equal(points["cuda"][k], points["cpu"][k]) for k in points["cpu"]):
+        raise AssertionError("recall: the card's tracked points differ from the CPU's")
+    card = tmp / "recall_cuda"
+    labels = (card / "annotations" / "labels.csv").read_text().splitlines()
+    (card / "labels_low.csv").write_text("\n".join([labels[0]] + [r for r in labels[1:] if r.endswith(",-1")]) + "\n")
+    recall = {}
+    for tag, labels_csv in (("original", card / "annotations" / "labels.csv"), ("corrected", card / "labels_low.csv")):
+        recall[tag] = eval_marker_recall.main([str(card / f"tracked_{tag}"), str(card / "annotations"),
+                                               str(labels_csv), str(card / f"recall_{tag}.json"), "--workers", "4"])
+    counts = {k: len(v) for k, v in points["cuda"].items()}
+    opt = recall["original"]["per_scan_type"].get("OPT", {})
+    if not opt or any(v != 1.0 for v in opt.values()):
+        raise AssertionError(f"recall: original OPT recall {opt}, want 1.0 for every artery")
+    low_orig = [n for k, n in counts.items() if k.startswith("original/low_")]
+    if not low_orig or any(low_orig):
+        raise AssertionError(f"recall: points tracked on the original LOW scans: {counts}")
+    port = {"original_opt_points": [n for k, n in counts.items() if k.startswith("original/opt_")],
+            "original_low_points": low_orig,
+            "corrected_low_points": [n for k, n in counts.items() if k.startswith("corrected/low_")],
+            "corrected_low_recall": recall["corrected"]["per_scan_type"].get("LOW")}
+    print(f"recall: port on the card {json.dumps(port)}; JAX record {json.dumps(JAX_RECALL)}", flush=True)
+    listing = tracker_scan(tmp)
+    scan_points = {}
+    for device in ("cuda", "cpu"):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = synthetic_tracker.main([str(listing), str(tmp / f"ct_{device}"), "--device", device])
+            times.append(time.perf_counter() - t0)
+        scan_points[device] = got["points"]["ct"]
+        results[f"{device}_s_per_512x512x128_scan"] = times[-1]
+    if not np.array_equal(scan_points["cuda"], scan_points["cpu"]) or not len(scan_points["cpu"]):
+        raise AssertionError(f"recall: 512x512x128 tracks differ or are empty ({len(scan_points['cpu'])} points)")
+    results["points_per_512x512x128_scan"] = len(scan_points["cpu"])
+    results.update(port=port, jax_record=JAX_RECALL, recall=recall, points=counts, bit_equal=True)
+    print(f"recall: {json.dumps({k: v for k, v in results.items() if k != 'recall'})}", flush=True)
+    return no_block_conv(launches, "recall"), results
+
+
+def overlap_phase(tmp: Path, iterations: int = 0):
+    """Phase 42 (``--only overlap``): ``eval_overlap_quality --iterations
+    0`` at its default 512x512x400 (the freshly initialised basic_3d
+    generator, bf16 packed corrections at overlap 0, 0.25 and 0.5). Gates:
+    every correction finite; the 25% and 50% centerline means within
+    ``OVERLAP_CTL_TOL``. ``--only overlap_trained`` runs the 400-iteration
+    study instead (no part of the whole script's run)."""
+    launches = {}
+    out = launches_during(lambda: eval_overlap_quality.main(
+        ["--iterations", str(iterations), "--out", str(tmp / f"overlap_{iterations}.json")]), launches)
+    finite = all(math.isfinite(r[k]) for r in out["overlaps"].values()
+                 for k in ("centerline_mean_hu_after", "background_mean_hu_after"))
+    if not finite:
+        raise AssertionError(f"overlap: a correction is not finite: {out['overlaps']}")
+    if not out["centerline_delta_25_vs_50_hu"] < OVERLAP_CTL_TOL:
+        raise AssertionError(f"overlap: 25% and 50% centerlines {out['centerline_delta_25_vs_50_hu']} HU apart")
+    print(f"overlap --iterations {iterations}: {json.dumps(out)}", flush=True)
+    return no_block_conv(launches, "overlap"), out
+
+
+def flops_phase():
+    """Phase 43 (``--only flops``): ``flops_accounting --json`` on the card,
+    both layouts. Gate, for each direct program: the B1 and B3 operators'
+    counted FLOPs equal their formulas summed over their calls, and the
+    calls are the launches (B1: its forward and dx launches; B3: the
+    operator's launches, whose B1 launch it counts itself; a B3 stage with
+    a gradient counts as its B1 launch). Then the warm seconds of the bare
+    bf16 ``combined_step`` (6 + 3 + 3, 128^3, weight clip) in both layouts
+    and of the packed batch-24 forward, and their achieved TFLOPS, executed
+    and on model FLOPs (the direct program's count), against the bf16 dense
+    peak."""
+    dev = torch.device("cuda")
+    out = flops_accounting.main(["--json"])
+    op_b1, op_b3 = "contrast_gan_3d_torch.block_conv3x3x3", "contrast_gan_3d_torch.s2d_conv3d_block"
+    launches = {"block_conv3x3x3": 0, "s2d_conv3d_block": 0, "block_conv3x3x3_v2": 0, "block_conv3x3x3_backward": 0}
+    for name, r in out.items():
+        n = r["launches"]
+        if "direct" not in name:
+            no_block_conv(n, f"flops {name}")
+            continue
+        k = r["kernels"]
+        b1, b3 = k.get("block_conv3x3x3", {}), k.get("s2d_conv3d_block", {})
+        counted_b1, counted_b3 = r["by_op"].get(op_b1, 0), r["by_op"].get(op_b3, 0)
+        ok = (counted_b1 == b1.get("flops", 0) and counted_b3 == b3.get("flops", 0)
+              and b1.get("calls", 0) + b3.get("calls", 0) == n["block_conv3x3x3"]
+              and n["s2d_conv3d_block"] == b3.get("calls", 0) + b1.get("calls", 0) - n["block_conv3x3x3_backward"])
+        if not ok or not n["block_conv3x3x3"]:
+            raise AssertionError(f"flops {name}: counted {counted_b1} / {counted_b3}, formulas {k}, launches {n}")
+        for key in launches:
+            launches[key] += n.get(key, 0)
+    timed = {}
+    for layout in ("packed", "direct"):
+        state, steps, batch = flops_accounting.setup_step(False, False, layout, dev, False)
+        for _ in range(2):
+            steps.combined_step(state, *batch)
+        timed[f"combined_wc_{layout}_s"] = warm_seconds(lambda: steps.combined_step(state, *batch), reps=5)
+        del state, steps, batch
+        torch.cuda.empty_cache()
+    fwd, gen = flops_accounting.setup_forward("packed", dev, False)
+    with torch.no_grad():
+        for _ in range(2):
+            fwd()
+        timed["inference_fwd_packed_s"] = warm_seconds(fwd, reps=5)
+    del fwd, gen
+    torch.cuda.empty_cache()
+    rates = {}
+    for key, prog, model_prog in (("combined_wc_packed_s", "combined_wc_128c_b12", "combined_wc_128c_b12_direct"),
+                                  ("combined_wc_direct_s", "combined_wc_128c_b12_direct",
+                                   "combined_wc_128c_b12_direct"),
+                                  ("inference_fwd_packed_s", "inference_fwd_packed_128c_b24",
+                                   "inference_fwd_direct_128c_b24")):
+        s = timed[key]
+        executed, model = out[prog]["flops"] / s / 1e12, out[model_prog]["model_flops"] / s / 1e12
+        rates[prog] = dict(seconds=s, executed_tflops=executed, model_tflops=model,
+                           executed_share_of_peak=executed * 1e12 / PEAK_BF16, mfu=model * 1e12 / PEAK_BF16)
+    summary = {name: dict(tflop=r["flops"] / 1e12, model_tflop=r["model_flops"] / 1e12,
+                          jax_hlo_tflop=r["jax_hlo_tflop"]) for name, r in out.items()}
+    print(f"flops: {json.dumps(summary)}", flush=True)
+    print(f"flops: bf16 peak {PEAK_BF16 / 1e12:.0f} TFLOPS; {json.dumps(rates)}", flush=True)
+    return launches, dict(programs=summary, rates=rates, launches=launches)
+
+
+def slice_13_phases(learn_dir=None):
+    """Phases 40-43; ``learn_dir``: phase 35's first run (its eval lists)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s13_") as tmp:
+        tmp = Path(tmp)
+        dataset = dataset_phase(tmp)
+        recall = recall_phase(tmp, learn_dir)
+        overlap = overlap_phase(tmp)
+    flops = flops_phase()
+    return dict(dataset=dataset, recall=recall, overlap=overlap, flops=flops)
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -4139,6 +4440,12 @@ ONLY = {
     "dp": dp_phases,
     "sharded": lambda: sharded_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))),
     "memory": lambda: memory_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_mem_"))),
+    "dataset": lambda: dataset_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))),
+    "recall": lambda: recall_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_recall_"))),
+    "overlap": lambda: overlap_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_overlap_"))),
+    "overlap_trained": lambda: overlap_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_overlap_")),
+                                             iterations=OVERLAP_TRAINED_ITERATIONS),
+    "flops": flops_phase,
 }
 
 
@@ -4302,10 +4609,13 @@ def main(argv=None) -> int:
     print(f"C3 and cycles: {time.perf_counter() - t_start:.1f} s", flush=True)
     serve_launches, serve_results, export_launches, export_results = daemon_phases()
     print(f"serve and export: {time.perf_counter() - t_start:.1f} s", flush=True)
-    s11 = slice_11_phases()
-    print(f"C6, preprocess, resize, learn: {time.perf_counter() - t_start:.1f} s", flush=True)
-    s12 = slice_12_phases()
-    print(f"init, dp, sharded, memory: {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s11_") as s11_tmp:
+        s11 = slice_11_phases(Path(s11_tmp))
+        print(f"C6, preprocess, resize, learn: {time.perf_counter() - t_start:.1f} s", flush=True)
+        s12 = slice_12_phases()
+        print(f"init, dp, sharded, memory: {time.perf_counter() - t_start:.1f} s", flush=True)
+        s13 = slice_13_phases(learn_dir=Path(s11_tmp) / "learn0")
+        print(f"dataset, recall, overlap, flops: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -4336,7 +4646,12 @@ def main(argv=None) -> int:
                    # the sharded corrector is f32 direct (its packed runs,
                    # correct_scans and serve launch none)
                    "dp": s12["dp"][0].get(key, 0) if dtype == torch.bfloat16 else 0,
-                   "sharded": s12["sharded"][0].get(key, 0) if dtype == torch.float32 else 0}
+                   "sharded": s12["sharded"][0].get(key, 0) if dtype == torch.float32 else 0,
+                   # the study tools launch none (each phase asserts it) but
+                   # flops_accounting's direct programs, all bf16
+                   "dataset": s13["dataset"][0][key], "recall": s13["recall"][0][key],
+                   "overlap": s13["overlap"][0][key],
+                   "flops": s13["flops"][0][key] if dtype == torch.bfloat16 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -4352,6 +4667,8 @@ def main(argv=None) -> int:
         "cycles": cycles, "serve": serve_results, "export": export_results, "c6": s11["c6"][1],
         "preprocess": s11["preprocess"], "resize": s11["resize"][1], "learn": s11["learn"][1],
         "init": s12["init"], "dp": s12["dp"][1], "sharded": s12["sharded"][1], "memory": s12["memory"],
+        "dataset": s13["dataset"][1], "recall": s13["recall"][1], "overlap": s13["overlap"][1],
+        "flops": s13["flops"][1],
     }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -50,15 +50,28 @@ backward's share. A captured CUDA graph keeps the counts true through
 ``launch_counts`` / ``add_launch_counts`` (``trainer/steps.py``
 ``build_cycle_step``). Launches take torch's current stream and scratch
 from torch's allocator, so they capture into a graph.
+
+Both operators have a flop formula (``torch.utils.flop_counter``), so
+``FlopCounterMode`` counts the hand-written kernels: each counts the work
+its operator executes, ``block_conv_flops`` for B1 (the dx launch too) and
+B3's B1 launch on the f=4 block grid for B3 (``s2d_conv3d_block_flops``,
+about 5x the model FLOPs of the 7^3 conv, ``s2d_conv3d_model_flops``).
+While ``FLOP_LOG`` is a list, each counted launch (and each
+``weight_grad``) also appends ``(name, executed, model)``: model is the
+7^3 conv's count where the launch serves a B3 stage (``flops_accounting``
+reports both totals).
 """
 
 import ctypes
+import math
+import threading
 from functools import lru_cache
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 from contrast_gan_3d_tpu_torch.ops import _build
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import (
@@ -79,6 +92,10 @@ _C_SYMBOLS = {
     ("zyx", torch.bfloat16): "block_conv3x3x3_v2_bf16",
 }
 ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
+# (name, executed FLOPs, model FLOPs) of each counted launch while a list
+FLOP_LOG: Optional[list] = None
+# the model FLOPs of the B3 stage whose B1 work runs now, per thread
+_stage = threading.local()
 OP_NAMESPACE = "contrast_gan_3d_torch"
 TF32_DROP = 0x1FFF  # the 13 low mantissa bits that TF32 does not keep
 
@@ -130,6 +147,44 @@ def pad_channels(x: torch.Tensor, w_km: torch.Tensor):
     if not pad:
         return x, w_km
     return F.pad(x, (0, pad)), F.pad(w_km, (0, pad))
+
+
+def block_conv_flops(x_shape, w_km_shape) -> int:
+    """FLOPs of one B1 (or B2) launch: 2 B (Z-2)(X-2)(Y-2) 27 Ci Co, for x
+    (B, Z, ., ., Ci) and the K-major weight (27, Co, Ci) (Ci before the
+    kernel's channel padding, which adds only zeros)."""
+    b, z, d2, d3 = x_shape[:4]
+    return 2 * b * (z - 2) * (d2 - 2) * (d3 - 2) * 27 * w_km_shape[2] * w_km_shape[1]
+
+
+def s2d_pads(dims, kernel, f: int):
+    """B3's padding of the (X, Y, Z) ``dims`` for a ``kernel`` conv: the
+    SAME pad per side, then the right pad that makes each padded length a
+    multiple of f AND at least d/f + 2 blocks, so the VALID block conv
+    yields the whole output (even kernels, k=6: p=2, fall short of the
+    second bound)."""
+    pads = [(k - 1) // 2 for k in kernel]
+    extra = [max((-(d + 2 * p)) % f, d + f * 2 - (d + 2 * p)) for d, p in zip(dims, pads)]
+    return pads, extra
+
+
+def s2d_conv3d_block_flops(x_shape, w_shape, f: int = 4) -> int:
+    """FLOPs B3 executes: its B1 launch on the f-block grid of x (B, X, Y,
+    Z, Ci) padded for w (k, k, k, Ci, Co), f^3 Ci -> f^3 Co channels."""
+    pads, extra = s2d_pads(x_shape[1:4], w_shape[:3], f)
+    blocks = [(d + 2 * p + e) // f for d, p, e in zip(x_shape[1:4], pads, extra)]
+    return block_conv_flops((x_shape[0], *blocks), (27, f**3 * w_shape[4], f**3 * w_shape[3]))
+
+
+def s2d_conv3d_model_flops(x_shape, w_shape) -> int:
+    """FLOPs of the stride-1 SAME conv B3 computes, counted as a plain
+    conv: 2 B X Y Z kx ky kz Ci Co."""
+    return 2 * math.prod(x_shape[:4]) * math.prod(w_shape)
+
+
+def _log_flops(name: str, executed: int, model: Optional[int] = None) -> None:
+    if FLOP_LOG is not None:
+        FLOP_LOG.append((name, executed, executed if model is None else model))
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
@@ -234,6 +289,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, layout):
         ctx.layout = layout
+        ctx.model = getattr(_stage, "model", None)
         ctx.save_for_backward(x, w)
         return block_conv_op(x, kmajor(w), layout)
 
@@ -244,14 +300,31 @@ class BlockConv3x3x3Function(torch.autograd.Function):
         layout = ctx.layout
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
-            dx = block_conv_op(dy_pad, dx_weight(w), layout).to(x.dtype)
-            if dx.is_cuda:
-                _WRAPPERS[layout].backward_launches += 1
-        if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, dy, layout).to(w.dtype)
+        with _model_flops(ctx.model):
+            if ctx.needs_input_grad[0]:
+                dy_pad = F.pad(dy, (0, 0, 2, 2, 2, 2, 2, 2))  # (B, Z+2, ., ., Co)
+                dx = block_conv_op(dy_pad, dx_weight(w), layout).to(x.dtype)
+                if dx.is_cuda:
+                    _WRAPPERS[layout].backward_launches += 1
+            if ctx.needs_input_grad[1]:
+                dw = weight_grad(x, dy, layout).to(w.dtype)
         return dx, dw, None
+
+
+class _model_flops:
+    """Within the scope, launches count ``model`` as their model FLOPs
+    (``FLOP_LOG``); None leaves the enclosing scope's."""
+
+    def __init__(self, model: Optional[int]):
+        self.model = model
+
+    def __enter__(self):
+        self.prev = getattr(_stage, "model", None)
+        if self.model is not None:
+            _stage.model = self.model
+
+    def __exit__(self, *exc):
+        _stage.model = self.prev
 
 
 def weight_grad(x: torch.Tensor, dy: torch.Tensor, layout: str = "zxy") -> torch.Tensor:
@@ -261,6 +334,7 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, layout: str = "zxy") -> torch
     by the matmul; a hand-written wgrad kernel is ROADMAP work)."""
     zo, d2o, d3o = dy.shape[1:4]
     dy_m = dy.reshape(-1, dy.shape[-1])
+    _log_flops("weight_grad", 2 * dy_m.shape[0] * 27 * x.shape[-1] * dy.shape[-1], getattr(_stage, "model", None))
     dw = torch.empty((3, 3, 3, x.shape[-1], dy.shape[-1]), dtype=torch.float32, device=x.device)
     for qx in range(3):
         for qy in range(3):
@@ -342,21 +416,17 @@ def _s2d_block(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f
     """B3's glue around one B1 launch (counted here on the card): pad,
     space-to-depth, B1, depth-to-space, bias in x's dtype."""
     mode = check_padding_mode(padding_mode)
-    kx, ky, kz = w.shape[:3]
     B, X, Y, Z, ci = x.shape
-    pads = [(k - 1) // 2 for k in (kx, ky, kz)]
+    pads, extra = s2d_pads((X, Y, Z), w.shape[:3], f)  # as the JAX wrapper pads
     xp = pad_spatial(x, [(p, p) for p in pads], mode)
-    # right-pad bound as in the JAX wrapper: the padded length must divide f
-    # AND give >= d/f + K - 1 blocks so the VALID block conv yields the full
-    # output — even kernels (k=6: p=2) fall short of the second bound
-    extra = [max((-(d + 2 * p)) % f, d + f * 2 - (d + 2 * p)) for d, p in zip((X, Y, Z), pads)]
     if any(extra):
         xp = pad_spatial(xp, [(0, e) for e in extra])
     xs = space_to_depth(xp, f)  # (B, Xb+2, Yb+2, Zb+2, f^3 ci)
     ws = transform_kernel(w, f).to(x.dtype)  # [kx, ky, kz] block taps
     # B1 pairs w's axes (0, 1, 2) with x's spatial axes (2, 3, 1); on the
     # (X, Y, Z) block grid that takes the taps ordered [ky, kz, kx]
-    out = block_conv3x3x3(xs, ws.permute(1, 2, 0, 3, 4).contiguous())  # (B, Xb', Yb', Zb', f^3 co) f32
+    with _model_flops(s2d_conv3d_model_flops(x.shape, w.shape)):
+        out = block_conv3x3x3(xs, ws.permute(1, 2, 0, 3, 4).contiguous())  # (B, Xb', Yb', Zb', f^3 co) f32
     if x.is_cuda:
         s2d_conv3d_block.launches += 1
     out = out[:, : X // f, : Y // f, : Z // f].to(x.dtype)
@@ -382,3 +452,21 @@ def _(x, w, bias, f, padding_mode):
 
 s2d_conv3d_block.launches = 0
 COUNTED = (block_conv3x3x3, block_conv3x3x3_v2, s2d_conv3d_block)
+
+
+def _b1_flop(x_shape, w_km_shape, layout, *args, out_shape=None, **kwargs) -> int:
+    n = block_conv_flops(x_shape, w_km_shape)
+    _log_flops("block_conv3x3x3" if layout == "zxy" else "block_conv3x3x3_v2", n, getattr(_stage, "model", None))
+    return n
+
+
+def _b3_flop(x_shape, w_shape, bias_shape, f, padding_mode, *args, out_shape=None, **kwargs) -> int:
+    n = s2d_conv3d_block_flops(x_shape, w_shape, f)
+    _log_flops("s2d_conv3d_block", n, s2d_conv3d_model_flops(x_shape, w_shape))
+    return n
+
+
+for _op, _formula in ((torch.ops.contrast_gan_3d_torch.block_conv3x3x3, _b1_flop),
+                      (torch.ops.contrast_gan_3d_torch.s2d_conv3d_block, _b3_flop)):
+    if _op not in flop_registry:  # registered once per process
+        register_flop_formula(_op)(_formula)

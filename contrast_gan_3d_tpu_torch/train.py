@@ -30,7 +30,9 @@ captured CUDA graph, so ``--debug`` dispatches every iteration eagerly
 (``cycle_length`` 1) and logs it. ``--profiler-dir`` traces steps with
 ``torch.profiler`` (the first ``--profiler-steps``, or a
 ``--profiler-schedule``) into Chrome traces there.
-Building folds from dataset sheets and wandb are not ported (ROADMAP).
+Without ``--cval-splits`` the folds are one stratified split of the
+config's ``dataset_paths`` csv sheets (``data/labeling.cross_val_splits``,
+the JAX CLI's fallback). wandb is not ported (ROADMAP).
 """
 
 import argparse
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from contrast_gan_3d_tpu_torch.data.labeling import cross_val_splits
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
 from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import ExperimentConfig, asdict_flat, load_config
@@ -259,7 +262,9 @@ class TrainManager:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--conf", default=None, help="preset name or python override file")
-    p.add_argument("--cval-splits", required=True, help="pickle of {'train': [fold..], 'test': [fold..]}")
+    p.add_argument("--cval-splits", default=None,
+                   help="pickle of {'train': [fold..], 'test': [fold..]}; without it, one stratified split of the "
+                        "config's dataset_paths sheets (seeded with its seed)")
     p.add_argument("--checkpoint-root", required=True, help="checkpoints go to <root>/<run id>")
     p.add_argument("--run-id", default=None, help="the run's directory name (resumes if it has checkpoints)")
     p.add_argument("--starting-fold", type=int, default=0)
@@ -320,6 +325,11 @@ def main(argv=None) -> Optional[TrainManager]:
                                    ("dp_devices", args.dp_devices)) if v is not None}
     if overrides:
         cfg = replace(cfg, **overrides)
+    if not args.cval_splits and cfg.dataset_paths and cfg.seed is None and cfg.dp_devices is not None:
+        # each rank splits the sheets itself: unseeded, they would draw
+        # different folds
+        raise SystemExit("data-parallel folds from dataset_paths need the config's seed, so that every rank "
+                         "draws the same split")
     backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
     mesh = None
     owns_group = False
@@ -345,8 +355,14 @@ def main(argv=None) -> Optional[TrainManager]:
                        "dispatches eagerly (cycle_length %s -> 1), and every step's metrics are checked for NaN / "
                        "inf", cfg.cycle_length if cfg.cycle_length is not None else "auto")
         cfg = replace(cfg, cycle_length=1)
-    with open(args.cval_splits, "rb") as fd:
-        splits = pickle.load(fd)
+    if args.cval_splits:
+        with open(args.cval_splits, "rb") as fd:
+            splits = pickle.load(fd)
+    elif cfg.dataset_paths:
+        train_folds, val_folds = cross_val_splits(1, *cfg.dataset_paths, seed=cfg.seed)
+        splits = {"train": train_folds, "test": val_folds}
+    else:
+        raise SystemExit("Provide --cval-splits or config dataset_paths")
     profiler_factory = None
     if args.profiler_dir:
         profiler_factory = lambda: make_profiler(args.profiler_dir, args.profiler_steps, args.profiler_schedule)

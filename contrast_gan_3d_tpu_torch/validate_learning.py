@@ -45,13 +45,13 @@ logger = logging.getLogger("contrast_gan_3d_tpu_torch.validate_learning")
 VESSEL_HU = {0: 400, -1: 250, 1: 550}
 
 
-def synth_patient(rng, shape, vessel_hu):
+def synth_patient(rng, shape, vessel_hu, n_points: int = 60):
     """One synthetic scan (the JAX script's): N(50, 20) HU tissue, a sine
-    centerline of 60 points with a 3^3 blob of ``vessel_hu`` + N(0, 10) HU
-    around each; returns (int16 volume, uint8 mask, meta)."""
+    centerline of ``n_points`` points with a 3^3 blob of ``vessel_hu`` +
+    N(0, 10) HU around each; returns (int16 volume, uint8 mask, meta)."""
     vol = rng.normal(50.0, 20.0, shape).astype(np.float32)
     vol[0, 0, 0] = -1000
-    n = 60
+    n = n_points
     t = np.linspace(0, 1, n)
     pts = np.stack([
         (0.15 + 0.7 * t) * shape[0],

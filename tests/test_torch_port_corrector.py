@@ -141,7 +141,10 @@ def test_port_imports_nothing_of_jax():
         "eval.hu_distribution_shift", "utils.geometry", "ops.resample",
         # meshes, the memory and debug tools
         "parallel.mesh", "parallel.multihost", "parallel.inference", "utils.memory", "utils.debug",
-        "memory_report")} <= set(mods)
+        "memory_report",
+        # the study tools: labels and folds, marker recall, overlap, FLOPs
+        "create_dataset", "synthetic_tracker", "eval_marker_recall", "eval.marker_recall_rate",
+        "eval_overlap_quality", "flops_accounting")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
