@@ -7,6 +7,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only c6 preprocess resize learn
     python3 chip_smoke.py --only init dp sharded memory learn
     python3 chip_smoke.py --only dataset recall overlap flops
+    python3 chip_smoke.py --only instance dropout remat jax_ckpt
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -187,8 +188,9 @@ failure raises and exits non-zero):
     inside a cycle: ``fit`` in 4 cycles of 5 replayed as CUDA graphs
     against eager per-iteration dispatch, bit-equal after every cycle,
     launches per cycle, the logged scalars, two replays drawing different
-    augmentations; then seconds per cycle, graph against eager, the
-    ``replay()`` call, busy shares, peak memory (``cycle_phase``);
+    augmentations; then (not for ``gradient_penalty``, for the time limit)
+    seconds per cycle, graph against eager, the ``replay()`` call, busy
+    shares, peak memory (``cycle_phase``);
 25. C3: the reflect pad's backward, ``F.pad``'s against ``reflect_pad``'s,
     and two identical gradient calls of the 3D and 2D generators (and the
     2D critic) under ``cudnn.deterministic`` alone: the generators'
@@ -246,8 +248,7 @@ failure raises and exits non-zero):
     (``move_to_device_pass``), equal to the live corrector. Export, load, first-call and warm-call
     seconds are printed.
 
-32. C6 (``--only c6``): one CT-like and one uniform-noise 512x512x128
-    volume through the f32 direct corrector (phase 3's weights) and through
+32. C6 (``--only c6``): one CT-like 512x512x128 volume through the f32 direct corrector (phase 3's weights) and through
     ``serve``'s packed corrector (its f32 generator on bf16-rounded
     patches), with cuDNN's TF32 on (PyTorch's default) and off: max |on -
     off| in HU, the voxels over 0.1 HU, the int16 voxels that round apart;
@@ -323,6 +324,24 @@ failure raises and exits non-zero):
     the achieved TFLOPS of the bare bf16 ``combined_step`` and the packed
     forward, executed and on model FLOPs, against the bf16 peak.
 
+44. instance norm (``--only instance``): a basic_3d-width generator and
+    critic with ``norm="instance"``, f32 and bf16, the direct layout as
+    the builder resolves it: a 512x512x128 correction at 25% (B3 -> B1),
+    the card against the CPU, one 6+3+3 128^3 weight-clip and one
+    gradient-penalty ``combined_step`` (B1's dx in the backward), phase 7's
+    train parity with the instance-norm generator;
+45. generator dropout (``--only dropout``): basic_3d with
+    ``resnet_dropout_prob=0.5`` through phase 24's cycle check (replays
+    bit-equal to eager dispatch, two replays draw different masks);
+46. remat (``--only remat``): small_patch and basic_3d (packed and
+    direct), weight clip and gradient penalty, a bf16 step with remat and
+    without: equal, each run's own peak memory and step time; B1 / B3 count
+    the recomputed forwards; one captured cycle with remat and dropout;
+47. JAX checkpoints (``--only jax_ckpt``): phase 3's weights written as a
+    flax ``<step>.msgpack`` by this script's own encoder, read by the port
+    without ``msgpack``: its correction equals phase 3's; ``correct_scans``
+    on the directory; ``import_jax_checkpoint`` and a resumed run.
+
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -333,6 +352,8 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import gc
+import importlib.util
 import json
 import logging
 import math
@@ -359,6 +380,7 @@ from contrast_gan_3d_tpu_torch import correct_scans, eval_hu_shift, export_corre
 from contrast_gan_3d_tpu_torch import memory_report, validate_learning
 from contrast_gan_3d_tpu_torch import create_dataset, eval_marker_recall, eval_overlap_quality, flops_accounting, \
     synthetic_tracker
+from contrast_gan_3d_tpu_torch import import_jax_checkpoint
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.labeling import read_sheet
@@ -953,6 +975,26 @@ def make_trainer(mode: str, seed: int, device="cuda", dtype=torch.float32, gen_k
     cfg = StepConfig(weight_clip=spec["weight_clip"], gp_weight=10.0, dtype=dtype, **trainer_kw)
     schedule = TrainerConfig(train_critic_every=spec["critic_every"], train_generator_every=spec["generator_every"])
     return Trainer(gen, critic, tx, tx, cfg, schedule, seed=seed, device=device, mesh=mesh)
+
+
+def step_records(fn, reps):
+    """Per call of ``fn`` (ending in torch.cuda.synchronize()): host
+    seconds, the caching allocator's new device segments (cudaMalloc) and
+    free-and-retry rounds, and Python's garbage collections in it by
+    generation."""
+    out = []
+    for _ in range(reps):
+        mem, collections = torch.cuda.memory_stats(), [g["collections"] for g in gc.get_stats()]
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = torch.cuda.memory_stats()
+        out.append(dict(seconds=seconds,
+                        segments=after.get("segment.all.allocated", 0) - mem.get("segment.all.allocated", 0),
+                        retries=after.get("num_alloc_retries", 0) - mem.get("num_alloc_retries", 0),
+                        collections=[g["collections"] - n for g, n in zip(gc.get_stats(), collections)]))
+    return out
 
 
 def warm_seconds(fn, reps=TIMED_STEPS):
@@ -2317,8 +2359,9 @@ def fit_2d_phase(tmp: Path):
     a checkpoint every 10), 10 more iterations of it under the profiler,
     then windows of 10 with four loader threads per label and with one,
     alternated, twice each, none profiled (the dispatch seconds per
-    iteration of each); the same 15 iterations at ``cycle_length=1`` with a
-    profiled window; then one device-augmented run of 15. Checks: finite
+    iteration of each); then one device-augmented run of 15 (no run at
+    ``cycle_length=1``: it went for the time limit; PERF.md keeps its
+    figures). Checks: finite
     losses,
     the clip, the checkpoint files, native 2D warps and no plain ones, no
     block-conv launch. Then resume: 4 iterations and a resume to 7 against
@@ -2343,7 +2386,7 @@ def fit_2d_phase(tmp: Path):
     splits = tmp / "splits_2d.pkl"
     splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
     confs = {}
-    for name, extra in (("host", {}), ("host_k1", dict(cycle_length=1)), ("device", dict(augment_backend="device")),
+    for name, extra in (("host", {}), ("device", dict(augment_backend="device")),
                         ("resume", dict(num_workers=(1, 1), validate_every=None, checkpoint_every=1000))):
         confs[name] = tmp / f"fit_2d_{name}.py"
         confs[name].write_text(
@@ -2370,14 +2413,13 @@ def fit_2d_phase(tmp: Path):
 
     out = {}
     zero_counts()
-    for conf, iterations in (("host", FIT_2D_ITERATIONS), ("host_k1", FIT_2D_ITERATIONS),
-                             ("device", FIT_2D_DEVICE_ITERATIONS)):
+    for conf, iterations in (("host", FIT_2D_ITERATIONS), ("device", FIT_2D_DEVICE_ITERATIONS)):
         warps, plain = native.warp_augment2d_int16.calls, warp2d_int16.calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         trainer, logs, seconds = run(conf, iterations, conf)
         warps = native.warp_augment2d_int16.calls - warps
-        if trainer.cfg.cycle_length != (1 if conf == "host_k1" else FIT_K):
+        if trainer.cfg.cycle_length != FIT_K:
             raise AssertionError(f"fit 2D {conf}: cycle_length {trainer.cfg.cycle_length}")
         if conf.startswith("host") and not (warps > 0 and warp2d_int16.calls == plain):
             raise AssertionError(f"fit 2D {conf}: {warps} native 2D warps, {warp2d_int16.calls - plain} plain ones")
@@ -2733,7 +2775,7 @@ def packed_serving_phase(gen, rng, dtype):
 # (label, preset, overrides): the 3D presets resolve the packed layout;
 # basic_3d again in the direct one (B3 -> B1 inside the captured cycles)
 CYCLE_RUNS = (("basic_3d", "basic_3d", {}), ("basic_3d_direct", "basic_3d", dict(generator_layout="direct")),
-              ("gradient_penalty", "gradient_penalty", {}), ("conf_2d", "conf_2d", {}))
+              ("gradient_penalty", "gradient_penalty", dict(timed=False)), ("conf_2d", "conf_2d", {}))
 CYCLE_K, CYCLES = 5, 4
 # both networks' milestones (the config has one tuple): the critic passes 7
 # at iteration 7, inside the first captured cycle, the generator passes 2
@@ -2772,7 +2814,7 @@ def device_batches(g, patch, mix, n, dev="cuda"):
              HIGH: {"data": hu(n_high), "seg": mask(n_high)}} for _ in range(n)]
 
 
-def cycle_phase(name, device="cuda", label=None, **overrides):
+def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
     """Phase 24 for preset ``name`` (basic_3d, gradient_penalty, conf_2d;
     the 3D presets in the packed layout they resolve, basic_3d also with
     ``generator_layout="direct"``, ``label`` basic_3d_direct):
@@ -2797,8 +2839,13 @@ def cycle_phase(name, device="cuda", label=None, **overrides):
     generator state). Then seconds per 5-iteration cycle, replayed
     against eager dispatch (alternated, medians), the host seconds of the
     ``replay()`` call, each one's busy share under the profiler, and the
-    peak memory. ``device="cpu"`` and ``overrides`` (tiny widths) rehearse
-    the phase on the CPU, where every cycle runs eagerly."""
+    peak memory (``timed=False``: none of these). A generator with dropout
+    (phase 45) draws its masks from the state's generator inside the
+    graph: the replays' states are bit-equal to eager dispatch's, and the
+    3rd and 4th cycle's last masks differ. Under remat (phase 46) B1 / B3
+    count the recomputed forwards too. ``device="cpu"`` and ``overrides``
+    (tiny widths) rehearse the phase on the CPU, where every cycle runs
+    eagerly."""
     cfg = dataclasses.replace(load_config(name), augment_backend="device", milestones=CYCLE_MILESTONES,
                               log_every=CYCLE_K, validate_every=None, checkpoint_every=None, log_images_every=None,
                               **overrides)
@@ -2816,6 +2863,8 @@ def cycle_phase(name, device="cuda", label=None, **overrides):
     data = device_batches(g, cfg.train_patch_size, mix, CYCLE_K * (CYCLES - 1), device)
     data += data[-CYCLE_K:]  # two successive replays on the same batches
     checks = []
+    drops = [m for m in graph.state.generator.modules() if isinstance(m, blocks.Dropout)]
+    per_branch = B1_PER_BRANCH_REMAT if graph.state.generator.remat else B1_PER_BRANCH
     real_cycle = graph.train_step_cycle
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2842,7 +2891,7 @@ def cycle_phase(name, device="cuda", label=None, **overrides):
         if calls != want_calls:
             raise AssertionError(f"cycle {name} {c}: calls {calls}, expected {want_calls}")
         direct = graph.state.generator.layout == "direct" and not cfg.is_2d
-        b1 = sum(B1_PER_BRANCH[b] for b in cycle.pattern) if direct else 0
+        b1 = sum(per_branch[b] for b in cycle.pattern) if direct else 0
         dx = sum(b != "critic" for b in cycle.pattern) if direct else 0
         want_launches = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - dx, "block_conv3x3x3_v2": 0,
                          "block_conv3x3x3_backward": dx}
@@ -2850,7 +2899,8 @@ def cycle_phase(name, device="cuda", label=None, **overrides):
             raise AssertionError(f"cycle {name} {c}: launches {launches}, expected {want_launches}")
         checks.append(dict(iteration=iteration, calls=calls, launches=launches, rng_before=rng_before,
                            want={k: v.float().item() for k, v in want.items()},
-                           replay_s=cycle.replay_s if c else None))
+                           replay_s=cycle.replay_s if c else None,
+                           mask=drops[0].mask.clone() if drops else None))
         print(f"cycle {name} {c} (iterations {iteration}-{iteration + 4}, {'/'.join(cycle.pattern)}): calls "
               f"{calls}, launches {launches}; state bit-equal to eager dispatch", flush=True)
         return metrics, first
@@ -2882,6 +2932,19 @@ def cycle_phase(name, device="cuda", label=None, **overrides):
         draws.append(aug.draw(rng, mix[1] + mix[2], graph.step_cfg.augment))
     if all(torch.equal(a, b) for a, b in zip(*draws)):
         raise AssertionError(f"cycle {name}: two replays drew the same augmentation")
+    if drops:
+        a, b = checks[2]["mask"], checks[3]["mask"]
+        kept = [c["mask"].float().mean().item() for c in checks]
+        print(f"cycle {name}: dropout p={drops[0].p}: kept share per cycle {kept}; the two replays on the same "
+              f"batches drew {'the same' if torch.equal(a, b) else 'different'} masks", flush=True)
+        if torch.equal(a, b) or not all(abs(k - (1 - drops[0].p)) < 0.05 for k in kept):
+            raise AssertionError(f"cycle {name}: dropout masks: kept {kept}, replays equal {torch.equal(a, b)}")
+    if not timed:
+        out = dict(peak_memory_gib=peak, per_cycle=[{k: c[k] for k in ("iteration", "calls", "launches")}
+                                                    for c in checks])
+        del eager, graph, data, checks
+        torch.cuda.empty_cache()
+        return out
     print(f"cycle {name}: logged scalars at {[it for it, _ in logged]} equal each cycle's own; the two replays on "
           f"the same batches drew different augmentations; peak memory {peak:.2f} GiB allocated (two trainers)",
           flush=True)
@@ -3301,7 +3364,8 @@ def _set_tf32(flags):
 
 def c6_phase(tmp: Path):
     """Phase 32 (``--only c6``): what TF32 does to the f32 correction. One
-    CT-like and one uniform-noise 512x512x128 int16 volume, corrected by
+    CT-like 512x512x128 int16 volume (a uniform-noise one too until the
+    time limit pressed; PERF.md keeps its figures), corrected by
     the f32 direct corrector (phase 3's weights, 128^3 patches, overlap
     0.25, batch 8) and by ``serve``'s packed corrector (the checkpoint's f32
     generator on bf16-rounded patches), each with cuDNN's TF32 on
@@ -3320,8 +3384,7 @@ def c6_phase(tmp: Path):
         "serve_packed_bf16_patches": srv.service.corrector,
     }
     rng = np.random.default_rng(32)
-    volumes = {"ct_like": ct_like(rng, C6_VOLUME, 0.5),
-               "uniform": rng.integers(-1024, 1500, C6_VOLUME).astype(np.int16)}
+    volumes = {"ct_like": ct_like(rng, C6_VOLUME, 0.5)}
     flags, deterministic = tf32_flags(), torch.backends.cudnn.deterministic
     results, launches, direct_calls = {}, {}, 0
     torch.backends.cudnn.deterministic = True
@@ -3557,8 +3620,10 @@ JAX_LEARN = {"centerline_mean_hu_before": 249.8, "centerline_mean_hu_after": 364
              "high_centerline_mean_hu_before": 550.0, "high_centerline_mean_hu_after": 491.8,
              "corrected_low_centerline_mean": 361.3}
 # the same recipe at other training seeds (no eval cohort): the spread the
-# seed-3 figures sit in (the JAX record names about 80 HU across seeds)
-LEARN_SWEEP_SEEDS = (0, 1, 2, 4, 5, 6)
+# seed-3 figures sit in (the JAX record names about 80 HU across seeds).
+# Two: seeds 2, 4, 5 and 6 cost about 29 s on the H100, in a script that
+# came within 100 s of its 1200 s limit with them (PERF.md keeps all six)
+LEARN_SWEEP_SEEDS = (0, 1)
 
 
 @contextlib.contextmanager
@@ -3590,7 +3655,7 @@ def learn_phase(tmp: Path):
     its lists, twice, under cuDNN's and torch's deterministic algorithms.
     Gate: the held-out LOW and HIGH scans both move toward the 350-450 HU
     corridor; the two runs give the same summaries. Prints the port's
-    numbers beside the JAX record's, and the recipe's results at six other
+    numbers beside the JAX record's, and the recipe's results at two other
     training seeds (``LEARN_SWEEP_SEEDS``, no gate)."""
     runs = []
     zero_counts()
@@ -4421,6 +4486,425 @@ def slice_13_phases(learn_dir=None):
     return dict(dataset=dataset, recall=recall, overlap=overlap, flops=flops)
 
 
+# --- slice 14: instance norm, generator dropout, remat, JAX checkpoints
+# (phases 44-47) ---------------------------------------------------------------------------------------------
+
+BASIC_GEN = load_config("basic_3d").generator_args
+INSTANCE_VOLUME = (512, 512, 128)
+INSTANCE_PARITY = ((96, 96, 64), (64, 64, 64))  # volume, patch
+B1_PER_BRANCH_REMAT = {"critic": 2, "combined": 5, "generator": 5}  # + the recomputed stem and projection
+# (label, preset, overrides): the presets resolve the packed layout;
+# basic_3d again in the direct one, where the recomputation launches B3 -> B1
+REMAT_RUNS = (("small_patch", "small_patch", {}), ("basic_3d", "basic_3d", {}),
+              ("basic_3d_direct", "basic_3d", dict(generator_layout="direct")))
+# remat's timed steps: the median of 5, after one untimed step
+REMAT_TIMED_STEPS = 5
+REMAT_CYCLE = dict(remat=True, generator_layout="direct", generator_args={**BASIC_GEN, "resnet_dropout_prob": 0.5})
+JAX_CKPT_STEP, JAX_CKPT_COUNT = 7, 3
+
+
+def _gp(cfg):
+    """``cfg`` as a gradient-penalty run: the gradient_penalty preset's
+    critic (no norm), lr and betas."""
+    gp = load_config("gradient_penalty")
+    return dataclasses.replace(cfg, weight_clip=None, critic_args={**cfg.critic_args, "norm": None}, lr=gp.lr,
+                               betas=gp.betas)
+
+
+def _trainer(cfg, device="cuda"):
+    b = build(cfg, device=device)
+    return Trainer(b.generator, b.critic, b.gen_tx, b.critic_tx, b.step_config, b.trainer_config, seed=b.seed,
+                   logger_interface=NoopLogger(), device=device)
+
+
+def instance_phase(rng, device="cuda", volume=INSTANCE_VOLUME, patch=TRAIN_PATCH, mix=TRAIN_MIX,
+                   parity=INSTANCE_PARITY, **overrides):
+    """Phase 44 (``--only instance``): ``norm="instance"`` at basic_3d's
+    width (generator and critic), f32 and bf16, the layout resolved as the
+    JAX builder resolves it (direct: B3 -> B1). Per dtype: a
+    512x512x128 correction at 25% (B1 and B3 two launches per forward), a
+    96x96x64 correction on the card against the CPU (f32 within 0.5 HU,
+    bf16 within twice the CPU's own bf16 distance plus 0.5 HU), one 6+3+3
+    128^3 weight-clip ``combined_step`` and one gradient-penalty one (B1
+    three launches each, one of them the dx), timed; then phase 7's train
+    parity (card against CPU, f32, 32^3) with the instance-norm
+    generator. Counts are zeroed just before each path and read after."""
+    launches, out = {}, {}
+    state32 = None
+    for dtype in DTYPES:
+        name = DTYPE_NAME[dtype]
+        cfg = dataclasses.replace(load_config("basic_3d", **overrides), compute_dtype=name, augment=False,
+                                  generator_args={**BASIC_GEN, **overrides.get("generator_args", {}),
+                                                  "norm": "instance"},
+                                  critic_args={**load_config("basic_3d").critic_args,
+                                               **overrides.get("critic_args", {}), "norm": "instance"})
+        built = build(cfg, device=device)
+        gen = seeded(built.generator, 40)
+        if gen.layout != "direct" or not isinstance(gen.first.norm, type(gen.resnet_0.block0.norm)):
+            raise AssertionError(f"instance: layout {gen.layout}, norm {type(gen.first.norm).__name__}")
+        state32 = state32 or {k: v.detach().cpu().clone() for k, v in gen.state_dict().items()}
+        corrector = CCTAContrastCorrector(gen, inference_patch_size=patch, overlap=0.25, dtype=dtype, device=device)
+        if corrector.packed:
+            raise AssertionError("instance: the corrector resolved the packed layout")
+        vol = rng.integers(-1024, 1500, volume).astype(np.int16)
+        corrector(vol)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        corrected = corrector(vol)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        serve = read_counts()
+        forwards = -(-num_patches(volume, patch, 0.25) // corrector.batch_size)
+        delta = (corrected.cpu() - torch.from_numpy(vol).float()).abs().max().item()
+        if not (torch.isfinite(corrected).all() and delta < 600.0 + 1e-2):
+            raise AssertionError(f"instance {name}: correction {delta} HU")
+        if serve["block_conv3x3x3"] != 2 * forwards or serve["s2d_conv3d_block"] != 2 * forwards:
+            raise AssertionError(f"instance {name}: serving launches {serve}, {forwards} forwards")
+        # the card against the CPU, the same weights
+        pvol = rng.integers(-1024, 1500, parity[0]).astype(np.int16)
+        kw = dict(inference_patch_size=parity[1], overlap=0.25, batch_size=BATCH)
+        got = {"card": CCTAContrastCorrector(gen, dtype=dtype, device=device, **kw)(pvol).cpu()}
+        for cpu_name, cpu_dtype in (("cpu_f32", torch.float32), ("cpu", dtype)):
+            if cpu_dtype == torch.float32 and cpu_name == "cpu":
+                got["cpu"] = got["cpu_f32"]
+                continue
+            gen_cpu = ResnetGenerator(**cfg.generator_args, dtype=cpu_dtype)
+            gen_cpu.load_state_dict(state32, strict=True)
+            got[cpu_name] = CCTAContrastCorrector(gen_cpu, dtype=cpu_dtype, device="cpu", **kw)(pvol)
+        diff = (got["card"] - got["cpu_f32"]).abs().max().item()
+        own = (got["cpu"] - got["cpu_f32"]).abs().max().item()
+        limit = PATH_TOL_HU if dtype == torch.float32 else 2 * own + PATH_TOL_HU
+        print(f"instance {name}: {'x'.join(map(str, volume))} at 25% {seconds:.4f} s ({forwards} forwards of batch "
+              f"{corrector.batch_size}), launches {serve}; parity {'x'.join(map(str, parity[0]))}: max |card - cpu "
+              f"f32| {diff:.4f} HU (limit {limit:.4f}; cpu {name} - cpu f32 {own:.4f})", flush=True)
+        if not diff <= limit:
+            raise AssertionError(f"instance {name}: the card's correction is {diff} HU from the CPU's")
+        del corrector, corrected, gen
+        torch.cuda.empty_cache()
+        # a weight-clip and a gradient-penalty step at 6+3+3 128^3
+        train = {}
+        for mode, mode_cfg in (("wc", cfg), ("gp", _gp(cfg))):
+            trainer = _trainer(mode_cfg, device)
+            seeded(trainer.state.generator, 41)
+            patches = train_patches(rng, patch, mix, device)
+            opt, subopt, mask, _ = trainer._assemble(patches)
+            torch.cuda.synchronize()
+            zero_counts()
+            _, metrics = trainer.steps.combined_step(trainer.state, opt, subopt, mask)
+            torch.cuda.synchronize()
+            step = read_counts()
+            step_s = warm_seconds(lambda: trainer.steps.combined_step(trainer.state, opt, subopt, mask))
+            values = {k: v.float().item() for k, v in metrics.items()}
+            want = {"block_conv3x3x3": 3, "s2d_conv3d_block": 2, "block_conv3x3x3_v2": 0,
+                    "block_conv3x3x3_backward": 1}
+            print(f"instance {name} {mode} combined_step ({mix[0]}+{mix[1]}+{mix[2]} at {patch}): warm "
+                  f"{step_s:.4f} s, launches {step}, {values}", flush=True)
+            if step != want or not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"instance {name} {mode}: launches {step} (expected {want}), losses {values}")
+            train[mode] = dict(combined_step_s=step_s, losses=values)
+            for k, n in read_counts().items():  # the first step's and the timed steps'
+                serve[k] += n
+            del trainer, patches, opt, subopt, mask
+            torch.cuda.empty_cache()
+        launches[dtype] = serve
+        out[name] = dict(serving_s=seconds, forwards=forwards, parity_hu=diff, parity_limit_hu=limit, train=train)
+    if device == "cuda":
+        zero_counts()
+        train_parity_phase(rng, label="32^3 instance", gen_kw=dict(norm="instance"))
+        for k, n in read_counts().items():
+            launches[torch.float32][k] += n
+    return launches, out
+
+
+def dropout_phase(device="cuda", **overrides):
+    """Phase 45 (``--only dropout``): basic_3d with
+    ``resnet_dropout_prob=0.5`` (packed, as resolved) through phase 24's
+    cycle check: 4 cycles of 5 replayed as CUDA graphs against eager
+    dispatch, bit-equal after every cycle; two replays on the same batches
+    draw different masks. Untimed: the cycle's time is the dropout-free
+    basic_3d cycle's (PERF.md)."""
+    gen_args = {**BASIC_GEN, **overrides.pop("generator_args", {}), "resnet_dropout_prob": 0.5}
+    return cycle_phase("basic_3d", device=device, label="dropout", generator_args=gen_args,
+                       **{"timed": False, **overrides})
+
+
+def _state_on_cpu(trainer) -> dict:
+    s = trainer.state
+    return {**{f"generator.{k}": v.detach().cpu().clone() for k, v in s.generator.state_dict().items()},
+            **{f"critic.{k}": v.detach().cpu().clone() for k, v in s.critic.state_dict().items()}}
+
+
+def remat_phase(device="cuda", runs=REMAT_RUNS, cycle=True, **overrides):
+    """Phase 46 (``--only remat``): per run (small_patch's 40+20+20 at
+    128x128x32 and basic_3d's 6+3+3 at 128^3, packed as resolved, and
+    basic_3d direct) and per mode (weight clip; gradient penalty, whose
+    double backward runs through the critic's checkpointed blocks), bf16:
+    one ``combined_step`` with remat and one without from the same build,
+    the same batch, under cuDNN's and torch's deterministic algorithms:
+    losses, weights and BatchNorm statistics bit-equal (else held within
+    2 lr and 1e-3 and the difference printed); each run's own peak memory
+    (the step's peak less what was resident before it) and its warm step
+    time. Direct B1 launches: 3 per step without remat, 5 with (the
+    recomputed stem and projection). Then one captured cycle with remat
+    and dropout, direct (phase 24's checks)."""
+    launches = dict.fromkeys(read_counts(), 0)
+    out = {}
+    for label, preset, kw in runs:
+        for mode in ("wc", "gp"):
+            base = load_config(preset, **{**kw, **overrides})
+            base = dataclasses.replace(base, augment=False)
+            if mode == "gp":
+                base = _gp(base)
+            res = {}
+            for remat in (False, True):
+                trainer = _trainer(dataclasses.replace(base, remat=remat), device)
+                if trainer.state.generator.remat is not remat:
+                    raise AssertionError(f"remat {label}: the builder did not honour remat={remat}")
+                mix = tuple(base.train_batch_size[k] for k in (OPT, LOW, HIGH))
+                patches = train_patches(np.random.default_rng(46), base.train_patch_size, mix, device)
+                opt, subopt, mask, _ = trainer._assemble(patches)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                with deterministic_scope():
+                    _, metrics = trainer.steps.combined_step(trainer.state, opt, subopt, mask)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                own = (torch.cuda.max_memory_allocated() - resident) / 2**30
+                state = _state_on_cpu(trainer)
+                # one untimed step, then the median of REMAT_TIMED_STEPS; the
+                # slowest step's allocator and collector events beside it
+                records = step_records(lambda: trainer.steps.combined_step(trainer.state, opt, subopt, mask),
+                                       1 + REMAT_TIMED_STEPS)[1:]
+                times = [r["seconds"] for r in records]
+                step_s = statistics.median(times)
+                slowest = max(records, key=lambda r: r["seconds"])
+                direct = trainer.state.generator.layout == "direct"
+                b1 = (5 if remat else 3) if direct else 0
+                want = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - int(direct), "block_conv3x3x3_v2": 0,
+                        "block_conv3x3x3_backward": int(direct)}
+                if counts != want:
+                    raise AssertionError(f"remat {label} {mode} remat={remat}: launches {counts}, expected {want}")
+                for k, n in read_counts().items():  # the checked step's and the timed steps'
+                    launches[k] += n
+                res[remat] = dict(metrics={k: v.float().item() for k, v in metrics.items()}, state=state,
+                                  own_peak_gib=own, step_s=step_s, step_range_s=(min(times), max(times)),
+                                  slowest=slowest, lr=base.lr)
+                del trainer, patches, opt, subopt, mask
+                torch.cuda.empty_cache()
+            a, b = res[False], res[True]
+            bit_equal = a["metrics"] == b["metrics"] and all(torch.equal(a["state"][k], b["state"][k])
+                                                             for k in a["state"])
+            worst = {"metrics": max(abs(a["metrics"][k] - b["metrics"][k]) / max(abs(a["metrics"][k]), 1e-7)
+                                    for k in a["metrics"]),
+                     "weights": max((a["state"][k].float() - b["state"][k].float()).abs().max().item()
+                                    for k in a["state"] if "running" not in k),
+                     "stats": max([(a["state"][k].float() - b["state"][k].float()).abs().max().item()
+                                   for k in a["state"] if "running" in k] or [0.0])}
+            out[f"{label} {mode}"] = dict(bit_equal=bit_equal, worst=worst,
+                                          **{f"{'remat' if r else 'plain'}_{k}": res[r][k] for r in (False, True)
+                                             for k in ("own_peak_gib", "step_s", "step_range_s", "slowest")})
+            print(f"remat {label} {mode}: with / without remat bit-equal {bit_equal} (worst relative loss "
+                  f"{worst['metrics']:.2e}, weight {worst['weights']:.2e}, statistic {worst['stats']:.2e}); own "
+                  f"peak {b['own_peak_gib']:.2f} / {a['own_peak_gib']:.2f} GiB; warm step {b['step_s']:.4f} / "
+                  f"{a['step_s']:.4f} s (median of {REMAT_TIMED_STEPS}; range {b['step_range_s'][0]:.4f}-"
+                  f"{b['step_range_s'][1]:.4f} / {a['step_range_s'][0]:.4f}-{a['step_range_s'][1]:.4f} s); "
+                  f"slowest step with / without {b['slowest']} / {a['slowest']}", flush=True)
+            if not bit_equal and not (worst["metrics"] <= 1e-3 and worst["weights"] <= 2 * a["lr"]
+                                      and worst["stats"] <= 1e-3):
+                raise AssertionError(f"remat {label} {mode}: steps differ: {worst}")
+    if cycle:
+        zero_counts()
+        out["cycle"] = cycle_phase("basic_3d", device=device, label="remat_dropout_direct", timed=False,
+                                   **{**REMAT_CYCLE, **overrides})
+        for k, n in read_counts().items():
+            launches[k] += n
+    return launches, out
+
+
+# flax's names for the port's modules (``utils/weights.py`` read backwards)
+_FLAX_NAMES = {"block0": "ConvBlock_0", "block1": "ConvBlock_1"}
+
+
+def flax_variables(module) -> dict:
+    """A port network's weights as the JAX package's flax variables
+    (``{"params": ..., "batch_stats": ...}``, numpy): conv kernels
+    ``(*k, I, O)``, transpose-conv kernels flipped, norm ``scale`` / ``bias``,
+    BatchNorm ``mean`` / ``var``."""
+    out = {"params": {}, "batch_stats": {}}
+    mods = dict(module.named_modules())
+    for name, t in module.state_dict().items():
+        *path, leaf = name.split(".")
+        owner = mods[".".join(path)]
+        v = t.detach().cpu().float().numpy()
+        if path[-1] == "conv":
+            transpose = isinstance(owner, torch.nn.modules.conv._ConvTransposeNd)
+            path[-1] = "ConvTranspose_0" if transpose else "Conv_0"
+            if leaf == "weight":
+                v = blocks.flax_tconv_kernel(t).cpu().float().numpy() if transpose else \
+                    np.ascontiguousarray(np.moveaxis(v, (0, 1), (-1, -2)))
+                leaf = "kernel"
+        else:
+            path[-1] = "BatchNorm_0" if isinstance(owner, BatchNorm) else "GroupNorm_0"
+            leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}[leaf]
+        tree = out["batch_stats" if leaf in ("mean", "var") else "params"]
+        for p in path:
+            tree = tree.setdefault(_FLAX_NAMES.get(p, p), {})
+        tree[leaf] = v
+    return out
+
+
+def msgpack_bytes(obj) -> bytes:
+    """A minimal msgpack encoder, flax's ndarrays as ext 1 (a msgpack
+    (shape, dtype name, C-order bytes)): what ``flax.serialization``
+    writes for these trees."""
+    if isinstance(obj, dict):
+        head = bytes([0x80 | len(obj)]) if len(obj) < 16 else b"\xde" + len(obj).to_bytes(2, "big")
+        return head + b"".join(msgpack_bytes(k) + msgpack_bytes(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return bytes([0x90 | len(obj)]) + b"".join(msgpack_bytes(v) for v in obj)
+    if isinstance(obj, str):
+        raw = obj.encode()
+        return (bytes([0xA0 | len(raw)]) if len(raw) < 32 else b"\xd9" + bytes([len(raw)])) + raw
+    if isinstance(obj, bytes):
+        return b"\xc6" + len(obj).to_bytes(4, "big") + obj
+    if isinstance(obj, bool):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        return b"\xd3" + obj.to_bytes(8, "big", signed=True)
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        data = msgpack_bytes([list(arr.shape), arr.dtype.name, np.ascontiguousarray(arr).tobytes()])
+        ext = 1 if isinstance(obj, np.ndarray) else 3
+        return b"\xc9" + len(data).to_bytes(4, "big") + bytes([ext]) + data
+    raise TypeError(f"no msgpack encoding here for {type(obj).__name__}")
+
+
+def jax_train_tree(gen, critic, seed: int) -> dict:
+    """The JAX package's train state as flax serialises it: both networks'
+    variables, Adam states (``mu`` / ``nu`` of the parameters' shapes,
+    ``count``) beside each schedule's ``count``, the step, the key data."""
+    g = np.random.default_rng(seed)
+    tree = {"step": np.int32(JAX_CKPT_STEP)}
+    for prefix, module in (("gen", gen), ("critic", critic)):
+        v = flax_variables(module)
+        moment = lambda scale: _map_tree(v["params"], lambda a: (scale * g.random(a.shape)).astype(np.float32))
+        tree[f"{prefix}_params"], tree[f"{prefix}_stats"] = v["params"], v["batch_stats"]
+        tree[f"{prefix}_opt"] = {"0": {"count": np.int32(JAX_CKPT_COUNT), "mu": moment(1e-3), "nu": moment(1e-6)},
+                                 "1": {"count": np.int32(JAX_CKPT_COUNT)}}
+    tree["rng"] = np.asarray([0, seed], np.uint32)
+    return tree
+
+
+@contextlib.contextmanager
+def without_msgpack():
+    """``import msgpack`` raises inside the scope, whether or not this
+    machine has the package: what the port reads, it reads without it."""
+    saved = sys.modules.get("msgpack")
+    sys.modules["msgpack"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            sys.modules.pop("msgpack", None)
+        else:
+            sys.modules["msgpack"] = saved
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def jax_ckpt_phase(tmp: Path, device="cuda", volume=INSTANCE_VOLUME, patch=TRAIN_PATCH, **overrides):
+    """Phase 47 (``--only jax_ckpt``): phase 3's f32 weights (and a seeded
+    default critic, Adam moments) written as the JAX package writes a
+    ``<step>.msgpack`` (``msgpack_bytes``) with its meta sidecar, then read
+    by the port with ``import msgpack`` failing (``without_msgpack``): (a)
+    ``from_checkpoint`` on the run directory corrects a 512x512x128 volume
+    at 25% (direct, batch 8) bit-equal to phase 3's generator under cuDNN's
+    deterministic algorithms; (b) ``correct_scans`` on the directory writes
+    the scan (its default layout, packed) within 1 HU of (a); (c)
+    ``import_jax_checkpoint`` on the host writes a port run that ``Trainer``
+    resumes on the card (step 7, each schedule at 3 updates, the
+    generator's weights the file's) and trains 2 iterations."""
+    gen = seeded(ResnetGenerator(**overrides.get("generator_args", {})), 0).to(device)
+    critic = seeded(PatchGANDiscriminator(**overrides.get("critic_args", {})), 1)
+    run = tmp / "jax_run"
+    run.mkdir(parents=True)
+    t0 = time.perf_counter()
+    (run / f"{JAX_CKPT_STEP}.msgpack").write_bytes(msgpack_bytes(jax_train_tree(gen, critic, 47)))
+    (run / f"{JAX_CKPT_STEP}.meta.json").write_text(json.dumps({"generator": {"tconv_placement": "same",
+                                                                                "norm": "batch"}}))
+    write_s = time.perf_counter() - t0
+    has_msgpack = importlib.util.find_spec("msgpack") is not None
+    vol = np.random.default_rng(47).integers(-1024, 1500, volume).astype(np.int16)
+    kw = dict(inference_patch_size=patch, overlap=0.25, batch_size=BATCH, layout="direct", device=device)
+    with deterministic_scope(), without_msgpack():
+        want = CCTAContrastCorrector(gen, **kw)(vol).cpu()
+        t0 = time.perf_counter()
+        corrector = CCTAContrastCorrector.from_checkpoint(run, **kw)
+        read_s = time.perf_counter() - t0
+        zero_counts()
+        got = corrector(vol).cpu()
+        launches = read_counts()
+    bit_equal = torch.equal(got, want)
+    print(f"jax_ckpt: wrote {JAX_CKPT_STEP}.msgpack in {write_s:.2f} s, read it in {read_s:.2f} s with "
+          f"msgpack's import blocked (the package is on this machine: {has_msgpack}); correction bit-equal to "
+          f"phase 3's generator {bit_equal} (max {(got - want).abs().max().item():.2e} HU), launches {launches}",
+          flush=True)
+    if not bit_equal:
+        raise AssertionError("jax_ckpt: the correction from the JAX checkpoint differs from phase 3's")
+    scan = tmp / "scan.mhd"
+    io_utils.write_mhd(vol, scan, spacing=(0.5, 0.5, 0.5), origin=(0.0, 0.0, 0.0))
+    argv = [str(run), str(tmp / "out"), str(scan), "--patch-size", *map(str, patch), "--overlap", "0.25"]
+    with without_msgpack():
+        (written,) = correct_scans.main([*argv, *(["--device", "cpu"] if device == "cpu" else [])])
+    files = np.abs(io_utils.read_image(written)[0].astype(np.float32) - want.numpy()).max()
+    print(f"jax_ckpt: correct_scans on the JAX run directory: max |file - (a)| {files:.3f} HU", flush=True)
+    if not files <= 1.0:
+        raise AssertionError(f"jax_ckpt: correct_scans differs from the correction by {files} HU")
+    cfg = dataclasses.replace(load_config("basic_3d", **overrides), augment=False, cycle_length=1)
+    with without_msgpack():  # imported on the host, resumed on ``device``
+        out = import_jax_checkpoint.import_checkpoint(run, tmp / "port_run", cfg, device="cpu")
+    built = build(cfg, device=device)
+    trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                      dataclasses.replace(built.trainer_config, checkpoint_dir=str(tmp / "port_run"),
+                                          checkpoint_every=None), seed=built.seed, logger_interface=NoopLogger(),
+                      device=device)
+    s = trainer.state
+    counts = [int(o.scheduler.count) for o in (s.gen_opt, s.critic_opt)]
+    same = all(torch.equal(s.generator.state_dict()[k].cpu(), v.cpu()) for k, v in gen.state_dict().items())
+    if s.step != JAX_CKPT_STEP or counts != [JAX_CKPT_COUNT] * 2 or not same:
+        raise AssertionError(f"jax_ckpt: resumed at step {s.step}, schedules {counts}, weights the file's {same}")
+    mix = tuple(cfg.train_batch_size[k] for k in (OPT, LOW, HIGH))
+    losses = []
+    for i in range(2):
+        metrics, _ = trainer.train_step(train_patches(np.random.default_rng(48 + i), cfg.train_patch_size, mix,
+                                                      device), s.step)
+        losses.append({k: v.float().item() for k, v in metrics.items()})
+    if s.step != JAX_CKPT_STEP + 2 or not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"jax_ckpt: the resumed run at step {s.step}: {losses}")
+    print(f"jax_ckpt: import_jax_checkpoint wrote {out.name}; Trainer resumed at step {JAX_CKPT_STEP} with the "
+          f"file's weights and schedules at {counts}; 2 iterations on the card: {losses}", flush=True)
+    del trainer, built, corrector, gen
+    torch.cuda.empty_cache()
+    return launches, dict(write_s=write_s, read_s=read_s, msgpack_on_machine=has_msgpack, bit_equal=bit_equal,
+                          correct_scans_max_hu=float(files), resumed_losses=losses)
+
+
+def slice_14_phases(rng):
+    """Phases 44-47."""
+    instance = instance_phase(rng)
+    dropout = dropout_phase()
+    remat = remat_phase()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s14_") as tmp:
+        jax_ckpt = jax_ckpt_phase(Path(tmp))
+    return dict(instance=instance, dropout=dropout, remat=remat, jax_ckpt=jax_ckpt)
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -4446,6 +4930,10 @@ ONLY = {
     "overlap_trained": lambda: overlap_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_overlap_")),
                                              iterations=OVERLAP_TRAINED_ITERATIONS),
     "flops": flops_phase,
+    "instance": lambda: instance_phase(np.random.default_rng(44)),
+    "dropout": dropout_phase,
+    "remat": remat_phase,
+    "jax_ckpt": lambda: jax_ckpt_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_jax_ckpt_"))),
 }
 
 
@@ -4616,6 +5104,8 @@ def main(argv=None) -> int:
         print(f"init, dp, sharded, memory: {time.perf_counter() - t_start:.1f} s", flush=True)
         s13 = slice_13_phases(learn_dir=Path(s11_tmp) / "learn0")
         print(f"dataset, recall, overlap, flops: {time.perf_counter() - t_start:.1f} s", flush=True)
+    s14 = slice_14_phases(np.random.default_rng(44))
+    print(f"instance, dropout, remat, jax_ckpt: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -4651,7 +5141,16 @@ def main(argv=None) -> int:
                    # flops_accounting's direct programs, all bf16
                    "dataset": s13["dataset"][0][key], "recall": s13["recall"][0][key],
                    "overlap": s13["overlap"][0][key],
-                   "flops": s13["flops"][0][key] if dtype == torch.bfloat16 else 0}
+                   "flops": s13["flops"][0][key] if dtype == torch.bfloat16 else 0,
+                   # instance norm: both dtypes, direct; dropout's cycles are
+                   # packed (none); remat's direct runs and its captured
+                   # cycle are bf16, recomputed forwards included; the JAX
+                   # checkpoint's corrector is f32 direct
+                   "instance": s14["instance"][0][dtype][key],
+                   "dropout": sum(c["launches"][key] for c in s14["dropout"]["per_cycle"])
+                   if dtype == torch.bfloat16 else 0,
+                   "remat": s14["remat"][0][key] if dtype == torch.bfloat16 else 0,
+                   "jax_ckpt": s14["jax_ckpt"][0][key] if dtype == torch.float32 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -4668,7 +5167,8 @@ def main(argv=None) -> int:
         "preprocess": s11["preprocess"], "resize": s11["resize"][1], "learn": s11["learn"][1],
         "init": s12["init"], "dp": s12["dp"][1], "sharded": s12["sharded"][1], "memory": s12["memory"],
         "dataset": s13["dataset"][1], "recall": s13["recall"][1], "overlap": s13["overlap"][1],
-        "flops": s13["flops"][1],
+        "flops": s13["flops"][1], "instance": s14["instance"][1], "dropout": s14["dropout"],
+        "remat": s14["remat"][1], "jax_ckpt": s14["jax_ckpt"][1],
     }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@ JAX package's ``scripts/correct_scans.py``):
     python -m contrast_gan_3d_tpu_torch.correct_scans runs/exp1 out/ a.mhd b.nii.gz p.npy
 
 loads the latest ``<step>.pt`` in the checkpoint directory (or
-``--iteration``'s), or with ``--reference-pt`` the reference ``<iteration>.pt``
-file given in its place, builds the generator from it, and writes each corrected
+``--iteration``'s), or a JAX run's ``<step>.msgpack`` where the directory
+holds no ``<step>.pt`` (the generator's ``tconv_placement`` and ``norm``
+from its ``<step>.meta.json``), or with ``--reference-pt`` the reference
+``<iteration>.pt`` file given in its place, builds the generator from it, and writes each corrected
 scan as ``<out_dir>/<name>.<format>`` (.mhd with a compressed .raw, .nii or
 .nii.gz), in f32 as the JAX command does, the host I/O overlapped with the
 correction. Runs on the card unless ``--device cpu``, with cuDNN held to

@@ -6,8 +6,9 @@ A user hands an int16 (W, H, D) volume to ``CCTAContrastCorrector``. With a
 (``ops/sliding_window.py``) runs every patch through the generator on the
 device; with a 2D one (the 2D family) the axial slices go through it in
 batches. Either way the f32 corrected HU volume comes back.
-``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``,
-``from_reference_checkpoint`` from a reference ``<iteration>.pt``;
+``from_checkpoint`` builds the corrector from a training run's ``<step>.pt``
+or a JAX run's ``<step>.msgpack``, ``from_reference_checkpoint`` from a
+reference ``<iteration>.pt``;
 ``correct_file`` reads a scan file, corrects it and writes the result
 (``utils/io_utils.py``). ``shard_over(devices)`` splits every volume's
 patch grid over several devices (``parallel/inference.py``).
@@ -161,7 +162,9 @@ class CCTAContrastCorrector:
         **kwargs,
     ) -> "CCTAContrastCorrector":
         """Build from a training checkpoint: ``<step>.pt`` (the latest in
-        ``checkpoint_dir``, or ``iteration``'s), or that file itself.
+        ``checkpoint_dir``, or ``iteration``'s), or that file itself; a JAX
+        run's ``<step>.msgpack`` where the directory has no ``<step>.pt``
+        (read without JAX, ``trainer/checkpoint.load_generator``).
 
         With no ``generator`` the architecture is read from the weights
         (``derive_generator_arch``) and updated with the meta sidecar's

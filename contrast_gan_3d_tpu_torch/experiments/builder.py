@@ -14,13 +14,16 @@ What the JAX builder chooses automatically, the port resolves so:
   multiple of it (nine of the ten presets: K = 5), else 1
   (``train_generator_more``: 1). The card runs each K-iteration cycle as a
   replayed CUDA graph, the CPU as the loop over the iterations;
-- ``remat`` None or False -> off; True raises. The JAX builder turns remat
-  on above 30 M voxels per iteration in 3D (``small_patch``, ``rmsprop``
-  and ``gp_layernorm``: 40 + 20 + 20 patches of 128x128x32, 41.9 M
-  voxels), never in 2D. The port keeps it off: ``small_patch``'s bf16
-  ``combined_step`` peaks at 8.28 GiB allocated on an NVIDIA H100 80GB
-  HBM3 at 700 W (``chip_smoke.py``'s small_patch phase), a tenth of the
-  card, and the math is the same either way;
+- ``remat``: an explicit True or False is honoured (``generator_args`` /
+  ``critic_args`` "remat" win, as in JAX), and both networks run their
+  blocks under ``models/blocks.remat``. None stays off on this card, where
+  the JAX builder turns it on above 30 M voxels per iteration in 3D
+  (``small_patch``, ``rmsprop`` and ``gp_layernorm``: 40 + 20 + 20 patches
+  of 128x128x32, 41.9 M voxels), a threshold set for a 16 GB chip:
+  ``small_patch``'s bf16 ``combined_step`` peaks at 8.28 GiB allocated on
+  an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``'s small_patch
+  phase), a tenth of the card. The builder logs where JAX's rule would have
+  turned it on. Remat changes memory, not results;
 - ``dp_devices`` is the train CLI's: it starts the ranks and builds the
   mesh (``parallel/mesh.py``), and each rank builds the same models here;
   ``sp_devices`` (dp x sp spatial partitioning, which needs halo exchange
@@ -136,15 +139,29 @@ def resolve_layout(cfg: ExperimentConfig) -> str:
     return "packed" if eligible else "direct"
 
 
+REMAT_VOXELS = 30_000_000  # the JAX builder's remat threshold, per iteration
+_remat_logged = set()
+
+
+def resolve_remat(cfg: ExperimentConfig) -> bool:
+    """``cfg.remat`` when set; None is off (see the module docstring), with
+    one log line per config name where the JAX builder's rule would turn it
+    on."""
+    if cfg.remat is not None:
+        return bool(cfg.remat)
+    voxels = sum(cfg.train_batch_size.values()) * int(np.prod(cfg.train_patch_size))
+    if not cfg.is_2d and voxels > REMAT_VOXELS and cfg.name not in _remat_logged:
+        _remat_logged.add(cfg.name)
+        logger.info("%s: remat stays off: the JAX builder turns it on above %d voxels per iteration (%d here) "
+                    "for a 16 GB chip; this card holds the step without it (pass remat=True to force it)",
+                    cfg.name, REMAT_VOXELS, voxels)
+    return False
+
+
 def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
-    unported = []
-    if cfg.remat:
-        unported.append("remat")
     if cfg.logger in ("wandb", "tensorboard"):
-        unported.append(f"the {cfg.logger} logger")
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} {ROADMAP_NOTE}")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.logger} logger {ROADMAP_NOTE}")
     if cfg.sp_devices:
         raise NotImplementedError(f"{cfg.name}: sp_devices (dp x sp spatial partitioning, which needs halo exchange "
                                   f"between ranks) is not ported yet; see ROADMAP.md, A10a")
@@ -160,13 +177,13 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
     dtype = _DTYPES[cfg.compute_dtype]
     ndim = 2 if cfg.is_2d else 3
     layout = resolve_layout(cfg)
-    gen_args = {k: v for k, v in cfg.generator_args.items() if k not in ("layout", "remat")}
+    remat = resolve_remat(cfg)
+    gen_args = {k: v for k, v in cfg.generator_args.items() if k != "layout"}
     seed = DEFAULT_SEED if cfg.seed is None else cfg.seed
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        generator = ResnetGenerator(**{**dict(ndim=ndim, dtype=dtype), **gen_args, "layout": layout})
-        critic = PatchGANDiscriminator(**{**dict(ndim=ndim, dtype=dtype), **{k: v for k, v in cfg.critic_args.items()
-                                                                             if k != "remat"}})
+        generator = ResnetGenerator(**{**dict(ndim=ndim, dtype=dtype, remat=remat), **gen_args, "layout": layout})
+        critic = PatchGANDiscriminator(**{**dict(ndim=ndim, dtype=dtype, remat=remat), **cfg.critic_args})
     generator.to(device)
     critic.to(device)
     tx = partial(make_optimizer, cfg.optimizer, lr=cfg.lr, betas=cfg.betas, milestones=cfg.milestones,

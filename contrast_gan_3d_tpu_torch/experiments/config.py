@@ -81,8 +81,8 @@ class ExperimentConfig:
     # every 3D preset, "direct" for the 2D family); "direct" / "packed"
     # force one; generator_args["layout"] wins
     generator_layout: str = "auto"
-    # block rematerialization: None = auto (off at these sizes); True is
-    # not ported (the builder raises)
+    # block rematerialization: None = auto (off on this card; the builder
+    # logs where the JAX rule would turn it on); True / False force it
     remat: Optional[bool] = None
 
     # data (basic_conf.py:70-83)

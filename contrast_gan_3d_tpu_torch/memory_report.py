@@ -15,8 +15,8 @@ weights:
 For each: the analytic bytes of its arguments (inputs, parameters,
 optimizer state) and outputs, the measured peak of one warm call and its
 seconds (``utils/memory.program_memory_summary``), and the allocator's live
-blocks after it. A program the card cannot hold says so (the 48 + 48 step
-runs without rematerialisation, which the port does not have). Writes
+blocks after it. A program the card cannot hold says so (every program
+runs without rematerialisation, the builder's default on this card). Writes
 ``memory_report.md`` and ``memory_report.json`` into ``--out`` and prints
 the markdown. ``--tiny``: 16^3 patches, narrow networks and a 40x36x32
 volume, for a drive on the CPU (whose peaks are "not measured").

@@ -1,9 +1,10 @@
 """Conv building blocks (counterpart of ``contrast_gan_3d_tpu/models/blocks.py``),
 2D or 3D (``ndim``), NCHW / NCDHW tensors.
 
-``ConvBlock`` = conv / transpose conv + BatchNorm, LayerNorm or none +
-activation, with a bias only when unnormalized; ``ResNetBlock`` = two
-ConvBlocks + optional dropout + skip. Weights use torch's layouts: conv
+``ConvBlock`` = conv / transpose conv + BatchNorm, LayerNorm,
+InstanceNorm or none + dropout + activation, with a bias only when
+unnormalized; ``ResNetBlock`` = two ConvBlocks (dropout in the first) +
+skip. Weights use torch's layouts: conv
 ``(O, I, *k)``, transpose conv ``(I, O, *k)`` (``utils/weights.py`` maps the
 JAX kernels onto them). Only 3D stride-1 SAME convs take space-to-depth
 (``S2DConv``, B3 -> B1), as in the JAX block: the 2D family's convs are
@@ -15,17 +16,26 @@ stay f32; each conv casts its input, weight and bias to ``dtype``, its
 output, the bias add, the norm's output and the activation stay in it
 (bf16 in, bf16 out). No ``torch.autocast``: its op lists would put the
 rounding points elsewhere.
+
+``Dropout`` draws its masks from the train state's ``torch.Generator``
+(``set_dropout_generator``), never torch's global one. ``remat`` runs a
+block under ``torch.utils.checkpoint``: its activations are recomputed in
+the backward (flax ``nn.remat``), with BatchNorm's running statistics and
+dropout's masks as the forward left them.
 """
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, LayerNorm
-from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, s2d_conv3d_block
+from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, InstanceNorm, LayerNorm, recompute_scope, recomputing
+from contrast_gan_3d_tpu_torch.ops.block_conv import s2d_conv3d_block
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import d2s_tconv3d, reflect_pad
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
 class S2DConv(nn.Conv3d):
@@ -137,9 +147,7 @@ class ConvBlock(nn.Module):
             raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         if padding_mode not in ("reflect", "zeros"):
             raise ValueError(f"unknown padding_mode {padding_mode!r}: expected 'zeros' | 'reflect'")
-        if norm == "instance":
-            raise NotImplementedError(f"norm={norm!r} is {ROADMAP_NOTE}")
-        if norm not in ("batch", "layer", None):
+        if norm not in ("batch", "layer", "instance", None):
             raise ValueError(f"Unknown norm {norm!r}")
         if activation not in ("relu", "leaky_relu", "tanh", None):
             raise ValueError(f"Unknown activation {activation!r}")
@@ -179,9 +187,11 @@ class ConvBlock(nn.Module):
             self.norm = BatchNorm(features, dtype=dtype)
         elif norm == "layer":
             self.norm = LayerNorm(dtype=dtype)
+        elif norm == "instance":
+            self.norm = InstanceNorm(features, dtype=dtype)
         else:
             self.norm = None
-        self.dropout = nn.Dropout(dropout_prob) if dropout_prob > 0 else None
+        self.dropout = Dropout(dropout_prob) if dropout_prob > 0 else None
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.conv, (S2DConv, D2STConv)):
@@ -220,6 +230,67 @@ class ConvBlock(nn.Module):
         elif self.activation == "tanh":
             x = torch.tanh(x)
         return x
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - p`` and the kept ones are scaled by ``1 / (1 - p)`` in
+    x's dtype; in eval mode it is the identity. The mask is ``uniform <
+    1 - p`` drawn from ``generator``, the train state's ``torch.Generator``
+    (``set_dropout_generator``; ``trainer/steps.init_state`` sets it), so it
+    follows the state's seed, checkpoints and CUDA-graph replays; a module
+    in train mode without one raises rather than draw from torch's global
+    generator. Under a data-parallel ``mesh`` every rank draws the global
+    batch's mask in lockstep and keeps its slice, as the JAX package's
+    GSPMD program draws one mask for the global batch. The last mask is
+    kept: a remat block's recomputation applies the mask its forward
+    drew."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 < p < 1.0:
+            raise ValueError(f"dropout probability must lie in (0, 1), got {p}")
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+        self.mesh = LOCAL
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = 1.0 - self.p
+        if not recomputing():
+            if self.generator is None:
+                raise RuntimeError("dropout in train mode draws from the train state's generator: "
+                                   "set it with models/blocks.set_dropout_generator (init_state does)")
+            n = x.shape[0]
+            shape = (n * self.mesh.world_size,) + tuple(x.shape[1:])
+            self.mask = (torch.rand(shape, generator=self.generator, device=x.device) < keep)[self.mesh.global_slice(n)]
+        return torch.where(self.mask, x / keep, 0.0)
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator], mesh=LOCAL) -> None:
+    """Draw ``module``'s dropout masks from ``generator``, for ``mesh``'s
+    global batch."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator, m.mesh = generator, mesh
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), recompute_scope()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward (flax
+    ``nn.remat``): ``torch.utils.checkpoint`` without reentry (the gradient
+    penalty's double backward runs through it), without saving the RNG
+    states (a CUDA-graph capture may not read them; dropout keeps its mask
+    instead), the recomputation in ``recompute_scope``. Without autograd
+    it is the plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=_remat_contexts)
 
 
 class ResNetBlock(nn.Module):

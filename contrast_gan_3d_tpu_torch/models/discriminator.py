@@ -10,7 +10,10 @@ realism scores with no global pooling. Module names ``first``,
 ``middle_{n}`` and ``last`` follow the flax ones. The default config has
 176,873 parameters, drawn at construction as flax draws them
 (``models/utils.init_like_flax``). ``dtype`` is every block's compute
-dtype (``models/blocks.py``); the logits come out in it.
+dtype (``models/blocks.py``); the logits come out in it. ``remat=True``
+recomputes each block's activations in the backward
+(``models/blocks.remat``), as the JAX critic's ``nn.remat`` blocks are,
+through the gradient penalty's double backward too.
 """
 
 from typing import Optional
@@ -18,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock
+from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 
 
@@ -31,10 +34,12 @@ class PatchGANDiscriminator(nn.Module):
         kernel_size: int = 4,
         negative_slope: float = 0.2,
         norm: Optional[str] = "batch",
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.discriminator_depth = discriminator_depth
+        self.remat = remat
         c0 = init_channels_out
         block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope, dtype=dtype, ndim=ndim)
         self.first = ConvBlock(1, c0, kernel_size, stride=2, norm=None, **block)
@@ -48,7 +53,7 @@ class PatchGANDiscriminator(nn.Module):
         init_like_flax(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.first(x)
-        for n in range(self.discriminator_depth):
-            x = getattr(self, f"middle_{n}")(x)
-        return self.last(x)
+        blocks = [self.first, *(getattr(self, f"middle_{n}") for n in range(self.discriminator_depth)), self.last]
+        for block in blocks:
+            x = remat(block, x) if self.remat else block(x)
+        return x

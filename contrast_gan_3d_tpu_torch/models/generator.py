@@ -36,6 +36,12 @@ parameters and BatchNorm statistics stay f32. The packed layout casts the
 input before its space-to-depth, the transformed kernels and biases to
 the activations' dtype, and normalises in ``dtype``, as ``_packed_call``
 does.
+
+``remat=True`` recomputes each block's activations in the backward
+(``models/blocks.remat``), where the JAX generator wraps its blocks in
+``nn.remat``: in the direct layout every ``ConvBlock`` and
+``ResNetBlock``; in the packed layout every packed stage and ResNet
+block. It trades time for memory; the results are the same.
 """
 
 from typing import Optional
@@ -43,7 +49,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock
+from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
@@ -78,6 +84,7 @@ class ResnetGenerator(nn.Module):
         layout: str = "direct",
         packed_input: bool = False,
         packed_output: bool = False,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -98,6 +105,7 @@ class ResnetGenerator(nn.Module):
         self.layout = layout
         self.packed_input = packed_input
         self.packed_output = packed_output
+        self.remat = remat
         self.dtype = dtype
         if layout == "packed":
             self.check_packed()
@@ -140,18 +148,22 @@ class ResnetGenerator(nn.Module):
             # c0*2 channels: with no blocks the bottleneck would see f2 data
             raise ValueError("layout='packed' needs n_updownsample_blocks >= 1")
 
+    def _run(self, fn, *args):
+        """One block: ``fn(*args)``, rematerialised with ``remat``."""
+        return remat(fn, *args) if self.remat else fn(*args)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.layout == "packed":
             return self.forward_packed(x, self.packed_input, self.packed_output)
-        x = self.first(x)
+        x = self._run(self.first, x)
         n = self.n_updownsample_blocks
         for i in range(n):
-            x = getattr(self, f"down_{i}")(x)
+            x = self._run(getattr(self, f"down_{i}"), x)
         for i in range(self.n_resnet_blocks):
-            x = getattr(self, f"resnet_{i}")(x)
+            x = self._run(getattr(self, f"resnet_{i}"), x)
         for i in range(n, 0, -1):
-            x = getattr(self, f"up_{i - 1}")(x)
-        return self.last_conv(x)
+            x = self._run(getattr(self, f"up_{i - 1}"), x)
+        return self._run(self.last_conv, x)
 
     def forward_packed(self, x: torch.Tensor, packed_input: bool = False, packed_output: bool = False) -> torch.Tensor:
         """The packed layout (``_packed_call`` of the JAX generator): x is
@@ -173,19 +185,20 @@ class ResnetGenerator(nn.Module):
         # stem: reflect-padded 7^3, f2 -> f2
         xp, o = reflect_pad_packed(xp, 2, 3)
         sb = tuple(d // 2 for d in dims)
-        xp = _packed_stage(self.first, xp, 8, lambda v, k, b: packed_conv3d(
+        xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d(
             v, k, b, f_in=2, f_out=2, stride=1, o=(o, o, o), out_blocks=sb))
         # downsamples f2 -> f2; the last one unpacks (f_out=1) into the
         # bottleneck
         for i in range(n):
             f_out = 1 if i == n - 1 else 2
             ob = tuple(d // 2 ** (i + 1) // f_out for d in dims)
-            xp = _packed_stage(getattr(self, f"down_{i}"), xp, f_out**3, lambda v, k, b, ob=ob, fo=f_out: packed_conv3d(
-                v, k, b, f_in=2, f_out=fo, stride=2, pad=1, out_blocks=ob))
+            xp = self._run(_packed_stage, getattr(self, f"down_{i}"), xp, f_out**3,
+                           lambda v, k, b, ob=ob, fo=f_out: packed_conv3d(
+                               v, k, b, f_in=2, f_out=fo, stride=2, pad=1, out_blocks=ob))
         # bottleneck: the direct ResNet blocks on a channels-last view
         x = xp.permute(0, 4, 1, 2, 3)
         for i in range(self.n_resnet_blocks):
-            x = getattr(self, f"resnet_{i}")(x)
+            x = self._run(getattr(self, f"resnet_{i}"), x)
         # upsamples: dense stride-1 convs whose s=2-packed output is the f2
         # layout of the full-resolution tensor (the JAX layout runs the
         # inner ones as direct transpose convs: the same products; a
@@ -193,14 +206,14 @@ class ResnetGenerator(nn.Module):
         # cudnn.deterministic); the inner ones unpack for the next
         x = x.permute(0, 2, 3, 4, 1)
         for i in range(n, 0, -1):
-            xp = _packed_stage(getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
+            xp = self._run(_packed_stage, getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
                 v, k, b, stride=2, convention=self.tconv_placement))
             if i > 1:
                 x = depth_to_space(xp, 2)
         # the f2 -> f4 projection
         xp, o2 = reflect_pad_packed(xp, 2, 3)
         ob = tuple(d // 4 for d in dims)
-        yp = _packed_stage(self.last_conv, xp, 64, lambda v, k, b: packed_conv3d(
+        yp = self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d(
             v, k, b, f_in=2, f_out=4, stride=1, o=(o2, o2, o2), out_blocks=ob))
         if packed_output:
             return yp

@@ -1,6 +1,7 @@
 """BatchNorm with the JAX package's semantics (counterpart of
 ``contrast_gan_3d_tpu/models/norm.py``), channels at dim 1 (NCDHW or
-NCHW), and the per-sample ``LayerNorm`` of the layer-norm critic.
+NCHW), the per-sample ``LayerNorm`` of the layer-norm critic and the
+``InstanceNorm`` of ``norm="instance"``.
 
 - eval: normalize with the running statistics;
 - train: normalize with the biased batch variance ``E[x^2] - E[x]^2``
@@ -19,6 +20,12 @@ NCHW), and the per-sample ``LayerNorm`` of the layer-norm critic.
   the statistics update (the critic in the generator's loss and in the
   gradient penalty, ``trainer/steps.py``).
 
+- In a remat block's recomputation (``recompute_scope``, entered by
+  ``models/blocks.remat`` in the backward) the running statistics are
+  not updated again: flax discards the recompute's mutations. The batch
+  statistics are still taken, and under a mesh still all-reduced (every
+  rank recomputes the same blocks, so the collectives pair).
+
 - Under a data-parallel group (``mesh``, a ``parallel/mesh.DataMesh``;
   ``set_mesh``) train mode takes its statistics over the GLOBAL batch, as
   the JAX package's GSPMD program does: the per-channel sums and sums of
@@ -30,6 +37,7 @@ Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
 ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
 """
 
+import threading
 from contextlib import contextmanager
 from typing import Optional
 
@@ -37,6 +45,26 @@ import torch
 from torch import nn
 
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
+
+_recompute = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread runs a remat block's recomputation."""
+    return getattr(_recompute, "active", False)
+
+
+class recompute_scope:
+    """Mark this thread's work as a remat block's recomputation: BatchNorm
+    keeps its running statistics, dropout applies its forward's mask.
+    Reentrant: a double backward recomputes a block once per backward."""
+
+    def __enter__(self):
+        self._prev = recomputing()
+        _recompute.active = True
+
+    def __exit__(self, *exc):
+        _recompute.active = self._prev
 
 
 class BatchNorm(nn.Module):
@@ -66,7 +94,7 @@ class BatchNorm(nn.Module):
             sums = torch.cat([x.sum(axes, dtype=torch.float32), x.square().sum(axes, dtype=torch.float32)])
             mean, mean2 = (self.mesh.all_sum(sums) / n).split(x.shape[1])
             var = torch.clamp(mean2 - mean.square(), min=0.0)
-            if self.update_stats:
+            if self.update_stats and not recomputing():
                 with torch.no_grad():
                     unbiased = var * (n / (n - 1)) if n > 1 else var
                     m = self.momentum
@@ -123,3 +151,31 @@ class LayerNorm(nn.Module):
         mean = xf.mean(axes, keepdim=True)
         var = torch.clamp(xf.square().mean(axes, keepdim=True) - mean.square(), min=0.0)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(self.dtype or x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over the spatial dims with a
+    learnable scale and bias: the JAX ``ConvBlock``'s ``norm="instance"``,
+    flax ``GroupNorm(num_groups=None, group_size=1)`` with its defaults
+    (eps 1e-6, ``use_fast_variance``, f32 reductions). As flax computes it:
+    x promoted to f32, ``var = max(E[x^2] - E[x]^2, 0)``, ``y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32, then cast to ``dtype`` (None:
+    x's dtype). No running statistics: train and eval mode are the same,
+    and under a mesh no statistic crosses ranks. Parameters ``weight`` /
+    ``bias`` (flax ``GroupNorm_0/scale`` / ``bias``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(axes, keepdim=True)
+        var = torch.clamp(xf.square().mean(axes, keepdim=True) - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+        return ((xf - mean) * mul + self.bias.view(shape)).to(self.dtype or x.dtype)

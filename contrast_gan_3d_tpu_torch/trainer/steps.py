@@ -25,7 +25,14 @@ batch and its mask share one coordinate field per sample (trilinear scan,
 nearest mask), the OPT batch is augmented as data only. The draws come
 from ``state.rng`` in this fixed order at the start of each step: the
 sub-optimal batch's, then the OPT batch's, then (gradient penalty) the
-penalty's ``eps``. ``build_preview_step`` re-derives a step's augmented
+penalty's ``eps``. A generator with dropout (``resnet_dropout_prob``)
+draws its masks from ``state.rng`` too, in its forward, after the
+augmentation draws; a generator without dropout draws nothing, so its
+streams are those of the steps before dropout was ported. The fused steps
+run one generator forward per iteration, so the critic's fake batch and
+the generator's gradient share one mask; the split phases run a second
+forward, which draws a new mask, as the JAX phases redraw theirs. The
+masks cannot equal JAX's bits (threefry is not Philox). ``build_preview_step`` re-derives a step's augmented
 sub-optimal batch from the generator state saved before it.
 
 The steps update the state in place and return ``(state, metrics)``, with
@@ -62,9 +69,9 @@ from torch import nn
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models import losses
-from contrast_gan_3d_tpu_torch.models.blocks import ROADMAP_NOTE
+from contrast_gan_3d_tpu_torch.models.blocks import set_dropout_generator
 from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats, set_mesh
-from contrast_gan_3d_tpu_torch.ops.block_conv import add_launch_counts, launch_counts
+from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, add_launch_counts, launch_counts
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
@@ -140,21 +147,21 @@ def init_state(
     ``mesh`` (None: ``LOCAL``) their BatchNorms take global statistics and
     rank 0's weights are broadcast to every rank."""
     device = resolve_device(device)
-    if any(isinstance(m, nn.Dropout) for m in generator.modules()):
-        raise NotImplementedError(f"generator dropout in the train step is {ROADMAP_NOTE}")
     mesh = mesh or LOCAL
     generator.to(device).train()
     critic.to(device).train()
     for module in (generator, critic):
         set_mesh(module, mesh)
         mesh.broadcast_module(module)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    set_dropout_generator(generator, rng, mesh)
     return GANTrainState(
         step=0,
         generator=generator,
         critic=critic,
         gen_opt=gen_tx(generator.parameters()),
         critic_opt=critic_tx(critic.parameters()),
-        rng=torch.Generator(device=device).manual_seed(seed),
+        rng=rng,
         mesh=mesh,
     )
 

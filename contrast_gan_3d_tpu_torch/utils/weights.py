@@ -15,7 +15,9 @@ The mapping is layout-only:
 - a LayerNorm has no variables (no affine), so ``norm="layer"`` blocks
   carry only their conv;
 - BatchNorm ``scale``/``bias`` params and ``mean``/``var`` stats ->
-  ``weight``/``bias``/``running_mean``/``running_var``.
+  ``weight``/``bias``/``running_mean``/``running_var``;
+- an instance norm (flax ``GroupNorm_0``) has ``scale``/``bias`` params
+  only -> ``weight``/``bias``.
 """
 
 from typing import Dict, Mapping
@@ -27,6 +29,7 @@ _MODULE_NAMES = {
     "Conv_0": "conv",
     "ConvTranspose_0": "conv",
     "BatchNorm_0": "norm",
+    "GroupNorm_0": "norm",
     "ConvBlock_0": "block0",
     "ConvBlock_1": "block1",
 }
@@ -61,7 +64,7 @@ def generator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]
     """JAX ``ResnetGenerator`` variables (numpy) -> the port's ``state_dict``,
     loadable with ``load_state_dict(strict=True)`` into a port
     ``ResnetGenerator`` of the same architecture."""
-    return _state_dict_from_jax(variables)
+    return state_dict_from_jax(variables)
 
 
 def critic_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -69,10 +72,13 @@ def critic_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ``state_dict``, loadable with ``load_state_dict(strict=True)`` into a
     port ``PatchGANDiscriminator`` of the same architecture (``first/Conv_0``
     -> ``first.conv``, ``middle_{n}/BatchNorm_0`` -> ``middle_{n}.norm``)."""
-    return _state_dict_from_jax(variables)
+    return state_dict_from_jax(variables)
 
 
-def _state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Any flax variables of these networks -> torch names and layouts; a
+    tree shaped like the parameters (optax's ``mu`` / ``nu``) maps as
+    ``{"params": tree}``."""
     sd: Dict[str, np.ndarray] = {}
     for path, v in _walk(variables["params"]):
         *mods, leaf = path

@@ -144,7 +144,9 @@ def test_port_imports_nothing_of_jax():
         "memory_report",
         # the study tools: labels and folds, marker recall, overlap, FLOPs
         "create_dataset", "synthetic_tracker", "eval_marker_recall", "eval.marker_recall_rate",
-        "eval_overlap_quality", "flops_accounting")} <= set(mods)
+        "eval_overlap_quality", "flops_accounting",
+        # JAX checkpoints read without msgpack, and their import
+        "utils.msgpack", "import_jax_checkpoint")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -544,13 +544,18 @@ def test_builder_matches_jax(name, backend):
     *[dict(preset=n) for n in UNPORTED],
     dict(generator_layout="packed"), dict(remat=True), dict(dp_devices=1),
     dict(sp_devices=2), dict(logger="wandb"), dict(logger="tensorboard"),
+    dict(generator_args={**GEN, "norm": "instance"}, critic_args={**CRITIC, "norm": "instance"}),
+    dict(generator_args={**GEN, "resnet_dropout_prob": 0.5}),
 ])
 def test_builder_raises_for_what_is_not_ported(change):
     """``generator_layout="packed"`` raised until the packed layout was
     ported; it now builds the packed generator (and raises for the 2D
     family, as the packed generator does in JAX). ``dp_devices`` raised
     until data parallelism was ported: it now builds (the train CLI starts
-    the ranks); ``sp_devices`` still raises, naming ROADMAP A10."""
+    the ranks). ``remat=True``, instance norm and generator dropout raised
+    until they were ported: each now builds, and its networks take a
+    train step. ``sp_devices`` still raises, naming ROADMAP A10, and so
+    do the wandb and TensorBoard loggers."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
     if change == dict(dp_devices=1):
@@ -565,8 +570,28 @@ def test_builder_raises_for_what_is_not_ported(change):
         with pytest.raises(ValueError, match="3D-only"):
             builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builder.build(dataclasses.replace(cfg, **change), device="cpu")
+    if "logger" in change:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        return
+    tiny = dict(generator_args=GEN, critic_args=CRITIC, train_patch_size=PATCH, val_patch_size=PATCH,
+                compute_dtype="float32", augment=False)
+    built = builder.build(dataclasses.replace(cfg, **{**tiny, **change}), device="cpu")
+    gen, critic = built.generator, built.critic
+    if "remat" in change:
+        assert gen.remat and critic.remat
+    elif "norm" in change["generator_args"]:
+        assert gen.layout == "direct" and gen.norm == "instance"
+        assert type(gen.first.norm).__name__ == type(critic.middle_0.norm).__name__ == "InstanceNorm"
+    else:
+        assert gen.layout == "packed" and gen.resnet_0.block0.dropout.p == 0.5
+    trainer = Trainer(gen, critic, built.gen_tx, built.critic_tx, built.step_config,
+                      dataclasses.replace(built.trainer_config, train_iterations=1), device="cpu")
+    rng = np.random.default_rng(0)
+    patches = {st: {"data": rng.integers(-500, 900, (n, *PATCH)).astype(np.int16),
+                    "seg": (rng.random((n, *PATCH)) < 0.05).astype(np.int16)} for st, n in BATCH.items()}
+    metrics, _ = trainer.train_step(patches, 0)
+    assert trainer.iteration == 1 and all(np.isfinite(float(v)) for v in metrics.values())
 
 
 def test_builder_resolves_the_automatic_choices(tmp_path):

@@ -143,11 +143,12 @@ def test_generator_output_shape_matches_jax(dims, n):
     assert generator_output_shape(dims, n) == jax_output_shape(dims, n)
 
 
-@pytest.mark.parametrize("kw", [dict(layout="packed"), dict(ndim=2), dict(norm="layer")])
+@pytest.mark.parametrize("kw", [dict(layout="packed"), dict(ndim=2), dict(norm="layer"), dict(norm="instance")])
 def test_unported_options_point_to_roadmap(kw):
-    """All three raised until they were ported; they now build and match
+    """All four raised until they were ported; they now build and match
     the JAX generator (the packed layout in depth:
-    ``tests/test_torch_port_packed.py``; 2D: ``tests/test_torch_port_2d.py``)."""
+    ``tests/test_torch_port_packed.py``; 2D: ``tests/test_torch_port_2d.py``;
+    instance norm: ``tests/test_torch_port_options.py``)."""
     ndim = kw.get("ndim", 3)
     cfg = dict(TINY, **kw)
     jgen, variables, tgen = carried_generator(cfg, 8, shape=(1,) + (16,) * ndim + (1,))

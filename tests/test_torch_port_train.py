@@ -227,12 +227,12 @@ def test_frozen_batch_stats_keeps_running_statistics():
     assert not torch.equal(tc.middle_0.norm.running_mean, before["middle_0.norm.running_mean"])
 
 
-@pytest.mark.parametrize("kw", [dict(ndim=2), dict(norm="layer")])
+@pytest.mark.parametrize("kw", [dict(ndim=2), dict(norm="layer"), dict(norm="instance")])
 def test_unported_critic_options_point_to_roadmap(kw):
-    """``ndim=2`` and ``norm="layer"`` raised until they were ported; the
-    critic now builds with them and matches the JAX critic in train mode
-    (more in ``tests/test_torch_port_2d.py``). ``"instance"`` still
-    raises."""
+    """``ndim=2``, ``norm="layer"`` and ``norm="instance"`` raised until
+    they were ported; the critic now builds with them and matches the JAX
+    critic in train mode (more in ``tests/test_torch_port_2d.py`` and
+    ``tests/test_torch_port_options.py``)."""
     shape = (2,) + (32,) * kw.get("ndim", 3) + (1,)
     jc = JaxCritic(**CRITIC, **kw)
     variables = _np_tree(jc.init(jax.random.key(11), jnp.zeros(shape), train=False))
@@ -243,8 +243,6 @@ def test_unported_critic_options_point_to_roadmap(kw):
     with torch.no_grad():
         got = torch.movedim(tc(torch.movedim(_t(x), -1, 1)), 1, -1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PatchGANDiscriminator(norm="instance")
 
 
 # --- losses ---------------------------------------------------------------
@@ -534,7 +532,13 @@ def test_augmentation_in_the_step_points_to_roadmap():
 
 
 def test_generator_dropout_in_training_points_to_roadmap():
+    """Generator dropout in training raised until it was ported; now
+    ``init_state`` hands the dropout the state's generator and the train
+    step runs (its masks: ``tests/test_torch_port_options.py``)."""
     pair = Pair("wc")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(ResnetGenerator(**TINY, resnet_dropout_prob=0.1), pair.tcritic, pair.tx_port, pair.tx_port,
-                   device="cpu")
+    gen = ResnetGenerator(**TINY, resnet_dropout_prob=0.1)
+    state = init_state(gen, pair.tcritic, pair.tx_port, pair.tx_port, device="cpu")
+    drops = [m for m in gen.modules() if m.__class__.__name__ == "Dropout"]
+    assert len(drops) == TINY["n_resnet_blocks"] and all(d.generator is state.rng for d in drops)
+    state, metrics = build_train_steps(pair.cfg).combined_step(state, *batches(7)[0])
+    assert state.step == 1 and all(torch.isfinite(v) for v in metrics.values())
