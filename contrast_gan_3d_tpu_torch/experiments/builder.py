@@ -24,10 +24,13 @@ What the JAX builder chooses automatically, the port resolves so:
   an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``'s small_patch
   phase), a tenth of the card. The builder logs where JAX's rule would have
   turned it on. Remat changes memory, not results;
-- ``dp_devices`` is the train CLI's: it starts the ranks and builds the
-  mesh (``parallel/mesh.py``), and each rank builds the same models here;
-  ``sp_devices`` (dp x sp spatial partitioning, which needs halo exchange
-  between ranks) raises, naming its ROADMAP item;
+- ``dp_devices`` and ``sp_devices`` are the train CLI's: it starts the
+  ranks and builds the (dp x sp) mesh (``parallel/mesh.py``), and each
+  rank builds the same models here. Under ``sp_devices`` the generator
+  runs the direct layout, whose convs exchange halos between the slabs
+  (``parallel/spatial.py``): ``generator_layout="auto"`` resolves to
+  "direct" there (logged), an explicit "packed" and the 2D family raise,
+  naming ROADMAP A10a-packed and A10a-2d;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
   ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
   JAX builder falls back to the device augmentation where its native
@@ -60,8 +63,9 @@ from contrast_gan_3d_tpu_torch.data.augment import Augment2DConfig, AugmentConfi
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
 from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
+from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
-from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
+from contrast_gan_3d_tpu_torch.models.generator import SP_PACKED_NOTE, ResnetGenerator
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
 from contrast_gan_3d_tpu_torch.trainer.logger import (
     ConsoleLogger,
@@ -124,8 +128,16 @@ def resolve_layout(cfg: ExperimentConfig) -> str:
     ``generator_args["layout"]`` wins over ``generator_layout``; "auto" is
     "packed" where the packed layout's guards and the patch sizes allow it
     (dims a multiple of the block for the stage strides, at least 8 for the
-    packed reflect pad's (L+1)-block slabs), else "direct"."""
+    packed reflect pad's (L+1)-block slabs), else "direct". Under
+    ``sp_devices`` "auto" is "direct" and "packed" raises (ROADMAP
+    A10a-packed)."""
     layout = cfg.generator_args.get("layout", cfg.generator_layout)
+    if cfg.sp_devices and layout == "packed":
+        raise NotImplementedError(f"{cfg.name}: {SP_PACKED_NOTE}")
+    if cfg.sp_devices and layout == "auto":
+        logger.info("%s: generator_layout auto -> direct under sp_devices=%d (spatial partitioning runs the "
+                    "direct layout)", cfg.name, cfg.sp_devices)
+        return "direct"
     if layout != "auto":
         return layout
     n = cfg.generator_args.get("n_updownsample_blocks", 2)
@@ -162,9 +174,8 @@ def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
     if cfg.logger in ("wandb", "tensorboard"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.logger} logger {ROADMAP_NOTE}")
-    if cfg.sp_devices:
-        raise NotImplementedError(f"{cfg.name}: sp_devices (dp x sp spatial partitioning, which needs halo exchange "
-                                  f"between ranks) is not ported yet; see ROADMAP.md, A10a")
+    if cfg.sp_devices and cfg.is_2d:
+        raise NotImplementedError(f"{cfg.name}: {SP_2D_NOTE}")
     if cfg.augment_backend not in ("host", "device"):
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
     if cfg.logger not in ("file", "console", "none"):

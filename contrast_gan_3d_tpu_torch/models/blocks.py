@@ -21,7 +21,22 @@ rounding points elsewhere.
 (``set_dropout_generator``), never torch's global one. ``remat`` runs a
 block under ``torch.utils.checkpoint``: its activations are recomputed in
 the backward (flax ``nn.remat``), with BatchNorm's running statistics and
-dropout's masks as the forward left them.
+dropout's masks as the forward left them (the recomputation runs the halo
+exchanges again, in the forward's order on every rank).
+
+Spatial partitioning (3D, ``mesh.space`` > 1, ``models/norm.set_mesh``):
+``ConvBlock.forward(x, rows)`` takes an X-slab of a tensor whose global
+extent along X is ``rows`` and returns this rank's slab of the output
+(``out_rows(rows)`` rows): the conv runs VALID along X on the slab
+extended by its halo (``parallel/spatial.halo_input``: the neighbours'
+rows, the layer's padding only at the global ends), padded along Y and Z
+as without a mesh. A stride-2 conv's slab starts wherever its output rows
+start; a transpose conv takes the input rows its window reads, on the
+side ``tconv_placement`` puts it; ``S2DConv`` runs B3 on the extended
+slab (``s2d_conv3d_block(halo=True)``, whatever its rows) where Y and Z
+divide f. The norms count and sum over the global extent, dropout keeps
+its slab of the whole patch's mask. ``rows`` None is the unpartitioned
+block.
 """
 
 import contextlib
@@ -36,6 +51,9 @@ from contrast_gan_3d_tpu_torch.models.norm import BatchNorm, InstanceNorm, Layer
 from contrast_gan_3d_tpu_torch.ops.block_conv import s2d_conv3d_block
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import d2s_tconv3d, reflect_pad
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
+from contrast_gan_3d_tpu_torch.parallel.spatial import conv_rows, conv_window, halo_input, tconv_window
+
+SP_2D_NOTE = "spatial partitioning of the 2D family is not ported yet; see ROADMAP.md, A10a-2d"
 
 
 class S2DConv(nn.Conv3d):
@@ -66,6 +84,18 @@ class S2DConv(nn.Conv3d):
         )
         return y.permute(0, 4, 1, 2, 3)
 
+    def forward_slab(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on an X-slab extended by its halo (VALID along X):
+        B3 -> B1 on any number of rows where Y and Z divide ``f`` (as
+        ``forward``'s choice), else the direct conv."""
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        if any(d % self.f for d in x.shape[3:]):
+            return _add_bias(_conv_valid_x(self, x, w), b)
+        y = s2d_conv3d_block(x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0), b, f=self.f,
+                             padding_mode=self.padding_mode, halo=True)
+        return y.permute(0, 4, 1, 2, 3)
+
 
 def flax_tconv_kernel(weight: torch.Tensor) -> torch.Tensor:
     """A transpose conv's torch weight (I, O, *k), spatially flipped, back
@@ -88,6 +118,8 @@ class D2STConv(nn.ConvTranspose3d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias)
         self.convention = convention
         self.dtype = dtype
+        # where the size-preserving window starts in the full transpose conv
+        self.offset = (kernel_size - 1) // 2 if convention == "torch" else _same_tconv_offset(kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = d2s_tconv3d(
@@ -106,6 +138,16 @@ def _conv_forward(conv, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x = reflect_pad(x, [(p, p) for p in conv.padding], dims=range(2, x.dim()))
     fn = torch.conv3d if x.dim() == 5 else torch.conv2d
     return fn(x, w, None, conv.stride, 0, conv.dilation, conv.groups)
+
+
+def _conv_valid_x(conv, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv``'s convolution of an extended X-slab, no bias: VALID along
+    X, padded along Y and Z as ``conv`` pads."""
+    p = conv.padding[1:]
+    if conv.padding_mode == "reflect":
+        x = reflect_pad(x, [(q, q) for q in p], dims=range(3, x.dim()))
+        p = (0, 0)
+    return torch.conv3d(x, w, None, conv.stride, (0, *p), conv.dilation, conv.groups)
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -155,6 +197,7 @@ class ConvBlock(nn.Module):
         self.transpose = transpose
         self.ndim = ndim
         self.dtype = dtype
+        self.mesh = LOCAL
         conv_cls = {2: nn.Conv2d, 3: nn.Conv3d}[ndim]
         self.activation = activation
         self.negative_slope = negative_slope
@@ -208,12 +251,56 @@ class ConvBlock(nn.Module):
             y = _conv_forward(self.conv, x, w)
         return _add_bias(y, None if self.conv.bias is None else self.conv.bias.to(self.dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._conv(x)
+    def out_rows(self, rows: Optional[int]) -> Optional[int]:
+        """The output's global extent along X for an input of ``rows``."""
+        if rows is None:
+            return None
+        k, s = self.conv.kernel_size[0], self.conv.stride[0]
+        return s * rows if self.transpose else conv_rows(rows, k, s, self.conv.padding[0])
+
+    def _conv_slab(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """This rank's output rows of the conv of the X-slab ``x`` of a
+        global extent ``rows`` (see the module docstring)."""
+        if self.ndim != 3:
+            raise NotImplementedError(SP_2D_NOTE)
+        conv = self.conv
+        k, s = conv.kernel_size[0], conv.stride[0]
+        n_out = self.out_rows(rows)
+        if self.transpose:
+            offset = conv.offset if isinstance(conv, D2STConv) else self.tconv_offset
+            window, mode = lambda o0, o1: tconv_window(o0, o1, k, s, offset), "zeros"
+        else:
+            window, mode = lambda o0, o1: conv_window(o0, o1, k, s, conv.padding[0]), conv.padding_mode
+        x, (o0, o1), first = halo_input(x, self.mesh, rows, n_out, window, mode)
+        # a rank without output rows computes a phantom one and keeps none
+        count = max(o1 - o0, 1)
+        if isinstance(conv, S2DConv):
+            y = conv.forward_slab(x)
+        elif isinstance(conv, D2STConv):
+            # row o of the slab's size-preserving output is global row o + s * first
+            y = conv(x)[:, :, o0 - s * first:][:, :, :count]
+        else:
+            w = conv.weight.to(self.dtype)
+            x = x.to(self.dtype)
+            if self.transpose:
+                # the full transpose conv of the slab starts at global row s * first
+                lo, start = self.tconv_offset, o0 + self.tconv_offset - s * first
+                y = torch.conv_transpose3d(x, w, stride=s)
+                y = y[:, :, start : start + count, lo : lo + s * x.shape[3], lo : lo + s * x.shape[4]]
+            else:
+                y = _conv_valid_x(conv, x, w)
+            y = _add_bias(y, None if conv.bias is None else conv.bias.to(self.dtype))
+        return y.narrow(2, 0, o1 - o0)
+
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        """``rows``: under spatial partitioning, the global extent along X
+        of the slab ``x``; None, a whole tensor."""
+        x = self._conv(x) if rows is None else self._conv_slab(x, rows)
+        rows = self.out_rows(rows)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, rows)
         if self.dropout is not None:
-            x = self.dropout(x)
+            x = self.dropout(x, rows)
         return self.activate(x)
 
     def flax_kernel(self) -> torch.Tensor:
@@ -255,7 +342,7 @@ class Dropout(nn.Module):
         self.mesh = LOCAL
         self.mask: Optional[torch.Tensor] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         if not self.training:
             return x
         keep = 1.0 - self.p
@@ -264,8 +351,13 @@ class Dropout(nn.Module):
                 raise RuntimeError("dropout in train mode draws from the train state's generator: "
                                    "set it with models/blocks.set_dropout_generator (init_state does)")
             n = x.shape[0]
-            shape = (n * self.mesh.world_size,) + tuple(x.shape[1:])
-            self.mask = (torch.rand(shape, generator=self.generator, device=x.device) < keep)[self.mesh.global_slice(n)]
+            whole = x.shape[2] if rows is None else rows
+            shape = (n * self.mesh.data_size, x.shape[1], whole, *x.shape[3:])
+            mask = (torch.rand(shape, generator=self.generator, device=x.device) < keep)[self.mesh.global_slice(n)]
+            if rows is not None:
+                lo, hi = self.mesh.slab(rows)
+                mask = mask[:, :, lo:hi]
+            self.mask = mask
         return torch.where(self.mask, x / keep, 0.0)
 
 
@@ -317,5 +409,9 @@ class ResNetBlock(nn.Module):
             norm=norm, activation="relu", dtype=dtype, ndim=ndim,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.block1(self.block0(x))
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+        return x + self.block1(self.block0(x, rows), rows)
+
+    @staticmethod
+    def out_rows(rows: Optional[int]) -> Optional[int]:
+        return rows

@@ -13,7 +13,11 @@ realism scores with no global pooling. Module names ``first``,
 dtype (``models/blocks.py``); the logits come out in it. ``remat=True``
 recomputes each block's activations in the backward
 (``models/blocks.remat``), as the JAX critic's ``nn.remat`` blocks are,
-through the gradient penalty's double backward too.
+through the gradient penalty's double backward too. Under spatial
+partitioning (``mesh.space`` > 1, 3D) x is this rank's X-slab of the
+patches and the logits are its slab of the logit map, which need not
+split evenly (a 4^3 stride-1 last conv leaves X/8 - 1 rows at depth 1);
+the blocks exchange their halos (``models/blocks.py``).
 """
 
 from typing import Optional
@@ -23,6 +27,7 @@ from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
 class PatchGANDiscriminator(nn.Module):
@@ -40,6 +45,7 @@ class PatchGANDiscriminator(nn.Module):
         super().__init__()
         self.discriminator_depth = discriminator_depth
         self.remat = remat
+        self.mesh = LOCAL
         c0 = init_channels_out
         block = dict(padding=1, activation="leaky_relu", negative_slope=negative_slope, dtype=dtype, ndim=ndim)
         self.first = ConvBlock(1, c0, kernel_size, stride=2, norm=None, **block)
@@ -52,8 +58,23 @@ class PatchGANDiscriminator(nn.Module):
                               ndim=ndim)
         init_like_flax(self)
 
+    def _blocks(self):
+        return [self.first, *(getattr(self, f"middle_{n}") for n in range(self.discriminator_depth)), self.last]
+
+    def logit_rows(self, x: torch.Tensor) -> Optional[int]:
+        """Under spatial partitioning, the global extent along X of the
+        logits of the X-slab ``x`` (for the losses' counts); else None."""
+        if self.mesh.space == 1:
+            return None
+        rows = x.shape[2] * self.mesh.space
+        for block in self._blocks():
+            rows = block.out_rows(rows)
+        return rows
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        blocks = [self.first, *(getattr(self, f"middle_{n}") for n in range(self.discriminator_depth)), self.last]
-        for block in blocks:
-            x = remat(block, x) if self.remat else block(x)
+        # under spatial partitioning: the patches' global extent along X
+        rows = x.shape[2] * self.mesh.space if self.mesh.space > 1 else None
+        for block in self._blocks():
+            x = remat(block, x, rows) if self.remat else block(x, rows)
+            rows = block.out_rows(rows)
         return x

@@ -42,6 +42,14 @@ does.
 ``nn.remat``: in the direct layout every ``ConvBlock`` and
 ``ResNetBlock``; in the packed layout every packed stage and ResNet
 block. It trades time for memory; the results are the same.
+
+Under spatial partitioning (``mesh.space`` S > 1, set by
+``models/norm.set_mesh``; 3D, direct layout) x is this rank's X-slab of
+the patches, ``(B, 1, X/S, Y, Z)``, and so is the output: every block
+exchanges its conv halos with the other slabs (``models/blocks.py``), and
+the stem and the projection run B3 -> B1 on each extended slab, whatever
+its rows, where Y and Z divide 4. The packed layout and the 2D family raise there (ROADMAP
+A10a-packed, A10a-2d).
 """
 
 from typing import Optional
@@ -49,12 +57,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock, remat
+from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE, ConvBlock, ResNetBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 LAYOUTS = ("direct", "packed")
+SP_PACKED_NOTE = ("spatial partitioning of the packed layout is not ported yet (use generator_layout='direct'); "
+                  "see ROADMAP.md, A10a-packed")
 
 
 def _packed_stage(block: ConvBlock, xp: torch.Tensor, f_view: int, conv_fn) -> torch.Tensor:
@@ -107,6 +118,7 @@ class ResnetGenerator(nn.Module):
         self.packed_output = packed_output
         self.remat = remat
         self.dtype = dtype
+        self.mesh = LOCAL
         if layout == "packed":
             self.check_packed()
         c0 = init_channels_out
@@ -153,17 +165,19 @@ class ResnetGenerator(nn.Module):
         return remat(fn, *args) if self.remat else fn(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # under spatial partitioning: the patches' global extent along X
+        rows = x.shape[2] * self.mesh.space if self.mesh.space > 1 else None
+        if rows is not None and (self.layout == "packed" or self.ndim != 3):
+            raise NotImplementedError(SP_PACKED_NOTE if self.ndim == 3 else SP_2D_NOTE)
         if self.layout == "packed":
             return self.forward_packed(x, self.packed_input, self.packed_output)
-        x = self._run(self.first, x)
-        n = self.n_updownsample_blocks
-        for i in range(n):
-            x = self._run(getattr(self, f"down_{i}"), x)
-        for i in range(self.n_resnet_blocks):
-            x = self._run(getattr(self, f"resnet_{i}"), x)
-        for i in range(n, 0, -1):
-            x = self._run(getattr(self, f"up_{i - 1}"), x)
-        return self._run(self.last_conv, x)
+        blocks = (self.first, *(getattr(self, f"down_{i}") for i in range(self.n_updownsample_blocks)),
+                  *(getattr(self, f"resnet_{i}") for i in range(self.n_resnet_blocks)),
+                  *(getattr(self, f"up_{i - 1}") for i in range(self.n_updownsample_blocks, 0, -1)))
+        for block in blocks:
+            x = self._run(block, x, rows)
+            rows = block.out_rows(rows)
+        return self._run(self.last_conv, x, rows)
 
     def forward_packed(self, x: torch.Tensor, packed_input: bool = False, packed_output: bool = False) -> torch.Tensor:
         """The packed layout (``_packed_call`` of the JAX generator): x is

@@ -14,7 +14,12 @@ Under a data-parallel group (``mesh``, a ``parallel/mesh.DataMesh``) every
 batch reduction runs over the GLOBAL batch, as the JAX package's GSPMD
 program computes it: means, the ZNCC's ddof=1 std, the HU loss's sums and
 the penalty's mean are this rank's partial sums all-reduced
-(``mesh.all_sum``), never per-rank losses averaged across ranks.
+(``mesh.all_sum``), never per-rank losses averaged across ranks. Under
+spatial partitioning a rank holds an X-slab of its samples (and of the
+critic's logits, in slabs that need not be equal): the counts come from
+the global shapes (``mesh.numel``; the logits' global extent is the
+caller's ``rows``), and the penalty sums each sample's squared gradient
+over its slabs (``mesh.space_sum``) before the root.
 
 On bf16 inputs the losses round as the JAX functions do: a mean or sum
 accumulates in f32 and returns the input's dtype (``jnp.mean``), the std
@@ -31,16 +36,19 @@ import torch
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
-def _mean(x: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
+def _mean(x: torch.Tensor, mesh=LOCAL, rows: Optional[int] = None) -> torch.Tensor:
     """``jnp.mean``: accumulated in f32, returned in x's dtype; over
-    ``mesh``'s global batch."""
-    return (mesh.all_sum(x.sum(dtype=torch.float32)) / (x.numel() * mesh.world_size)).to(x.dtype)
+    ``mesh``'s global batch (``rows``: x is an X-slab of that extent)."""
+    return (mesh.all_sum(x.sum(dtype=torch.float32)) / mesh.numel(x, rows)).to(x.dtype)
 
 
-def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None, mesh=LOCAL) -> torch.Tensor:
-    ret = _mean(fake, mesh)
+def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None, mesh=LOCAL,
+                     rows: Optional[int] = None) -> torch.Tensor:
+    """mean(fake) - mean(real) over the global batch; ``rows``: the logits
+    are X-slabs of that global extent."""
+    ret = _mean(fake, mesh, rows)
     if real is not None:
-        ret = ret - _mean(real, mesh)
+        ret = ret - _mean(real, mesh, rows)
     return ret
 
 
@@ -52,7 +60,7 @@ class StableStd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh=LOCAL):
-        n = x.numel() * mesh.world_size
+        n = mesh.numel(x)
         xf = x.float()
         mean = mesh.all_sum(xf.sum()) / n
         var = mesh.all_sum((xf - mean).square().sum()) / (n - 1)
@@ -106,7 +114,9 @@ def gradient_penalty(
     ``real`` and ``fake`` are this rank's shares of ``mesh``'s global
     batch: the resampling indices and ``eps`` are drawn for the global
     batch on every rank (the generators stay in lockstep) and each rank
-    keeps its slice; the resampled global count must divide the ranks."""
+    keeps its data index's slice; the resampled global count must divide
+    the data ranks. Under spatial partitioning they are X-slabs, and each
+    sample's squared gradient norm is summed over its slabs."""
     n = min(real.shape[0], fake.shape[0])
     dev = real.device
     if real.shape[0] != fake.shape[0]:
@@ -114,18 +124,18 @@ def gradient_penalty(
         n = min(real.shape[0], fake.shape[0])
         real = real[torch.randint(0, real.shape[0], (n,), generator=generator, device=dev)]
         fake = fake[torch.randint(0, fake.shape[0], (n,), generator=generator, device=dev)]
-        if n % mesh.world_size:
+        if n % mesh.data_size:
             raise ValueError(f"the gradient penalty resamples {n} pairs, which do not split over "
-                             f"{mesh.world_size} ranks")
-        n //= mesh.world_size
+                             f"{mesh.data_size} ranks")
+        n //= mesh.data_size
         keep = mesh.global_slice(n)
         real, fake = real[keep], fake[keep]
     if eps is None:
-        eps = torch.rand((n * mesh.world_size,) + (1,) * (real.dim() - 1), generator=generator, device=dev,
+        eps = torch.rand((n * mesh.data_size,) + (1,) * (real.dim() - 1), generator=generator, device=dev,
                          dtype=real.dtype)[mesh.global_slice(n)]
     interp = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(critic_fn(interp).sum(), interp, create_graph=True)
-    sq = grads.reshape(n, -1).square().sum(-1, dtype=torch.float32).to(grads.dtype)
+    sq = mesh.space_sum(grads.reshape(n, -1).square().sum(-1, dtype=torch.float32)).to(grads.dtype)
     grad_norms = torch.sqrt(sq + 1e-12)
     return lambda_ * _mean((grad_norms - 1.0).square(), mesh)
 

@@ -31,12 +31,17 @@ NCHW), the per-sample ``LayerNorm`` of the layer-norm critic and the
   the JAX package's GSPMD program does: the per-channel sums and sums of
   squares of every rank are all-reduced (differentiably, as
   ``SyncBatchNorm`` does), and the running variance's ``n`` is the global
-  count.
+  count. Under spatial partitioning a rank holds an X-slab of its samples
+  and the caller passes ``rows``, the global extent of x's first spatial
+  dim (slabs may be unequal), from which the count follows;
+  ``InstanceNorm`` and ``LayerNorm`` then sum each sample's statistics
+  over the ranks that share it (``mesh.space_sum``).
 
 Parameters ``weight``/``bias`` (flax ``scale``/``bias``) and buffers
 ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
 """
 
+import math
 import threading
 from contextlib import contextmanager
 from typing import Optional
@@ -86,11 +91,14 @@ class BatchNorm(nn.Module):
         self.update_stats = True
         self.mesh = LOCAL
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
-            n = x.numel() // x.shape[1] * self.mesh.world_size
+            if rows is None:
+                n = x.numel() // x.shape[1] * self.mesh.world_size
+            else:  # an X-slab of a global extent ``rows``
+                n = x.shape[0] * math.prod(x.shape[3:]) * rows * self.mesh.data_size
             sums = torch.cat([x.sum(axes, dtype=torch.float32), x.square().sum(axes, dtype=torch.float32)])
             mean, mean2 = (self.mesh.all_sum(sums) / n).split(x.shape[1])
             var = torch.clamp(mean2 - mean.square(), min=0.0)
@@ -109,10 +117,12 @@ class BatchNorm(nn.Module):
 
 
 def set_mesh(module: nn.Module, mesh) -> None:
-    """Take ``module``'s BatchNorm statistics over ``mesh``'s global batch
-    (``parallel/mesh.LOCAL``: this device's batch)."""
+    """Run ``module`` over ``mesh`` (``parallel/mesh.LOCAL``: this device):
+    every submodule that has a ``mesh`` (the norms, dropout, the conv
+    blocks and the networks, which exchange halos under spatial
+    partitioning) takes it."""
     for m in module.modules():
-        if isinstance(m, BatchNorm):
+        if hasattr(m, "mesh"):
             m.mesh = mesh
 
 
@@ -144,13 +154,29 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.mesh = LOCAL
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         axes = tuple(range(1, x.dim()))
         xf = x.float()
-        mean = xf.mean(axes, keepdim=True)
-        var = torch.clamp(xf.square().mean(axes, keepdim=True) - mean.square(), min=0.0)
+        if rows is None:
+            mean = xf.mean(axes, keepdim=True)
+            mean2 = xf.square().mean(axes, keepdim=True)
+        else:
+            mean, mean2 = _slab_moments(xf, axes, rows, self.mesh)
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(self.dtype or x.dtype)
+
+
+def _slab_moments(xf: torch.Tensor, axes, rows: int, mesh):
+    """Per-sample means of x and x^2 over ``axes`` of an X-slab (global
+    extent ``rows``), summed over the ranks that share the samples."""
+    count = rows * math.prod(xf.shape[d] for d in axes if d != 2)
+    keep = (-1,) + tuple(xf.shape[d] if d not in axes else 1 for d in range(1, xf.dim()))
+    sums = mesh.space_sum(torch.cat([xf.sum(axes).reshape(xf.shape[0], -1),
+                                     xf.square().sum(axes).reshape(xf.shape[0], -1)], 1)) / count
+    mean, mean2 = sums.split(sums.shape[1] // 2, 1)
+    return mean.reshape(keep), mean2.reshape(keep)
 
 
 class InstanceNorm(nn.Module):
@@ -161,7 +187,8 @@ class InstanceNorm(nn.Module):
     x promoted to f32, ``var = max(E[x^2] - E[x]^2, 0)``, ``y = (x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in f32, then cast to ``dtype`` (None:
     x's dtype). No running statistics: train and eval mode are the same,
-    and under a mesh no statistic crosses ranks. Parameters ``weight`` /
+    and under data parallelism no statistic crosses ranks (under spatial
+    partitioning a sample's cross its slabs). Parameters ``weight`` /
     ``bias`` (flax ``GroupNorm_0/scale`` / ``bias``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
@@ -170,12 +197,17 @@ class InstanceNorm(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
+        self.mesh = LOCAL
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         axes = tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        mean = xf.mean(axes, keepdim=True)
-        var = torch.clamp(xf.square().mean(axes, keepdim=True) - mean.square(), min=0.0)
+        if rows is None:
+            mean = xf.mean(axes, keepdim=True)
+            mean2 = xf.square().mean(axes, keepdim=True)
+        else:
+            mean, mean2 = _slab_moments(xf, axes, rows, self.mesh)
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
         return ((xf - mean) * mul + self.bias.view(shape)).to(self.dtype or x.dtype)

@@ -159,12 +159,12 @@ def block_conv_flops(x_shape, w_km_shape) -> int:
 
 def s2d_pads(dims, kernel, f: int):
     """B3's padding of the (X, Y, Z) ``dims`` for a ``kernel`` conv: the
-    SAME pad per side, then the right pad that makes each padded length a
-    multiple of f AND at least d/f + 2 blocks, so the VALID block conv
-    yields the whole output (even kernels, k=6: p=2, fall short of the
-    second bound)."""
+    SAME pad per side, then the right pad that makes each padded length
+    ceil(d/f) + 2 whole blocks, so the VALID block conv yields the whole
+    output, rounded up to whole blocks (a halo-extended slab's d need not
+    divide f; where d does, this is the JAX wrapper's pad)."""
     pads = [(k - 1) // 2 for k in kernel]
-    extra = [max((-(d + 2 * p)) % f, d + f * 2 - (d + 2 * p)) for d, p in zip(dims, pads)]
+    extra = [(-(-d // f) + 2) * f - (d + 2 * p) for d, p in zip(dims, pads)]
     return pads, extra
 
 
@@ -397,40 +397,56 @@ def s2d_conv3d_block(
     bias: Optional[torch.Tensor] = None,
     f: int = 4,
     padding_mode: str = "zeros",
+    halo: bool = False,
 ) -> torch.Tensor:
     """B3: drop-in for ``s2d_conv3d`` (stride 1, 3^3 block kernels — k in
     5..8 at f=4) backed by B1; x (B, X, Y, Z, Ci), w (k, k, k, Ci, Co).
     Where no gradient is wanted it runs as the operator
-    ``s2d_conv3d_block_op``, which ``torch.export`` keeps whole."""
+    ``s2d_conv3d_block_op``, which ``torch.export`` keeps whole.
+
+    ``halo``: x's X already holds the conv's (k-1)//2 rows on each side
+    (an X-slab extended by its halo, ``parallel/spatial.halo_extend``), so
+    X is not padded here and the output has ``X - (k - 1)`` rows, any
+    number of them (the block grid is rounded up with zeros and cropped);
+    Y and Z are padded as without it. The gradient of those rows comes
+    back unfolded, for the exchange to return to their owners."""
     Ks = [_axis_map(k, f)[1] for k in w.shape[:3]]
-    if Ks != [3, 3, 3] or any(d % f for d in x.shape[1:4]):
+    if Ks != [3, 3, 3] or any(d % f for d in x.shape[1 + halo : 4]):
+        if halo:
+            raise ValueError(f"s2d_conv3d_block(halo=True) needs Y, Z {tuple(x.shape[2:4])} that divide f={f} and "
+                             f"3^3 block kernels")
         return s2d_conv3d(x, w, bias, f=f, padding_mode=padding_mode)
     check_padding_mode(padding_mode)
     if _needs_grad(x, w, bias):
-        return _s2d_block(x, w, bias, f, padding_mode)
+        return _s2d_block(x, w, bias, f, padding_mode, halo)
+    if halo:
+        return s2d_conv3d_block_op(x, w, bias, f, padding_mode, True)
     return s2d_conv3d_block_op(x, w, bias, f, padding_mode)
 
 
 def _s2d_block(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f: int,
-               padding_mode: str) -> torch.Tensor:
+               padding_mode: str, halo: bool = False) -> torch.Tensor:
     """B3's glue around one B1 launch (counted here on the card): pad,
-    space-to-depth, B1, depth-to-space, bias in x's dtype."""
+    space-to-depth, B1, depth-to-space, bias in x's dtype; X unpadded
+    with ``halo``."""
     mode = check_padding_mode(padding_mode)
     B, X, Y, Z, ci = x.shape
+    if halo:
+        X -= w.shape[0] - 1
     pads, extra = s2d_pads((X, Y, Z), w.shape[:3], f)  # as the JAX wrapper pads
-    xp = pad_spatial(x, [(p, p) for p in pads], mode)
+    xp = pad_spatial(x, [(0, 0) if halo and i == 0 else (p, p) for i, p in enumerate(pads)], mode)
     if any(extra):
         xp = pad_spatial(xp, [(0, e) for e in extra])
     xs = space_to_depth(xp, f)  # (B, Xb+2, Yb+2, Zb+2, f^3 ci)
     ws = transform_kernel(w, f).to(x.dtype)  # [kx, ky, kz] block taps
     # B1 pairs w's axes (0, 1, 2) with x's spatial axes (2, 3, 1); on the
     # (X, Y, Z) block grid that takes the taps ordered [ky, kz, kx]
-    with _model_flops(s2d_conv3d_model_flops(x.shape, w.shape)):
+    with _model_flops(s2d_conv3d_model_flops((B, X, Y, Z, ci), w.shape)):
         out = block_conv3x3x3(xs, ws.permute(1, 2, 0, 3, 4).contiguous())  # (B, Xb', Yb', Zb', f^3 co) f32
     if x.is_cuda:
         s2d_conv3d_block.launches += 1
-    out = out[:, : X // f, : Y // f, : Z // f].to(x.dtype)
-    out = depth_to_space(out, f)
+    out = out[:, : -(-X // f), : Y // f, : Z // f].to(x.dtype)
+    out = depth_to_space(out, f)[:, :X]
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -438,16 +454,17 @@ def _s2d_block(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f
 
 @torch.library.custom_op(f"{OP_NAMESPACE}::s2d_conv3d_block", mutates_args=(), device_types=("cpu", "cuda"))
 def s2d_conv3d_block_op(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], f: int,
-                        padding_mode: str) -> torch.Tensor:
+                        padding_mode: str, halo: bool = False) -> torch.Tensor:
     """B3 without a gradient, as one operator: ``_s2d_block``, whose B1 is
     ``block_conv_op`` (the plain version on the CPU, the kernel on the
     card)."""
-    return _s2d_block(x, w, bias, f, padding_mode)
+    return _s2d_block(x, w, bias, f, padding_mode, halo)
 
 
 @s2d_conv3d_block_op.register_fake
-def _(x, w, bias, f, padding_mode):
-    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+def _(x, w, bias, f, padding_mode, halo=False):
+    out_x = x.shape[1] - (w.shape[0] - 1) if halo else x.shape[1]
+    return x.new_empty((x.shape[0], out_x, *x.shape[2:-1], w.shape[-1]))
 
 
 s2d_conv3d_block.launches = 0
@@ -460,7 +477,9 @@ def _b1_flop(x_shape, w_km_shape, layout, *args, out_shape=None, **kwargs) -> in
     return n
 
 
-def _b3_flop(x_shape, w_shape, bias_shape, f, padding_mode, *args, out_shape=None, **kwargs) -> int:
+def _b3_flop(x_shape, w_shape, bias_shape, f, padding_mode, halo=False, *args, out_shape=None, **kwargs) -> int:
+    if halo:  # the output's rows, as without a halo
+        x_shape = (x_shape[0], x_shape[1] - (w_shape[0] - 1), *x_shape[2:])
     n = s2d_conv3d_block_flops(x_shape, w_shape, f)
     _log_flops("s2d_conv3d_block", n, s2d_conv3d_model_flops(x_shape, w_shape))
     return n

@@ -20,9 +20,14 @@ starts the N ranks itself; under ``torchrun --nproc-per-node N`` each
 process is one. ``--multihost`` joins torchrun's multi-node group (and
 implies ``--dp-devices 0``): each host samples its round-robin share of
 the fold (``multihost.host_fold_shard``) and its ranks split that host's
-batches. Train batches are rounded up to multiples of the world size, as
-JAX's CLI rounds them. On the CPU (``--device cpu``) the ranks are gloo
-processes.
+batches. Train batches are rounded up to multiples of the data-parallel
+ranks, as JAX's CLI rounds them. On the CPU (``--device cpu``) the ranks
+are gloo processes. ``--sp-devices S`` (JAX's dp x sp mesh) also splits
+each patch's first dim over S ranks, which exchange conv halos
+(``parallel/spatial.py``): ``D x S`` ranks in all, D from ``--dp-devices``
+(1 when neither it nor the config sets it; 0: every visible card over
+S), one card each (NCCL), gloo processes on the CPU. The first dims of
+the train and validation patches must divide S.
 
 ``--debug`` turns on autograd's anomaly mode and checks every step's
 metrics for NaN / inf (``utils/debug.py``); anomaly mode cannot run in a
@@ -57,7 +62,7 @@ from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import ExperimentConfig, asdict_flat, load_config
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
 from contrast_gan_3d_tpu_torch.parallel import multihost
-from contrast_gan_3d_tpu_torch.parallel.mesh import DataMesh, data_mesh, spawn_ranks
+from contrast_gan_3d_tpu_torch.parallel.mesh import DataMesh, data_mesh, dp_sp_mesh, spawn_ranks
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, Trainer, install_preemption_handler
 from contrast_gan_3d_tpu_torch.utils.debug import enable_nan_debugging
 from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
@@ -195,10 +200,10 @@ class TrainManager:
         mesh = self.mesh
         loader_train_bs, loader_val_bs = dict(cfg.train_batch_size), dict(cfg.val_batch_size)
         if mesh is not None:
-            rounded = round_train_batches(loader_train_bs, mesh.world_size)
+            rounded = round_train_batches(loader_train_bs, mesh.data_size)
             if rounded != loader_train_bs:
                 logger.warning("Rounding train batch sizes %s -> %s to divide the %d data-parallel ranks",
-                               loader_train_bs, rounded, mesh.world_size)
+                               loader_train_bs, rounded, mesh.data_size)
                 cfg = replace(cfg, train_batch_size=rounded)
                 loader_train_bs = dict(rounded)
             if mesh.hosts > 1:
@@ -282,6 +287,9 @@ def parse_args(argv=None):
     p.add_argument("--dp-devices", type=int, default=None,
                    help="data-parallel over N cards, one rank each (0 = every visible card); on the CPU, N gloo "
                         "ranks")
+    p.add_argument("--sp-devices", type=int, default=None,
+                   help="additionally spatially partition each patch's first dim over N ranks (dp x sp mesh: the "
+                        "convs exchange halos between the slabs; the direct generator layout)")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's multi-node process group (one torchrun per host); each host samples its "
                         "share of the fold and its ranks split its batches. Implies --dp-devices 0")
@@ -297,6 +305,8 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if args.dp_devices is not None and args.dp_devices < 0:
         p.error("--dp-devices must be >= 0")
+    if args.sp_devices is not None and args.sp_devices < 1:
+        p.error("--sp-devices must be >= 1")
     if args.dp_devices and args.device != "cpu" and torch.cuda.is_available() \
             and args.dp_devices > torch.cuda.device_count() and "RANK" not in os.environ:
         p.error(f"--dp-devices {args.dp_devices}: only {torch.cuda.device_count()} CUDA devices are visible")
@@ -315,14 +325,18 @@ def main(argv=None) -> Optional[TrainManager]:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     device = str(resolve_device(args.device))
     cfg = load_config(args.conf)
-    if args.multihost and args.dp_devices is None and cfg.dp_devices is None and not cfg.sp_devices:
+    if args.multihost and args.dp_devices is None and args.sp_devices is None and cfg.dp_devices is None \
+            and not cfg.sp_devices:
         # --multihost means one model over every host: data-parallel over
         # every device, not one independent run per host
         logger.info("--multihost without a mesh config: defaulting --dp-devices 0")
         args.dp_devices = 0
     overrides = {k: v for k, v in (("train_iterations", args.iterations), ("checkpoint_keep", args.checkpoint_keep),
                                    ("logger", args.logger), ("cycle_length", args.cycle_length),
-                                   ("dp_devices", args.dp_devices)) if v is not None}
+                                   ("dp_devices", args.dp_devices), ("sp_devices", args.sp_devices))
+                 if v is not None}
+    if args.sp_devices is not None and args.dp_devices is None and cfg.dp_devices is None:
+        overrides["dp_devices"] = 1  # pure spatial partitioning
     if overrides:
         cfg = replace(cfg, **overrides)
     if not args.cval_splits and cfg.dataset_paths and cfg.seed is None and cfg.dp_devices is not None:
@@ -333,21 +347,37 @@ def main(argv=None) -> Optional[TrainManager]:
     backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
     mesh = None
     owns_group = False
-    if cfg.dp_devices is not None:
+    space = cfg.sp_devices or 1
+    if space > 1:
+        for size_field in ("train_patch_size", "val_patch_size"):
+            first_dim = getattr(cfg, size_field)[0]
+            if first_dim % space:
+                raise SystemExit(f"{size_field}[0]={first_dim} must be divisible by sp_devices={space}")
+    if cfg.dp_devices is not None or space > 1:
         if not dist.is_initialized():
             if "RANK" not in os.environ and not args.multihost:
                 # no launcher: start the ranks here, one per card
-                n = cfg.dp_devices or torch.cuda.device_count()
-                logger.info("Starting %d data-parallel ranks (%s)", n, backend)
+                visible = torch.cuda.device_count()
+                n = (cfg.dp_devices or visible // space) * space
+                if n < space or (backend == "nccl" and n > visible):
+                    raise SystemExit(f"dp_devices={cfg.dp_devices} x sp_devices={space} gives {n} ranks: it needs "
+                                     f"at least {space}, and on cards no more than the {visible} visible")
+                logger.info("Starting %d ranks (%s%s)", n, backend, f", {n // space} x {space} dp x sp"
+                            if space > 1 else "")
                 spawn_ranks(main, n, (argv,), backend=backend)
                 return None
             multihost.initialize(backend)
             owns_group = True
         host, hosts = multihost.host_topology()
         mesh_device = None if backend == "nccl" else "cpu"
-        mesh = data_mesh(cfg.dp_devices or None, device=mesh_device, hosts=hosts)
+        if space > 1:
+            mesh = dp_sp_mesh(cfg.dp_devices or dist.get_world_size() // space, space, device=mesh_device,
+                              hosts=hosts)
+        else:
+            mesh = data_mesh(cfg.dp_devices or None, device=mesh_device, hosts=hosts)
         device = str(mesh.device)
-        logger.info("Data-parallel rank %d/%d on %s (host %d/%d)", mesh.rank, mesh.world_size, device, host, hosts)
+        logger.info("Rank %d/%d on %s (host %d/%d, %d x %d dp x sp)", mesh.rank, mesh.world_size, device, host,
+                    hosts, mesh.data_size, mesh.space)
     anomaly = torch.is_anomaly_enabled()
     if args.debug:
         enable_nan_debugging()

@@ -55,6 +55,14 @@ differentiable reductions already give each rank its share of the
 gradient of the sum of the ranks' equal losses). Weight clipping runs on
 every rank, and the metrics are the global values. The state's networks
 must start equal on every rank (``init_state`` broadcasts rank 0's).
+
+Spatial partitioning (a mesh with ``space`` S > 1, JAX's dp x sp mesh,
+direct 3D layout): each rank still passes its data index's share of
+whole patches; the step augments them whole, scales them, and keeps its
+X-slab (``parallel/spatial.split_slab``), so the draws are those of the
+one-rank step. The networks exchange conv halos between the slabs, and
+the norms and losses reduce with global counts; the val steps return the
+corrected batch and the attenuation whole again (``gather_slab``).
 """
 
 import gc
@@ -73,6 +81,7 @@ from contrast_gan_3d_tpu_torch.models.blocks import set_dropout_generator
 from contrast_gan_3d_tpu_torch.models.norm import frozen_batch_stats, set_mesh
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE, add_launch_counts, launch_counts
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
+from contrast_gan_3d_tpu_torch.parallel.spatial import gather_slab, split_slab
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -172,16 +181,18 @@ def _scaled(cfg: StepConfig, batch, device, dtype=torch.float32) -> torch.Tensor
     return cfg.scaler(torch.as_tensor(batch).to(device, torch.float32)).to(dtype).unsqueeze(1)
 
 
-def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device, draws=None):
+def _prepare_batches(cfg: StepConfig, opt, subopt, subopt_mask, device, draws=None, mesh=LOCAL):
     """int16 -> f32, the augmentation (``draws`` = (sub-optimal, OPT) draws
     when ``cfg.augment`` is set), the scaler, ``cfg.dtype``, the channel dim
-    (the mask is neither scaled nor cast: it stays f32)."""
+    (the mask is neither scaled nor cast: it stays f32), then this rank's
+    X-slab under spatial partitioning."""
     opt, subopt, mask = (torch.as_tensor(b).to(device, torch.float32) for b in (opt, subopt, subopt_mask))
     if cfg.augment is not None:
         d_sub, d_opt = draws
         subopt, mask = aug.augment_batch(subopt, mask, d_sub, cfg.augment)
         opt, _ = aug.augment_batch(opt, None, d_opt, cfg.augment)
-    return _scaled(cfg, opt, device, cfg.dtype), _scaled(cfg, subopt, device, cfg.dtype), mask.unsqueeze(1)
+    return tuple(split_slab(t, mesh) for t in (_scaled(cfg, opt, device, cfg.dtype),
+                                               _scaled(cfg, subopt, device, cfg.dtype), mask.unsqueeze(1)))
 
 
 class TrainSteps(NamedTuple):
@@ -198,7 +209,7 @@ def _draw_augment(cfg: StepConfig, draw, rng: torch.Generator, n_subopt: int, n_
     draws of ``mesh``'s global batch, this rank's slice kept."""
     if cfg.augment is None:
         return None
-    drawn = [(draw(rng, n * mesh.world_size, cfg.augment), n) for n in (n_subopt, n_opt)]
+    drawn = [(draw(rng, n * mesh.data_size, cfg.augment), n) for n in (n_subopt, n_opt)]
     return tuple(type(d)(*(t[mesh.global_slice(n)] for t in d)) for d, n in drawn)
 
 
@@ -216,7 +227,8 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
     def critic_loss(state: GANTrainState, real, fake):
         real_logits = state.critic(real)
         fake_logits = state.critic(fake)
-        loss = cfg.gan_loss_weight * losses.wasserstein_loss(fake_logits, real_logits, state.mesh)
+        loss = cfg.gan_loss_weight * losses.wasserstein_loss(fake_logits, real_logits, state.mesh,
+                                                             state.critic.logit_rows(real))
         if use_gp:
             eps = None
             if cfg.gp_eps is not None:
@@ -244,7 +256,8 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
         with frozen_batch_stats(state.critic):
             fake_logits = state.critic(opt_hat)
         mesh = state.mesh
-        loss_g = cfg.gan_loss_weight * -losses.wasserstein_loss(fake_logits, mesh=mesh)
+        loss_g = cfg.gan_loss_weight * -losses.wasserstein_loss(fake_logits, mesh=mesh,
+                                                                rows=state.critic.logit_rows(opt_hat))
         loss_sim = cfg.sim_loss_weight * losses.zncc_loss(opt_hat, subopt, mesh)
         loss_hu = cfg.hu_loss_weight * losses.hu_loss(opt_hat, mask, hu_lo, hu_hi, mesh)
         full = loss_g + loss_sim + loss_hu
@@ -259,7 +272,7 @@ def build_train_steps(cfg: StepConfig, draw: Callable = aug.draw) -> TrainSteps:
     def begin(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         state.step += 1
         draws = _draw_augment(cfg, draw, state.rng, len(subopt_b), len(opt_b), state.mesh)
-        return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device, draws)
+        return _prepare_batches(cfg, opt_b, subopt_b, subopt_mask, state.device, draws, state.mesh)
 
     def critic_phase(state: GANTrainState, opt_b, subopt_b, subopt_mask):
         """The generator forward (its statistics update) and the critic
@@ -314,7 +327,7 @@ def build_preview_step(cfg: StepConfig):
         subopt, mask = aug.augment_batch(subopt, mask, draws, cfg.augment)
         x = _scaled(cfg, subopt, state.device, cfg.dtype)
         with torch.no_grad(), _eval_mode(state.generator):
-            atten = state.generator(x)
+            atten = gather_slab(state.generator(split_slab(x, state.mesh)), state.mesh, x.shape[2])
         return x, x - atten, atten, mask.unsqueeze(1)
 
     return preview
@@ -549,22 +562,27 @@ def build_val_steps(cfg: StepConfig):
     the JAX val steps the scaled batch stays f32 whatever ``cfg.dtype``:
     the networks' first blocks cast it, and the corrected batch is f32.
     Under ``state.mesh`` each rank passes its share of a batch padded to the
-    ranks (``parallel/mesh.pad_batch_to_multiple``) and the masked
-    reductions run over the global batch."""
+    data ranks (``parallel/mesh.pad_batch_to_multiple``) and the masked
+    reductions run over the global batch; under spatial partitioning each
+    rank runs its X-slab of the whole patches it passes, and the corrected
+    batch and the attenuation come back whole."""
 
     def val_opt_step(state: GANTrainState, batch, w):
-        x = _scaled(cfg, batch, state.device)
+        x = split_slab(_scaled(cfg, batch, state.device), state.mesh)
         w = torch.as_tensor(w).to(state.device, torch.float32)
         with torch.no_grad(), _eval_mode(state.critic):
             return _masked_mean(state.critic(x), w, state.mesh)
 
     def val_subopt_step(state: GANTrainState, batch, w):
-        x = _scaled(cfg, batch, state.device)
+        whole = _scaled(cfg, batch, state.device)
+        x = split_slab(whole, state.mesh)
         w = torch.as_tensor(w).to(state.device, torch.float32)
         with torch.no_grad(), _eval_mode(state.generator, state.critic):
             atten = state.generator(x)
             sample_hat = x - atten
             loss_fake = _masked_mean(state.critic(sample_hat), w, state.mesh)
-            return loss_fake, _masked_zncc(sample_hat, x, w, state.mesh), sample_hat, atten
+            zncc = _masked_zncc(sample_hat, x, w, state.mesh)
+            rows = whole.shape[2]
+            return loss_fake, zncc, gather_slab(sample_hat, state.mesh, rows), gather_slab(atten, state.mesh, rows)
 
     return val_opt_step, val_subopt_step

@@ -232,7 +232,9 @@ class Trainer:
         joined batches (``DataMesh.batch_slice``; one device keeps them
         whole), which the host's ranks must divide: a padded train batch
         would bias the losses and BatchNorm's statistics, so it raises
-        instead."""
+        instead. Under spatial partitioning the patches stay whole (the
+        step keeps the rank's X-slab), and their first dim must divide the
+        space axis, as JAX's Trainer requires."""
         dev = self.state.device
         low, high = patches[LOW], patches[HIGH]
         names = list(low.get("name", [])) + list(high.get("name", []))
@@ -246,6 +248,10 @@ class Trainer:
                 f"host-local train batch sizes (opt {opt.shape[0]}, subopt {subopt.shape[0]}) must be divisible by "
                 f"the {n} data-parallel ranks on this host; round them up to multiples of {n} (train does this) or "
                 f"pick dp_devices that divides them")
+        sp = self.mesh.space
+        if subopt.shape[1] % sp:
+            raise ValueError(f"first patch dim ({subopt.shape[1]}) must be divisible by the mesh's {sp} "
+                             f"spatial-partitioning devices")
         keep = self.mesh.batch_slice(subopt.shape[0])
         opt = opt[self.mesh.batch_slice(opt.shape[0])]
         return opt.to(dev), subopt[keep].to(dev), mask[keep].to(dev), names[keep]
@@ -380,6 +386,7 @@ class Trainer:
             logger.info("%d-iteration cycles run %s%s", self.cfg.cycle_length,
                         "as replayed CUDA graphs" if self.cycle_dispatch == "graph" else "eagerly",
                         "" if not isinstance(self.mesh, DataMesh) else f" ({self.mesh.world_size} ranks, "
+                        f"{self.mesh.data_size} x {self.mesh.space} dp x sp, "
                         f"{'all-reduces captured' if self.mesh.capturable else 'gloo cannot be captured'})")
         self._pending_logs = []
         self._last_fetch = (start, None)
@@ -549,7 +556,7 @@ class Trainer:
         # the ranks of a host share its loaders' streams: one writes them
         host = (self.mesh.host_index, self.mesh.hosts)
         if action == "save":
-            if self.mesh.local_index == 0:
+            if self.mesh.local_index == 0 and self.mesh.space_index == 0:
                 ckpt_lib.save_data_state(stateful, self.cfg.checkpoint_dir, step, *host)
         else:
             ckpt_lib.maybe_restore_data_state(stateful, self.cfg.checkpoint_dir, step, *host)

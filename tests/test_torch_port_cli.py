@@ -1,8 +1,9 @@
 """The port's CLI flags and tools of this slice, on the CPU: the train CLI's
-``--cycle-length``, ``--debug``, ``--profiler-*`` and ``--dp-devices``
-usage errors against the JAX CLI's parser, the finite check,
-``memory_report --tiny`` and ``correct_scans --sharded``. Tiny sizes: the
-fit tests' patients and override file (16^3 patches, narrow networks)."""
+``--cycle-length``, ``--debug``, ``--profiler-*``, ``--dp-devices`` and
+``--sp-devices`` against the JAX CLI's parser, their usage errors, the
+finite check, ``memory_report --tiny``, ``correct_scans --sharded`` and
+``train --sp-devices 2`` against the one-rank run. Tiny sizes: the fit
+tests' patients and override file (16^3 patches, narrow networks)."""
 
 import json
 import logging
@@ -22,6 +23,8 @@ from contrast_gan_3d_tpu_torch.utils.debug import check_finite
 from contrast_gan_3d_tpu_torch.utils import memory as memory_lib
 from contrast_gan_3d_tpu_torch.utils.io_utils import read_image
 from tests.test_torch_port_fit import OVERRIDE, fold  # noqa: F401  (a fixture)
+from tests.test_torch_port_multihost import OVERRIDE as MESH_OVERRIDE
+from tests.test_torch_port_multihost import _patients
 from tests.test_torch_port_serving_files import _port_checkpoint, cohort  # noqa: F401  (a fixture)
 
 
@@ -36,20 +39,39 @@ def _args(tmp_path, fold, *extra):
 @pytest.mark.parametrize("flags", [
     ["--cycle-length", "2"], ["--debug"], ["--profiler-dir", "P", "--profiler-steps", "3"],
     ["--profiler-dir", "P", "--profiler-schedule", "skip_first=1,active=2"], ["--dp-devices", "2"],
-    ["--multihost"],
+    ["--multihost"], ["--dp-devices", "2", "--sp-devices", "2"],
 ])
 def test_train_flags_parse_as_the_jax_cli_parses_them(tmp_path, flags):
     base = ["--cval-splits", "s.pkl", "--checkpoint-root", "r"]
     got, want = vars(train_cli.parse_args(base + flags)), vars(jax_train_cli.parse_args(base + flags))
     for k in ("cycle_length", "debug", "profiler_dir", "profiler_steps", "profiler_schedule", "dp_devices",
-              "multihost"):
+              "sp_devices", "multihost"):
         assert got[k] == want[k], k
 
 
-@pytest.mark.parametrize("bad", [["--dp-devices", "-1"], ["--dp-devices", "0", "--device", "cpu"]])
+@pytest.mark.parametrize("bad", [["--dp-devices", "-1"], ["--dp-devices", "0", "--device", "cpu"],
+                                 ["--sp-devices", "0"]])
 def test_train_dp_devices_usage_errors(bad):
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--cval-splits", "s.pkl", "--checkpoint-root", "r", *bad])
+
+
+@pytest.mark.parametrize("flags,visible", [(["--dp-devices", "0", "--sp-devices", "2"], 1),
+                                           (["--dp-devices", "2", "--sp-devices", "2"], 2),
+                                           (["--sp-devices", "2"], 1)])
+def test_train_refuses_more_ranks_than_cards(tmp_path, monkeypatch, flags, visible):
+    """Without a launcher on cards, ``D x S`` ranks must be at least S and
+    at most the visible cards: the command stops with a usage error and
+    starts no rank (``--dp-devices 0`` with fewer cards than S would start
+    none and train nothing)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    spawned = []
+    monkeypatch.setattr(train_cli, "spawn_ranks", lambda *a, **k: spawned.append(a))
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(SystemExit, match="ranks"):
+        train_cli.main(_args(tmp_path, "unused", *flags, "--device", "cuda"))
+    assert not spawned
 
 
 def test_cycle_length_reaches_the_trainer(fold, tmp_path):  # noqa: F811
@@ -141,3 +163,38 @@ def test_correct_scans_sharded_equals_unsharded(cohort, tmp_path):  # noqa: F811
             diff = np.abs(read_image(a)[0].astype(np.int32) - read_image(b)[0].astype(np.int32))
             assert diff.max() <= 1, (a, diff.max())
     assert aligned
+
+
+def test_train_sp_devices_logs_the_one_rank_losses(tmp_path, monkeypatch):
+    """``--sp-devices 2`` on the CPU: the command starts two gloo ranks, each
+    training on its X-slab of the batches the one-rank run loads (the
+    direct layout in both runs; one intra-op thread each). Every logged
+    train and validation loss is within JAX's dp x sp metric tolerance
+    (``tests/test_parallel.py``: rtol 2e-4, atol 1e-5) of the one-rank
+    run's, and rank 0 writes the checkpoint of the replicated weights."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    fold = _patients(tmp_path / "patients")
+    conf, splits = tmp_path / "tiny.py", tmp_path / "splits.pkl"
+    conf.write_text(MESH_OVERRIDE.replace('logger="file")', 'logger="file", generator_layout="direct")'))
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    args = lambda run_id: ["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root",
+                           str(tmp_path / "runs"), "--run-id", run_id, "--device", "cpu", "--iterations", "4"]
+    one = train_cli.main(args("one"))
+    assert one.runs[0].trainer.state.generator.layout == "direct"
+    assert train_cli.main(args("sp") + ["--sp-devices", "2"]) is None
+    logged = {run: [json.loads(line) for line in (tmp_path / "runs" / run / "metrics" / "scalars.jsonl")
+                    .read_text().splitlines()] for run in ("one", "sp")}
+    assert [(r["stage"], r["iteration"]) for r in logged["sp"]] == [(r["stage"], r["iteration"]) for r in
+                                                                     logged["one"]]
+    assert {r["stage"] for r in logged["one"]} == {"train", "validation"}
+    compared = set()
+    for got, want in zip(logged["sp"], logged["one"]):
+        assert set(got) == set(want)
+        losses = {k for k in want if k in ("D", "G", "G-full", "sim", "HU")}
+        compared |= losses
+        for k in losses:
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=f"{want['stage']} "
+                                                                                       f"{want['iteration']} {k}")
+    assert compared == {"D", "G", "G-full", "sim", "HU"}
+    assert sorted(p.name for p in (tmp_path / "runs" / "sp").glob("*.pt")) == \
+        sorted(p.name for p in (tmp_path / "runs" / "one").glob("*.pt"))

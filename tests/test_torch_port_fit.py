@@ -554,16 +554,22 @@ def test_builder_raises_for_what_is_not_ported(change):
     until data parallelism was ported: it now builds (the train CLI starts
     the ranks). ``remat=True``, instance norm and generator dropout raised
     until they were ported: each now builds, and its networks take a
-    train step. ``sp_devices`` still raises, naming ROADMAP A10, and so
-    do the wandb and TensorBoard loggers."""
+    train step. ``sp_devices`` raised until spatial partitioning was
+    ported: basic_3d now builds with the direct generator it runs, and the
+    packed layout and the 2D family raise, naming ROADMAP A10a-packed and
+    A10a-2d. The wandb and TensorBoard loggers still raise."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
     if change == dict(dp_devices=1):
         assert builder.build(dataclasses.replace(cfg, **change), device="cpu").config.dp_devices == 1
         return
     if change == dict(sp_devices=2):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10"):
-            builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        built = builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        assert built.generator.layout == "direct" and built.config.sp_devices == 2
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10a-packed"):
+            builder.build(dataclasses.replace(cfg, generator_layout="packed", **change), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10a-2d"):
+            builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
         return
     if change == dict(generator_layout="packed"):
         assert builder.build(dataclasses.replace(cfg, **change), device="cpu").generator.layout == "packed"
