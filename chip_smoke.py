@@ -303,7 +303,11 @@ failure raises and exits non-zero):
     within 0.01 HU of the unsharded corrector, timed beside it;
     ``correct_scans --sharded`` (int16 within 1 HU of the plain command)
     and ``serve --dp-devices 1`` (within 0.01 HU of ``serve``'s reply);
-39. the memory report (``--only memory``): ``memory_report`` on the card.
+39. the memory report (``--only memory``): ``memory_report`` on the card,
+    JAX's programs but the two mesh ones (``MEMORY_PROGRAMS``): each that
+    fits has its peak; ``--only memory_mesh`` (outside the whole run) runs
+    the 48+48 GP step on one rank and over the (1, 2) dp x sp and (2, 1)
+    dp meshes of two gloo ranks on the card, each rank's own peak.
 
 40. labels and folds (``--only dataset``): ``create_dataset`` on nine
     399x399x320 patients (3 per label, an aortic-root lumen of 220, 400 or
@@ -359,7 +363,13 @@ failure raises and exits non-zero):
     ones within twice the one-rank bf16 run's distance), each leaf's
     gradients equal on both ranks; per rank the B3, B1 and dx launches
     (2 B3, 3 B1 of which 1 dx per combined step), the step's own peak
-    memory and its time against the one-rank step's.
+    memory and its time against the one-rank step's. Then the packed
+    layout (the default under sp: its stages exchange halos in block
+    rows): a bf16 weight-clip and a bf16 gradient-penalty ``combined_step``
+    on the two ranks against one rank's packed steps at the same bf16
+    gates (the three-way rule against the one-rank f32 direct step of the
+    same seed), no B1, B3 or dx launch, and each rank's own peak below one
+    rank's.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -3766,6 +3776,9 @@ DP_CYCLES = 3  # eager, capture + replay, replay
 DP_CLI_ITERATIONS = 10  # two 5-iteration cycles: the first eager, the second captured and replayed
 SHARD_VOLUME, SHARD_OVERLAP, SHARD_TOL_HU = (512, 512, 128), 0.25, 0.01
 SHARD_FILES = 2
+# phase 39's memory_report programs; MEMORY_MESH_PROGRAMS: ``--only memory_mesh``
+MEMORY_PROGRAMS = tuple(p for p in memory_report.PROGRAMS if p not in memory_report.MESHES)
+MEMORY_MESH_PROGRAMS = ("gp96", "gp96_sp2", "gp96_dp2")
 
 
 def init_phase():
@@ -4188,18 +4201,33 @@ def sharded_phase(tmp: Path):
     return launches, out
 
 
-def memory_phase(tmp: Path):
-    """Phase 39 (``--only memory``): ``memory_report`` on the card (the
-    packed corrector at 512x512x400, ``combined_step`` WC and GP at 6+3+3,
-    the 48+48 step), its peaks printed; then ``train --profiler-dir
-    --profiler-steps 2`` on basic_3d over the fit phase's patients (3
-    iterations, cycles of 1): a Chrome trace, the live-block table and the
-    heap profile of the traced window, whose recorded history must hold the
-    window's allocations."""
-    rows = memory_report.main(["--out", str(tmp / "memory")])
+def memory_report_phase(tmp: Path, programs=memory_report.PROGRAMS) -> list:
+    """``memory_report --programs`` on the card: every program that fits
+    has its peak (a mesh program, each rank's own); a mesh pair the card
+    cannot hold together is reported, not raised."""
+    rows = memory_report.main(["--out", str(tmp / "memory"), "--programs", ",".join(programs)])
     for r in rows:
-        if r["fits"] and not r["peak_bytes"]:
-            raise AssertionError(f"memory: no peak measured for {r['name']}")
+        for part in r.get("ranks", [r]) if r["fits"] else ():
+            if not part["peak_bytes"]:
+                raise AssertionError(f"memory: no peak measured for {r['program']}")
+    own = {r["program"]: [round((p["peak_bytes"] - p["baseline_bytes"]) / 2**30, 3) for p in r.get("ranks", [r])]
+           if r["fits"] else r["error"] for r in rows}
+    print(f"memory report, own peak GiB by program (mesh programs per rank): {json.dumps(own)}", flush=True)
+    return [{k: v for k, v in r.items() if k != "live"} for r in rows]
+
+
+def memory_phase(tmp: Path, programs=MEMORY_PROGRAMS):
+    """Phase 39 (``--only memory``): ``memory_report`` on the card
+    (``programs``: its seven, JAX's: the packed corrector at 512x512x400,
+    ``combined_step`` WC and GP at 6+3+3, the 48+48 WC step, the replayed
+    5-iteration cycle, and the 48+48 GP step over a (1, 2) dp x sp and a
+    (2, 1) dp mesh of two gloo ranks on the card; ``--only memory_mesh``
+    runs the mesh programs beside the one-rank GP step alone), its peaks
+    printed; then ``train --profiler-dir --profiler-steps 2`` on basic_3d
+    over the fit phase's patients (3 iterations, cycles of 1): a Chrome
+    trace, the live-block table and the heap profile of the traced window,
+    whose recorded history must hold the window's allocations."""
+    rows = memory_report_phase(tmp, programs)
     splits, _ = fit_patients(tmp)
     conf, prof = tmp / "fit_profiled.py", tmp / "profile"
     conf.write_text("from dataclasses import replace\n\n\ndef config(base):\n"
@@ -4225,7 +4253,7 @@ def memory_phase(tmp: Path):
     profiler = dict(wall_s=wall, heap_profile=heaps[0].name, heap_bytes=heaps[0].stat().st_size, events=events,
                     allocs=allocs, segments=len(snapshot.get("segments", ())), table=tables[0].name)
     print(f"memory: train --profiler-dir, 2 traced iterations: {json.dumps(profiler)}", flush=True)
-    return dict(report=[{k: v for k, v in r.items() if k != "live"} for r in rows], profiler=profiler)
+    return dict(report=rows, profiler=profiler)
 
 
 def slice_12_phases():
@@ -4940,7 +4968,13 @@ def slice_14_phases(rng):
 SP_SPACE = 2
 SP_SEED = 15
 # (label, mode, dtype) of the compared combined steps
-SP_STEPS = (("f32 wc", "wc", torch.float32), ("f32 gp", "gp", torch.float32), ("bf16 wc", "wc", torch.bfloat16))
+# (label, mode, dtype, generator layout): the direct steps run B3 -> B1
+# and dx; the packed ones (the default under sp) no block conv. The bf16
+# three-way rule takes the one-rank f32 direct step of the mode as its
+# reference
+SP_STEPS = (("f32 wc", "wc", torch.float32, "direct"), ("f32 gp", "gp", torch.float32, "direct"),
+            ("bf16 wc", "wc", torch.bfloat16, "direct"), ("bf16 wc packed", "wc", torch.bfloat16, "packed"),
+            ("bf16 gp packed", "gp", torch.bfloat16, "packed"))
 # per rank and combined step: the stem's and the projection's B3 -> B1,
 # and the projection's dx (the stem's input is data)
 SP_PER_STEP = {"s2d_conv3d_block": 2, "block_conv3x3x3": 3, "block_conv3x3x3_backward": 1}
@@ -4972,15 +5006,15 @@ def sp_runs(patches, device, mesh=None) -> dict:
     called three times (on one rank: eager, captured, replayed; the third
     is timed). ``totals``: every launch, by dtype."""
     out = {}
-    totals = {name: dict.fromkeys(read_counts(), 0) for name in DTYPE_NAME.values()}
+    totals = {name: dict.fromkeys(read_counts(), 0) for name in (*DTYPE_NAME.values(), "packed")}
 
     def add(name, start):
         for k, v in _count_delta(start).items():
             totals[name][k] += v
 
-    for label, mode, dtype in SP_STEPS:
+    for label, mode, dtype, layout in SP_STEPS:
         start = read_counts()
-        trainer = make_trainer(mode, seed=SP_SEED, dtype=dtype, gen_kw=dict(layout="direct"), device=device,
+        trainer = make_trainer(mode, seed=SP_SEED, dtype=dtype, gen_kw=dict(layout=layout), device=device,
                                mesh=mesh)
         batch = trainer._assemble(patches)[:3]
         torch.cuda.synchronize()
@@ -4996,7 +5030,7 @@ def sp_runs(patches, device, mesh=None) -> dict:
         out[label] = res
         del trainer, batch
         torch.cuda.empty_cache()
-        add(DTYPE_NAME[dtype], start)
+        add(DTYPE_NAME[dtype] if layout == "direct" else "packed", start)
     start = read_counts()
     trainer = make_trainer("wc", seed=SP_SEED + 1, dtype=torch.bfloat16, gen_kw=dict(layout="direct"),
                            device=device, mesh=mesh)
@@ -5046,7 +5080,7 @@ def sp_phase(tmp: Path):
     one = sp_runs({k: {n: a.cuda() for n, a in v.items()} for k, v in patches.items()}, "cuda")
     out = {"spawn_wall_s": wall, "ranks": SP_SPACE}
     nets = ("generator", "critic")
-    for label, mode, dtype in SP_STEPS:
+    for label, mode, dtype, layout in SP_STEPS:
         want = one[label]
         for n in nets:
             a, b = (rank[label]["grads"][n] for rank in ranks)
@@ -5056,29 +5090,34 @@ def sp_phase(tmp: Path):
         rows = []
         for r, rank in enumerate(ranks):
             got = rank[label]
-            if got["counts"] != {**SP_PER_STEP, "block_conv3x3x3_v2": 0}:
+            if layout == "packed":
+                no_block_conv(got["counts"], f"sp rank {r} {label}")
+            elif got["counts"] != {**SP_PER_STEP, "block_conv3x3x3_v2": 0}:
                 raise AssertionError(f"sp {label} rank {r}: launches {got['counts']}, predicted {SP_PER_STEP}")
             rel = metrics_close(got["metrics"], want["metrics"], f"sp rank {r} {label}", dtype)
             if dtype == torch.float32:
                 grad = {n: grads_close(got["grads"][n], want["grads"][n], f"sp rank {r} {label} {n}") for n in nets}
             else:
-                grad = {n: bf16_three_way(got["grads"][n], want["grads"][n], one["f32 wc"]["grads"][n],
+                grad = {n: bf16_three_way(got["grads"][n], want["grads"][n], one[f"f32 {mode}"]["grads"][n],
                                           f"sp rank {r} {label} {n}")[3] for n in nets}
             close = [params_close(g, w, f"sp rank {r} {label} {n}", dtype, (got["grads"][n], want["grads"][n]))
                      for g, w, n in zip(got["states"], want["states"], nets)]
+            ratio = got["own_peak_gib"] / want["own_peak_gib"]
+            if not ratio < 1.0:
+                raise AssertionError(f"sp rank {r} {label}: own peak {got['own_peak_gib']:.3f} GiB, one rank's "
+                                     f"{want['own_peak_gib']:.3f}: the slab holds no less than the whole")
             rows.append(dict(metric_rel=rel, grad=grad, generator=close[0], critic=close[1],
                              launches=got["counts"], own_peak_gib=got["own_peak_gib"], seconds=got["seconds"],
-                             peak_ratio=got["own_peak_gib"] / want["own_peak_gib"],
-                             time_ratio=got["seconds"] / want["seconds"]))
+                             peak_ratio=ratio, time_ratio=got["seconds"] / want["seconds"]))
         out[label] = dict(one_rank=dict(own_peak_gib=want["own_peak_gib"], seconds=want["seconds"],
                                         launches=want["counts"]), ranks=rows)
         print(f"sp {label} combined_step, 2 gloo ranks on one card: per rank launches "
               f"{[r['launches'] for r in rows]}; own peak {[round(r['own_peak_gib'], 3) for r in rows]} GiB "
               f"against {want['own_peak_gib']:.3f} GiB on one rank ({[round(r['peak_ratio'], 3) for r in rows]}x); "
               f"step {[round(r['seconds'], 4) for r in rows]} s against {want['seconds']:.4f} s "
-              f"({[round(r['time_ratio'], 3) for r in rows]}x); metrics within {max(r['metric_rel'] for r in rows):.2e}; "
-              f"gradients {[r['grad'] for r in rows]}; parameters {[(r['generator'], r['critic']) for r in rows]}",
-              flush=True)
+              f"({[round(r['time_ratio'], 3) for r in rows]}x); metrics within "
+              f"{max(r['metric_rel'] for r in rows):.2e}; gradients {[r['grad'] for r in rows]}; parameters "
+              f"{[(r['generator'], r['critic']) for r in rows]}", flush=True)
     want = one["bf16 cycle"]
     cycle_rows = []
     # a combined step, then four critic steps' generator forwards
@@ -5102,6 +5141,7 @@ def sp_phase(tmp: Path):
           flush=True)
     launches = {name: {k: sum(rank["totals"][name][k] for rank in ranks) for k in counts}
                 for name, counts in ranks[0]["totals"].items()}
+    no_block_conv(launches["packed"], "sp packed steps, both ranks")
     print(f"sp: launches by dtype, both ranks {json.dumps(launches)}; {json.dumps(out)}", flush=True)
     return launches, out
 
@@ -5131,6 +5171,8 @@ ONLY = {
     "dp": dp_phases,
     "sharded": lambda: sharded_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))),
     "memory": lambda: memory_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_mem_"))),
+    "memory_mesh": lambda: memory_report_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_mem_")),
+                                               MEMORY_MESH_PROGRAMS),
     "dataset": lambda: dataset_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))),
     "recall": lambda: recall_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_recall_"))),
     "overlap": lambda: overlap_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_overlap_"))),
@@ -5362,8 +5404,10 @@ def main(argv=None) -> int:
                    "remat": s14["remat"][0][key] if dtype == torch.bfloat16 else 0,
                    "jax_ckpt": s14["jax_ckpt"][0][key] if dtype == torch.float32 else 0,
                    # spatial partitioning: both gloo ranks' launches (f32 WC
-                   # and GP steps; a bf16 WC step and cycle)
-                   "sp": sp_launches[DTYPE_NAME[dtype]][key]}
+                   # and GP steps; a bf16 WC step and cycle), direct; the
+                   # packed bf16 WC and GP steps launch none (asserted)
+                   "sp": sp_launches[DTYPE_NAME[dtype]][key],
+                   "sp_packed": sp_launches["packed"][key] if dtype == torch.bfloat16 else 0}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({

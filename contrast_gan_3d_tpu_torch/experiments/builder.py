@@ -26,11 +26,13 @@ What the JAX builder chooses automatically, the port resolves so:
   turned it on. Remat changes memory, not results;
 - ``dp_devices`` and ``sp_devices`` are the train CLI's: it starts the
   ranks and builds the (dp x sp) mesh (``parallel/mesh.py``), and each
-  rank builds the same models here. Under ``sp_devices`` the generator
-  runs the direct layout, whose convs exchange halos between the slabs
-  (``parallel/spatial.py``): ``generator_layout="auto"`` resolves to
-  "direct" there (logged), an explicit "packed" and the 2D family raise,
-  naming ROADMAP A10a-packed and A10a-2d;
+  rank builds the same models here. Under ``sp_devices`` either layout
+  exchanges conv halos between the slabs (``parallel/spatial.py``; the
+  packed layout in block rows), and ``generator_layout="auto"`` resolves
+  as without it, but where a slab of the packed layout would not hold
+  whole blocks at every stage (``models/generator.packed_slab_note``):
+  "auto" is then "direct" (logged) and an explicit "packed" raises,
+  naming the slabs' rows. The 2D family raises, naming ROADMAP A10a-2d;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
   ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
   JAX builder falls back to the device augmentation where its native
@@ -39,7 +41,10 @@ What the JAX builder chooses automatically, the port resolves so:
   ``Augment2DConfig`` (rotation and mirror); the JAX package's 2D file
   logger differs from its 3D one only in its image files, unported here;
 - ``logger="file"`` -> ``scalars.jsonl`` under ``<checkpoint_dir>/metrics``,
-  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``).
+  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``);
+  ``logger="wandb"`` where wandb cannot be imported -> ``ConsoleLogger``
+  (logged), as the JAX builder falls back; with wandb installed it raises
+  (its logger is not ported), as ``"tensorboard"`` does.
 
 The networks' initial weights are drawn on the CPU from the config's seed
 (torch initialises a module when it is built, where the JAX package draws
@@ -65,13 +70,14 @@ from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
 from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
 from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
-from contrast_gan_3d_tpu_torch.models.generator import SP_PACKED_NOTE, ResnetGenerator
+from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator, packed_slab_note
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
 from contrast_gan_3d_tpu_torch.trainer.logger import (
     ConsoleLogger,
     FileLogger,
     LoggerInterface,
     NoopLogger,
+    has_wandb,
 )
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig
@@ -129,26 +135,32 @@ def resolve_layout(cfg: ExperimentConfig) -> str:
     "packed" where the packed layout's guards and the patch sizes allow it
     (dims a multiple of the block for the stage strides, at least 8 for the
     packed reflect pad's (L+1)-block slabs), else "direct". Under
-    ``sp_devices`` "auto" is "direct" and "packed" raises (ROADMAP
-    A10a-packed)."""
+    ``sp_devices`` the same guards hold for each X-slab of the patches:
+    where one breaks them, "auto" is "direct" (logged) and "packed"
+    raises."""
     layout = cfg.generator_args.get("layout", cfg.generator_layout)
-    if cfg.sp_devices and layout == "packed":
-        raise NotImplementedError(f"{cfg.name}: {SP_PACKED_NOTE}")
-    if cfg.sp_devices and layout == "auto":
-        logger.info("%s: generator_layout auto -> direct under sp_devices=%d (spatial partitioning runs the "
-                    "direct layout)", cfg.name, cfg.sp_devices)
-        return "direct"
-    if layout != "auto":
-        return layout
     n = cfg.generator_args.get("n_updownsample_blocks", 2)
-    block = max(4, 2**n)
-    eligible = (
-        not cfg.is_2d
-        and cfg.generator_args.get("norm", "batch") == "batch"
-        and n >= 1
-        and all(p % block == 0 and p >= 8 for p in (*cfg.train_patch_size, *cfg.val_patch_size))
-    )
-    return "packed" if eligible else "direct"
+    if layout == "auto":
+        block = max(4, 2**n)
+        eligible = (
+            not cfg.is_2d
+            and cfg.generator_args.get("norm", "batch") == "batch"
+            and n >= 1
+            and all(p % block == 0 and p >= 8 for p in (*cfg.train_patch_size, *cfg.val_patch_size))
+        )
+        resolved = "packed" if eligible else "direct"
+    else:
+        resolved = layout
+    space = cfg.sp_devices or 1
+    if resolved == "packed" and space > 1 and not cfg.is_2d:
+        notes = [packed_slab_note(p[0], space, n) for p in (cfg.train_patch_size, cfg.val_patch_size)]
+        note = next((m for m in notes if m is not None), None)
+        if note is not None and layout == "packed":
+            raise ValueError(f"{cfg.name}: sp_devices={space}: {note}")
+        if note is not None:
+            logger.info("%s: generator_layout auto -> direct under sp_devices=%d: %s", cfg.name, space, note)
+            return "direct"
+    return resolved
 
 
 REMAT_VOXELS = 30_000_000  # the JAX builder's remat threshold, per iteration
@@ -172,14 +184,14 @@ def resolve_remat(cfg: ExperimentConfig) -> bool:
 
 def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
-    if cfg.logger in ("wandb", "tensorboard"):
+    if cfg.logger == "tensorboard" or (cfg.logger == "wandb" and has_wandb()):
         raise NotImplementedError(f"{cfg.name}: the {cfg.logger} logger {ROADMAP_NOTE}")
     if cfg.sp_devices and cfg.is_2d:
         raise NotImplementedError(f"{cfg.name}: {SP_2D_NOTE}")
     if cfg.augment_backend not in ("host", "device"):
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
-    if cfg.logger not in ("file", "console", "none"):
-        raise ValueError(f"unknown logger {cfg.logger!r}: expected file | console | none")
+    if cfg.logger not in ("file", "console", "none", "wandb"):
+        raise ValueError(f"unknown logger {cfg.logger!r}: expected file | console | none | wandb")
 
 
 def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="cuda") -> BuiltExperiment:
@@ -243,6 +255,9 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
         out_dir = Path(checkpoint_dir) / "metrics" if checkpoint_dir else paths.LOGS_DIR / cfg.name / "metrics"
         logger_interface: LoggerInterface = FileLogger(out_dir)
     elif cfg.logger == "console":
+        logger_interface = ConsoleLogger()
+    elif cfg.logger == "wandb":  # wandb cannot be imported (_check_portable)
+        logger.info("%s: logger wandb -> console (wandb is not installed)", cfg.name)
         logger_interface = ConsoleLogger()
     else:
         logger_interface = NoopLogger()

@@ -44,12 +44,17 @@ does.
 block. It trades time for memory; the results are the same.
 
 Under spatial partitioning (``mesh.space`` S > 1, set by
-``models/norm.set_mesh``; 3D, direct layout) x is this rank's X-slab of
-the patches, ``(B, 1, X/S, Y, Z)``, and so is the output: every block
-exchanges its conv halos with the other slabs (``models/blocks.py``), and
-the stem and the projection run B3 -> B1 on each extended slab, whatever
-its rows, where Y and Z divide 4. The packed layout and the 2D family raise there (ROADMAP
-A10a-packed, A10a-2d).
+``models/norm.set_mesh``; 3D) x is this rank's X-slab of the patches,
+``(B, 1, X/S, Y, Z)``, and so is the output. In the direct layout every
+block exchanges its conv halos with the other slabs (``models/
+blocks.py``), and the stem and the projection run B3 -> B1 on each
+extended slab, whatever its rows, where Y and Z divide 4. In the packed
+layout each slab must hold whole blocks at every stage
+(:func:`packed_slab_note`): the stages exchange halos in block rows
+(``ops/packed.packed_conv3d_padded`` / ``packed_tconv3d`` under the
+mesh), reflect only at the global ends, and normalise over the global
+count; the ResNet blocks take their direct slabs. The 2D family raises there (ROADMAP
+A10a-2d).
 """
 
 from typing import Optional
@@ -59,25 +64,46 @@ from torch import nn
 
 from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE, ConvBlock, ResNetBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
-from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
+from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d_padded, packed_tconv3d
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
+from contrast_gan_3d_tpu_torch.parallel.spatial import bounds
 
 LAYOUTS = ("direct", "packed")
-SP_PACKED_NOTE = ("spatial partitioning of the packed layout is not ported yet (use generator_layout='direct'); "
-                  "see ROADMAP.md, A10a-packed")
 
 
-def _packed_stage(block: ConvBlock, xp: torch.Tensor, f_view: int, conv_fn) -> torch.Tensor:
+def _packed_stage(block: ConvBlock, xp: torch.Tensor, f_view: int, conv_fn, rows: Optional[int] = None
+                  ) -> torch.Tensor:
     """``block``'s conv run by the block-space ``conv_fn(xp, kernel,
     bias)`` on its f32 parameters, then its BatchNorm over an (f_view, C)
     channel view of the packed tensor (the direct layout's statistics and
-    count), then its activation."""
+    count), then its activation. ``rows``: under spatial partitioning, the
+    output's global extent in block rows (dim 1), from which the norm
+    counts (its view keeps the block rows as its slab dim)."""
     y = conv_fn(xp, block.flax_kernel(), block.conv.bias)
     if block.norm is not None:
         c = y.shape[-1] // f_view
-        y = block.norm(y.reshape(-1, c)).reshape(y.shape)
+        if rows is None:
+            y = block.norm(y.reshape(-1, c)).reshape(y.shape)
+        else:  # (B, c, X-blocks, rest): channels at dim 1, the slab at dim 2
+            v = y.reshape(y.shape[0], y.shape[1], -1, c).permute(0, 3, 1, 2)
+            y = block.norm(v, rows).permute(0, 2, 3, 1).reshape(y.shape)
     return block.activate(y)
+
+
+def packed_slab_note(rows: int, space: int, n_updownsample_blocks: int) -> Optional[str]:
+    """Why the packed layout cannot split a first patch dim of ``rows``
+    over ``space`` ranks (None: it can): every slab must hold whole blocks
+    at every stage, a multiple of ``max(4, 2**n)`` voxel rows, and at
+    least 8 of them for the reflect pad's (L+1)-block boundary slab."""
+    if space == 1:
+        return None
+    block = max(4, 2**n_updownsample_blocks)
+    slabs = sorted({hi - lo for lo, hi in (bounds(rows, space, q) for q in range(space))})
+    if all(r % block == 0 and r >= 8 for r in slabs):
+        return None
+    return (f"the packed layout splits a first patch dim of {rows} over {space} spatial ranks in slabs of {slabs} "
+            f"rows; each must be a multiple of {block} and at least 8")
 
 
 class ResnetGenerator(nn.Module):
@@ -167,8 +193,8 @@ class ResnetGenerator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # under spatial partitioning: the patches' global extent along X
         rows = x.shape[2] * self.mesh.space if self.mesh.space > 1 else None
-        if rows is not None and (self.layout == "packed" or self.ndim != 3):
-            raise NotImplementedError(SP_PACKED_NOTE if self.ndim == 3 else SP_2D_NOTE)
+        if rows is not None and self.ndim != 3:
+            raise NotImplementedError(SP_2D_NOTE)
         if self.layout == "packed":
             return self.forward_packed(x, self.packed_input, self.packed_output)
         blocks = (self.first, *(getattr(self, f"down_{i}") for i in range(self.n_updownsample_blocks)),
@@ -185,34 +211,40 @@ class ResnetGenerator(nn.Module):
         ``packed_input``; the output is ``(B, 1, X, Y, Z)``, or f4-packed
         channels-last with ``packed_output``."""
         self.check_packed()
-        n, dt = self.n_updownsample_blocks, self.dtype
+        n, dt, space = self.n_updownsample_blocks, self.dtype, self.mesh.space
         if packed_input:
             dims = tuple(2 * d for d in x.shape[1:4])
             xp = x.to(dt)
         else:
             dims = tuple(x.shape[2:])
             xp = space_to_depth(x.permute(0, 2, 3, 4, 1).to(dt), 2)
+        # under spatial partitioning x is an X-slab of equal slabs
+        dims = (dims[0] * space, *dims[1:])
         block = max(4, 2**n)
         if any(d % block for d in dims):
             raise ValueError(f"spatial dims {dims} must divide {block}")
+        note = packed_slab_note(dims[0], space, n)
+        if note is not None:
+            raise ValueError(note)
+        mesh = self.mesh
+        # the norms' global block rows at each stage (None: the whole tensor)
+        rows = (lambda r: r) if space > 1 else (lambda r: None)
 
         # stem: reflect-padded 7^3, f2 -> f2
-        xp, o = reflect_pad_packed(xp, 2, 3)
-        sb = tuple(d // 2 for d in dims)
-        xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d(
-            v, k, b, f_in=2, f_out=2, stride=1, o=(o, o, o), out_blocks=sb))
+        xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d_padded(
+            v, k, b, f_in=2, f_out=2, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 2))
         # downsamples f2 -> f2; the last one unpacks (f_out=1) into the
         # bottleneck
         for i in range(n):
             f_out = 1 if i == n - 1 else 2
-            ob = tuple(d // 2 ** (i + 1) // f_out for d in dims)
             xp = self._run(_packed_stage, getattr(self, f"down_{i}"), xp, f_out**3,
-                           lambda v, k, b, ob=ob, fo=f_out: packed_conv3d(
-                               v, k, b, f_in=2, f_out=fo, stride=2, pad=1, out_blocks=ob))
+                           lambda v, k, b, fo=f_out: packed_conv3d_padded(
+                               v, k, b, f_in=2, f_out=fo, stride=2, pad=1, mesh=mesh),
+                           rows(dims[0] // 2 ** (i + 1) // f_out))
         # bottleneck: the direct ResNet blocks on a channels-last view
         x = xp.permute(0, 4, 1, 2, 3)
         for i in range(self.n_resnet_blocks):
-            x = self._run(getattr(self, f"resnet_{i}"), x)
+            x = self._run(getattr(self, f"resnet_{i}"), x, rows(dims[0] // 2**n))
         # upsamples: dense stride-1 convs whose s=2-packed output is the f2
         # layout of the full-resolution tensor (the JAX layout runs the
         # inner ones as direct transpose convs: the same products; a
@@ -221,14 +253,12 @@ class ResnetGenerator(nn.Module):
         x = x.permute(0, 2, 3, 4, 1)
         for i in range(n, 0, -1):
             xp = self._run(_packed_stage, getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
-                v, k, b, stride=2, convention=self.tconv_placement))
+                v, k, b, stride=2, convention=self.tconv_placement, mesh=mesh), rows(dims[0] // 2**i))
             if i > 1:
                 x = depth_to_space(xp, 2)
         # the f2 -> f4 projection
-        xp, o2 = reflect_pad_packed(xp, 2, 3)
-        ob = tuple(d // 4 for d in dims)
-        yp = self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d(
-            v, k, b, f_in=2, f_out=4, stride=1, o=(o2, o2, o2), out_blocks=ob))
+        yp = self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d_padded(
+            v, k, b, f_in=2, f_out=4, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 4))
         if packed_output:
             return yp
         return depth_to_space(yp, 4).permute(0, 4, 1, 2, 3)

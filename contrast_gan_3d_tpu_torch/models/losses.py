@@ -33,13 +33,15 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from contrast_gan_3d_tpu_torch.models.norm import stats_dtype
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 
 def _mean(x: torch.Tensor, mesh=LOCAL, rows: Optional[int] = None) -> torch.Tensor:
-    """``jnp.mean``: accumulated in f32, returned in x's dtype; over
-    ``mesh``'s global batch (``rows``: x is an X-slab of that extent)."""
-    return (mesh.all_sum(x.sum(dtype=torch.float32)) / mesh.numel(x, rows)).to(x.dtype)
+    """``jnp.mean``: accumulated in f32 (float64 in float64), returned in
+    x's dtype; over ``mesh``'s global batch (``rows``: x is an X-slab of
+    that extent)."""
+    return (mesh.all_sum(x.sum(dtype=stats_dtype(x))) / mesh.numel(x, rows)).to(x.dtype)
 
 
 def wasserstein_loss(fake: torch.Tensor, real: Optional[torch.Tensor] = None, mesh=LOCAL,
@@ -61,7 +63,7 @@ class StableStd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh=LOCAL):
         n = mesh.numel(x)
-        xf = x.float()
+        xf = x.to(stats_dtype(x))
         mean = mesh.all_sum(xf.sum()) / n
         var = mesh.all_sum((xf - mean).square().sum()) / (n - 1)
         std = torch.sqrt(var).to(x.dtype)
@@ -135,7 +137,7 @@ def gradient_penalty(
                          dtype=real.dtype)[mesh.global_slice(n)]
     interp = (eps * real + (1.0 - eps) * fake).requires_grad_(True)
     (grads,) = torch.autograd.grad(critic_fn(interp).sum(), interp, create_graph=True)
-    sq = mesh.space_sum(grads.reshape(n, -1).square().sum(-1, dtype=torch.float32)).to(grads.dtype)
+    sq = mesh.space_sum(grads.reshape(n, -1).square().sum(-1, dtype=stats_dtype(grads))).to(grads.dtype)
     grad_norms = torch.sqrt(sq + 1e-12)
     return lambda_ * _mean((grad_norms - 1.0).square(), mesh)
 

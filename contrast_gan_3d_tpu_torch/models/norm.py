@@ -10,7 +10,8 @@ NCHW), the per-sample ``LayerNorm`` of the layer-norm critic and the
   parity. ``momentum`` follows torch's convention: 0.1 here is flax's 0.9.
 - Normalization folds into one multiply-add, ``y = x * mult + add``, with
   ``mult = scale / sqrt(var + eps)`` and ``add = bias - mean * mult``, as in
-  the JAX module. The statistics accumulate in f32 whatever x's dtype; the
+  the JAX module. The statistics accumulate in f32 whatever x's dtype
+  (float64 in float64); the
   multiply-add runs in ``dtype`` (None: x's dtype), e.g. bf16, with
   ``mult`` and ``add`` cast to it.
 
@@ -52,6 +53,12 @@ from torch import nn
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 
 _recompute = threading.local()
+
+
+def stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype statistics and means accumulate in: f32, or x's where it
+    is wider (a float64 run, as the mesh-gradient bisect runs)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def recomputing() -> bool:
@@ -99,7 +106,8 @@ class BatchNorm(nn.Module):
                 n = x.numel() // x.shape[1] * self.mesh.world_size
             else:  # an X-slab of a global extent ``rows``
                 n = x.shape[0] * math.prod(x.shape[3:]) * rows * self.mesh.data_size
-            sums = torch.cat([x.sum(axes, dtype=torch.float32), x.square().sum(axes, dtype=torch.float32)])
+            acc = stats_dtype(x)
+            sums = torch.cat([x.sum(axes, dtype=acc), x.square().sum(axes, dtype=acc)])
             mean, mean2 = (self.mesh.all_sum(sums) / n).split(x.shape[1])
             var = torch.clamp(mean2 - mean.square(), min=0.0)
             if self.update_stats and not recomputing():
@@ -158,7 +166,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         axes = tuple(range(1, x.dim()))
-        xf = x.float()
+        xf = x.to(stats_dtype(x))
         if rows is None:
             mean = xf.mean(axes, keepdim=True)
             mean2 = xf.square().mean(axes, keepdim=True)
@@ -202,7 +210,7 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
         axes = tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        xf = x.float()
+        xf = x.to(stats_dtype(x))
         if rows is None:
             mean = xf.mean(axes, keepdim=True)
             mean2 = xf.square().mean(axes, keepdim=True)

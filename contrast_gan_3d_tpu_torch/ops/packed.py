@@ -22,6 +22,10 @@ conv runs as a dense VALID block-space conv:
   torch placement's one-voxel shift is one more block tap in the kernel.
 - ``packed_affine``, ``repack`` / ``unpack_repack``: per-channel
   multiply-add and block-factor changes on packed tensors.
+- ``packed_conv3d_padded`` and ``packed_tconv3d`` take a ``mesh``: under
+  spatial partitioning each rank holds an X-slab of block rows and the
+  convs exchange their halos in block rows (``parallel/spatial.py``),
+  the reflect pad rebuilt at the global ends only (``reflect_slab_ends``).
 
 Tensors are the JAX package's channels-last ``(B, X, Y, Z, f^3*C)`` with
 the ``(dx, dy, dz, c)`` d-major channel order; kernels ``(k, k, k, Ci,
@@ -38,6 +42,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import _tconv_axis_map_tensor, conv3d_cl, zero_pad_cl
+from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
+from contrast_gan_3d_tpu_torch.parallel.spatial import conv_window, halo_input
 
 
 def _packed_K(k: int, f_in: int, f_out: int, s: int, o: int) -> int:
@@ -144,14 +150,26 @@ def reflect_pad_packed(
             if a != axis and a in axes and a not in done:
                 view = view.narrow(1 + a, L, xp.shape[1 + a])
         n_blocks = xp.shape[dim]
-        head = view.narrow(dim, L, L + 1)
-        tail = view.narrow(dim, L + n_blocks - (L + 1), L + 1)
-        left = _roll_one(_block_flip(head, f, c, axis), f, c, axis).narrow(dim, 1, L)
-        right = _roll_one(_block_flip(tail, f, c, axis), f, c, axis, backward=True).narrow(dim, 0, L)
-        view.narrow(dim, 0, L).copy_(left)
-        view.narrow(dim, L + n_blocks, L).copy_(right)
+        view.narrow(dim, 0, L).copy_(reflect_blocks(view.narrow(dim, L, n_blocks), f, L, "left", axis))
+        view.narrow(dim, L + n_blocks, L).copy_(reflect_blocks(view.narrow(dim, L, n_blocks), f, L, "right", axis))
         done.add(axis)
     return out, o
+
+
+def reflect_blocks(xp: torch.Tensor, f: int, L: int, side: str, axis: int = 0) -> torch.Tensor:
+    """The ``L`` reflect-pad blocks on ``side`` ("left" or "right") of a
+    packed tensor along spatial ``axis`` (:func:`reflect_pad_packed`'s
+    pads of p = L*f - o voxels), from its (L+1)-block boundary slab on that
+    side alone: what the first or the last X-slab of a spatially
+    partitioned tensor pads with at the global end it holds."""
+    dim, c = 1 + axis, xp.shape[-1] // f**3
+    if xp.shape[dim] < L + 1:
+        raise ValueError(f"axis {axis}: {xp.shape[dim]} blocks < L+1={L + 1}")
+    if side == "left":
+        head = xp.narrow(dim, 0, L + 1)
+        return _roll_one(_block_flip(head, f, c, axis), f, c, axis).narrow(dim, 1, L)
+    tail = xp.narrow(dim, xp.shape[dim] - (L + 1), L + 1)
+    return _roll_one(_block_flip(tail, f, c, axis), f, c, axis, backward=True).narrow(dim, 0, L)
 
 
 def _add_tiled_bias(out: torch.Tensor, bias: Optional[torch.Tensor], f: int) -> torch.Tensor:
@@ -211,6 +229,7 @@ def packed_tconv3d(
     bias: Optional[torch.Tensor] = None,
     stride: int = 2,
     convention: str = "same",
+    mesh=LOCAL,
 ) -> torch.Tensor:
     """Stride-s transpose conv, unpacked input (B, X, Y, Z, Ci), packed
     f=s output (B, X, Y, Z, s^3*Co): ``ops/s2d_conv.d2s_tconv3d`` without
@@ -219,8 +238,22 @@ def packed_tconv3d(
     convention's window full[1 : sN+1] is folded into the kernel (one more
     block tap per axis, :func:`_tconv_phase_map_tensor`) where the JAX
     package shifts the output by one voxel in packed space: the same
-    products, without three passes over the output."""
-    return _packed_tconv(x, w, bias, stride, 1, convention)
+    products, without three passes over the output.
+
+    Under spatial partitioning (``mesh.space`` > 1) x is this rank's
+    X-slab (equal slabs) and so is the output, whose block rows are x's
+    rows: the forward conv reads Km block taps from ``K - 1`` rows before
+    each output row (Km - K more after it: the torch placement's shift is
+    one of them), the rows beyond the slab through
+    ``parallel/spatial.halo_input`` on dim 1, zeros beyond the global
+    ends."""
+    if mesh.space == 1:
+        return _packed_tconv(x, w, bias, stride, 1, convention)
+    n = x.shape[1] * mesh.space
+    K = (w.shape[0] - 1) // stride + 1
+    Km = K + (stride - 1 + int(convention == "torch")) // stride
+    ext, (o0, o1), _ = halo_input(x, mesh, n, n, lambda a, b: conv_window(a, b, Km, 1, K - 1), dim=1)
+    return _packed_tconv(ext, w, bias, stride, 1, convention, pad_x=False).narrow(1, 0, o1 - o0)
 
 
 def _tconv_phase_map_tensor(k: int, s: int, m: int, shift: int, dtype, device) -> torch.Tensor:
@@ -239,9 +272,11 @@ def _tconv_phase_map_tensor(k: int, s: int, m: int, shift: int, dtype, device) -
     return torch.einsum("tjd,jdx->tdx", sel, A[:, r, :])
 
 
-def _packed_tconv(x, w, bias, s: int, m: int, convention: str) -> torch.Tensor:
+def _packed_tconv(x, w, bias, s: int, m: int, convention: str, pad_x: bool = True) -> torch.Tensor:
     """The transpose conv as one stride-m conv of x padded by (K-1, shift)
-    whose output channels are the (m*s)^3 phases, (dx, dy, dz, co)."""
+    whose output channels are the (m*s)^3 phases, (dx, dy, dz, co).
+    ``pad_x`` False: x's first spatial dim is already extended (an X-slab
+    with its halo), so only Y and Z are padded."""
     if convention not in ("same", "torch"):
         raise ValueError(f"unknown convention {convention!r}")
     kx, ky, kz, ci, co = w.shape
@@ -253,7 +288,8 @@ def _packed_tconv(x, w, bias, s: int, m: int, convention: str) -> torch.Tensor:
     wp = torch.einsum("cwz,aubvzio->abciuvwo", Cz, wp)
     f = m * s
     wp = wp.reshape(Cx.shape[0], Cy.shape[0], Cz.shape[0], ci, f**3 * co).to(x.dtype)
-    out = conv3d_cl(zero_pad_cl(x, [(K - 1, shift)] * 3), wp, m)
+    pads = [(K - 1, shift)] * 3
+    out = conv3d_cl(zero_pad_cl(x, pads if pad_x else [(0, 0)] + pads[1:]), wp, m)
     return _add_tiled_bias(out, bias, f)
 
 
@@ -298,3 +334,69 @@ def packed_affine(xp: torch.Tensor, f: int, mult: torch.Tensor, add: torch.Tenso
     """Per-true-channel y = x*mult + add on a packed tensor (BatchNorm's
     inference collapse), the (C,) vectors tiled over the f^3 positions."""
     return xp * mult.to(xp.dtype).repeat(f**3) + add.to(xp.dtype).repeat(f**3)
+
+
+def packed_conv3d_padded(
+    xp: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    f_in: int,
+    f_out: int,
+    stride: int = 1,
+    pad: int = 0,
+    mode: str = "zeros",
+    mesh=LOCAL,
+) -> torch.Tensor:
+    """:func:`packed_conv3d` of ``xp`` padded by ``pad`` voxels per side
+    with zeros (``mode="reflect"``: reflected, :func:`reflect_pad_packed`),
+    whose output has ``d * f_in // (stride * f_out)`` blocks for ``d`` input
+    blocks along each axis: the packed generator's stages.
+
+    Under spatial partitioning (``mesh.space`` > 1) ``xp`` is this rank's
+    X-slab of block rows (dim 1; equal slabs) and so is the output. The
+    VALID block conv's window is K block taps at block stride ``stride *
+    f_out / f_in`` (the direct conv's window in block units): the rows it
+    reads from the other slabs come through ``parallel/spatial.halo_input``
+    on dim 1, and only the first and the last slab pad along X, a reflect
+    pad from their own (L+1)-block boundary slab (:func:`reflect_slab_ends`).
+    Y and Z pad as without a mesh. Differentiable, twice."""
+    out_blocks = tuple(d * f_in // (stride * f_out) for d in xp.shape[1:4])
+    if mesh.space == 1:
+        if mode == "zeros":
+            return packed_conv3d(xp, w, bias, f_in=f_in, f_out=f_out, stride=stride, pad=pad, out_blocks=out_blocks)
+        xp, o = reflect_pad_packed(xp, f_in, pad)
+        return packed_conv3d(xp, w, bias, f_in=f_in, f_out=f_out, stride=stride, o=(o, o, o), out_blocks=out_blocks)
+    n = xp.shape[1] * mesh.space
+    L = -(-pad // f_in)
+    o = L * f_in - pad
+    K, b_stride = _packed_K(w.shape[0], f_in, f_out, stride, o), stride * f_out // f_in
+    ext, (o0, o1), lo = halo_input(xp, mesh, n, n * f_in // (stride * f_out),
+                                   lambda a, b: conv_window(a, b, K, b_stride, L), dim=1)
+    if mode == "reflect":
+        ext, _ = reflect_pad_packed(reflect_slab_ends(ext, xp, f_in, L, lo, n), f_in, pad, axes=(1, 2))
+    elif L:
+        ext = zero_pad_cl(ext, [(0, 0), (L, L), (L, L)])
+    # a rank without output rows computes a phantom one and keeps none
+    y = packed_conv3d(ext, w, bias, f_in=f_in, f_out=f_out, stride=stride,
+                      out_blocks=(max(o1 - o0, 1), *out_blocks[1:]), o=(o, o, o))
+    return y.narrow(1, 0, o1 - o0)
+
+
+def reflect_slab_ends(ext: torch.Tensor, slab: torch.Tensor, f: int, L: int, lo: int, n: int) -> torch.Tensor:
+    """``ext``, the block rows ``[lo, lo + ext.shape[1])`` of a packed
+    tensor of ``n`` block rows that this rank's ``slab`` extends (zero
+    blocks outside ``[0, n)``), with those zero blocks replaced by the
+    reflect pad of ``L`` blocks (:func:`reflect_pad_packed` along X): the
+    first and the last slab build it from their own (L+1)-block boundary
+    slab; the others pad nothing."""
+    left, right = max(0, -lo), max(0, lo + ext.shape[1] - n)
+    if not (left or right):
+        return ext
+    if max(left, right) != L:
+        raise ValueError(f"a slab of {slab.shape[1]} block rows pads {left} / {right} blocks, not {L}")
+    parts = [reflect_blocks(slab, f, L, "left")] if left else []
+    parts.append(ext.narrow(1, left, ext.shape[1] - left - right))
+    if right:
+        parts.append(reflect_blocks(slab, f, L, "right"))
+    return torch.cat(parts, 1)

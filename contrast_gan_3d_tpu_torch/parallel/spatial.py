@@ -14,7 +14,9 @@ the layer's padding (``halo_extend``), and runs VALID along X on that
 extended slab (padded along Y and Z as on one device). Reflect padding
 therefore happens only at the global ends of X, on the first and the last
 slab; every interior boundary takes the neighbour's voxels, and a slab
-narrower than the halo takes rows from beyond its neighbour.
+narrower than the halo takes rows from beyond its neighbour. The packed
+layout's tensors are channels-last space-to-depth blocks, and there the
+rows are block rows along dim 1 (``ops/packed.packed_conv3d_slab``).
 
 The exchange is one ``all_reduce`` over the space group: each rank writes
 the rows the others asked of it into their slots of a zeroed buffer, so
@@ -225,18 +227,19 @@ def halo_extend(x: torch.Tensor, mesh, n: int, windows: Sequence[Tuple[int, int]
 
 
 def halo_input(x: torch.Tensor, mesh, n: int, n_out: int, window: Callable[[int, int], Tuple[int, int]],
-               mode: str = "zeros") -> Tuple[torch.Tensor, Tuple[int, int], int]:
+               mode: str = "zeros", dim: int = SLAB_DIM) -> Tuple[torch.Tensor, Tuple[int, int], int]:
     """For a layer whose output has the global extent ``n_out``: this
-    rank's output rows ``(o0, o1)``, ``x`` extended to the input rows
-    ``window(o0, o1)`` they read (:func:`halo_extend`), and that window's
-    first row. A rank with no output rows asks for one phantom row's
-    window (its caller keeps none of that row)."""
+    rank's output rows ``(o0, o1)``, ``x`` extended along ``dim`` to the
+    input rows ``window(o0, o1)`` they read (:func:`halo_extend`), and
+    that window's first row. A rank with no output rows asks for one
+    phantom row's window (its caller keeps none of that row). The rows
+    may be voxels or, in the packed layout, blocks (dim 1)."""
     windows = []
     for q in range(mesh.space):
         o0, o1 = bounds(n_out, mesh.space, q)
         windows.append(window(o0, max(o1, o0 + 1)))
     out = bounds(n_out, mesh.space, mesh.space_index)
-    return halo_extend(x, mesh, n, windows, mode), out, windows[mesh.space_index][0]
+    return halo_extend(x, mesh, n, windows, mode, dim), out, windows[mesh.space_index][0]
 
 
 def split_slab(x: torch.Tensor, mesh, dim: int = SLAB_DIM) -> torch.Tensor:

@@ -289,7 +289,8 @@ def parse_args(argv=None):
                         "ranks")
     p.add_argument("--sp-devices", type=int, default=None,
                    help="additionally spatially partition each patch's first dim over N ranks (dp x sp mesh: the "
-                        "convs exchange halos between the slabs; the direct generator layout)")
+                        "convs exchange halos between the slabs, in either generator layout; 'auto' takes the "
+                        "direct one where a packed slab would not hold whole blocks)")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's multi-node process group (one torchrun per host); each host samples its "
                         "share of the fold and its ranks split its batches. Implies --dp-devices 0")

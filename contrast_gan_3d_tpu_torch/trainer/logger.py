@@ -3,7 +3,9 @@ logger.py``): ``LoggerInterface`` with scalar and image hooks, the no-op
 and console loggers, and ``FileLogger`` for scalars
 (``<out_dir>/scalars.jsonl``), of 2D runs too. Image files need matplotlib
 and the wandb and TensorBoard backends their packages, none of which the
-card's machine has: they are not ported (ROADMAP)."""
+card's machine has: they are not ported (ROADMAP). Where wandb cannot be
+imported, the builder logs to the console instead, as the JAX builder
+does."""
 
 import json
 import logging
@@ -85,8 +87,23 @@ class FileLogger(LoggerInterface):
         pass
 
 
+def has_wandb() -> bool:
+    """Whether wandb imports (the JAX module's ``HAS_WANDB``)."""
+    try:
+        import wandb  # noqa: F401
+    except Exception:  # what the JAX logger module catches
+        return False
+    return True
+
+
 class WandbLogger(LoggerInterface):
+    """Without wandb it raises ImportError, as the JAX logger does (the
+    builder takes ``ConsoleLogger`` then); with it, the logger is not
+    ported."""
+
     def __init__(self, *args, **kwargs):
+        if not has_wandb():
+            raise ImportError("wandb is not installed; use ConsoleLogger/NoopLogger")
         raise NotImplementedError(f"the wandb logger is {ROADMAP_NOTE}")
 
 

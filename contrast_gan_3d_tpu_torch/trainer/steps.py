@@ -57,7 +57,7 @@ every rank, and the metrics are the global values. The state's networks
 must start equal on every rank (``init_state`` broadcasts rank 0's).
 
 Spatial partitioning (a mesh with ``space`` S > 1, JAX's dp x sp mesh,
-direct 3D layout): each rank still passes its data index's share of
+3D, either generator layout): each rank still passes its data index's share of
 whole patches; the step augments them whole, scales them, and keeps its
 X-slab (``parallel/spatial.split_slab``), so the draws are those of the
 one-rank step. The networks exchange conv halos between the slabs, and

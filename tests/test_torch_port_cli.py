@@ -8,6 +8,7 @@ tests' patients and override file (16^3 patches, narrow networks)."""
 import json
 import logging
 import pickle
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +19,7 @@ import train as jax_train_cli
 from contrast_gan_3d_tpu_torch import correct_scans, memory_report
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
+from contrast_gan_3d_tpu_torch.experiments import builder
 from contrast_gan_3d_tpu_torch.eval.utils import device_int16, load_patient_or_scan
 from contrast_gan_3d_tpu_torch.utils.debug import check_finite
 from contrast_gan_3d_tpu_torch.utils import memory as memory_lib
@@ -132,12 +134,41 @@ def test_profiler_writes_traces(fold, tmp_path, flags, traces, monkeypatch):  # 
 
 
 def test_memory_report_tiny_on_the_cpu(tmp_path):
+    """JAX's seven programs by JAX's names, the last two each a pair of
+    gloo ranks (one row with each rank's figures): the (1, 2) dp x sp
+    ranks pass the whole 4 + 4 patches and keep their slabs, the (2, 1)
+    dp ranks pass 2 + 2 each."""
     rows = memory_report.main(["--out", str(tmp_path), "--tiny", "--device", "cpu"])
-    assert [r["name"].split(" ")[0] for r in rows] == ["packed", "combined_step", "combined_step", "combined_step"]
-    assert all(r["fits"] and r["peak_bytes"] is None and r["argument_bytes"] > 0 for r in rows)
+    assert [r["program"] for r in rows] == list(memory_report.PROGRAMS) == \
+        ["corrector", "train", "train_gp", "train96", "cycle5", "gp96_sp2", "gp96_dp2"]
+    assert [r["name"].split(" ")[0] for r in rows] == ["packed", "combined_step", "combined_step", "combined_step",
+                                                      "5-iteration", "combined_step", "combined_step"]
+    single = [r for r in rows if "ranks" not in r]
+    assert len(single) == 5 and all(r["fits"] and r["peak_bytes"] is None and r["argument_bytes"] > 0
+                                    for r in single)
+    sp2, dp2 = rows[5:]
+    assert sp2["mesh"] == [1, 2] and dp2["mesh"] == [2, 1]
+    for row in (sp2, dp2):
+        assert row["fits"] and [r["rank"] for r in row["ranks"]] == [0, 1]
+        assert all(r["peak_bytes"] is None and r["seconds"] > 0 for r in row["ranks"])
+    # a dp rank holds half the patches the sp ranks hold whole
+    assert dp2["ranks"][0]["argument_bytes"] < sp2["ranks"][0]["argument_bytes"]
     saved = json.loads((tmp_path / "memory_report.json").read_text())
-    assert saved["card"] == "CPU" and len(saved["rows"]) == 4
-    assert "not measured" in (tmp_path / "memory_report.md").read_text()
+    assert saved["card"] == "CPU" and len(saved["rows"]) == 7
+    text = (tmp_path / "memory_report.md").read_text()
+    assert "not measured" in text and all(f"`{name}`" in text for name in memory_report.PROGRAMS)
+
+
+def test_memory_report_programs_flag(tmp_path, capsys):
+    """``--programs`` takes a comma list of JAX's names (and ``gp96``, the
+    one-rank reference of the mesh programs) and refuses any other."""
+    rows = memory_report.main(["--out", str(tmp_path), "--tiny", "--device", "cpu", "--programs",
+                               "train, gp96"])
+    assert [r["program"] for r in rows] == ["train", "gp96"]
+    for bad in ("train,gp192", "", "skip-run"):
+        with pytest.raises(SystemExit):
+            memory_report.main(["--out", str(tmp_path), "--tiny", "--device", "cpu", "--programs", bad])
+        assert "unknown program" in capsys.readouterr().err
 
 
 def test_correct_scans_sharded_equals_unsharded(cohort, tmp_path):  # noqa: F811
@@ -196,5 +227,35 @@ def test_train_sp_devices_logs_the_one_rank_losses(tmp_path, monkeypatch):
             np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=f"{want['stage']} "
                                                                                        f"{want['iteration']} {k}")
     assert compared == {"D", "G", "G-full", "sim", "HU"}
+    assert sorted(p.name for p in (tmp_path / "runs" / "sp").glob("*.pt")) == \
+        sorted(p.name for p in (tmp_path / "runs" / "one").glob("*.pt"))
+
+
+def test_train_sp_devices_trains_the_packed_layout(tmp_path, monkeypatch):
+    """``--sp-devices 2`` on the CPU with the layout "auto" resolves to: the
+    packed generator, as without a mesh (slabs of 8 rows, whole f4 blocks
+    at every stage), each rank on its slab. Every logged loss is within
+    JAX's dp x sp metric tolerance of the one-rank packed run's, and the
+    checkpoints are the one-rank run's."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    fold = _patients(tmp_path / "patients")
+    conf, splits = tmp_path / "tiny.py", tmp_path / "splits.pkl"
+    conf.write_text(MESH_OVERRIDE)
+    splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
+    args = lambda run_id: ["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root",
+                           str(tmp_path / "runs"), "--run-id", run_id, "--device", "cpu", "--iterations", "4"]
+    one = train_cli.main(args("one"))
+    assert one.runs[0].trainer.state.generator.layout == "packed"
+    sp_cfg = replace(one.config, sp_devices=2)
+    assert builder.resolve_layout(sp_cfg) == "packed"  # what each rank builds
+    assert train_cli.main(args("sp") + ["--sp-devices", "2"]) is None
+    logged = {run: [json.loads(line) for line in (tmp_path / "runs" / run / "metrics" / "scalars.jsonl")
+                    .read_text().splitlines()] for run in ("one", "sp")}
+    assert [(r["stage"], r["iteration"]) for r in logged["sp"]] == [(r["stage"], r["iteration"]) for r in
+                                                                     logged["one"]]
+    for got, want in zip(logged["sp"], logged["one"]):
+        for k in {"D", "G", "G-full", "sim", "HU"} & set(want):
+            np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=1e-5, err_msg=f"{want['stage']} "
+                                                                                       f"{want['iteration']} {k}")
     assert sorted(p.name for p in (tmp_path / "runs" / "sp").glob("*.pt")) == \
         sorted(p.name for p in (tmp_path / "runs" / "one").glob("*.pt"))

@@ -48,7 +48,7 @@ from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
-from contrast_gan_3d_tpu_torch.trainer.logger import ConsoleLogger, FileLogger, LoggerInterface
+from contrast_gan_3d_tpu_torch.trainer.logger import ConsoleLogger, FileLogger, LoggerInterface, has_wandb
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig
 from contrast_gan_3d_tpu_torch.trainer.trainer import Trainer, TrainerConfig, install_preemption_handler
@@ -555,9 +555,13 @@ def test_builder_raises_for_what_is_not_ported(change):
     the ranks). ``remat=True``, instance norm and generator dropout raised
     until they were ported: each now builds, and its networks take a
     train step. ``sp_devices`` raised until spatial partitioning was
-    ported: basic_3d now builds with the direct generator it runs, and the
-    packed layout and the 2D family raise, naming ROADMAP A10a-packed and
-    A10a-2d. The wandb and TensorBoard loggers still raise."""
+    ported: basic_3d now builds with the packed generator, as without a
+    mesh (the direct layout until the packed one was partitioned); an
+    explicit packed layout whose slabs would not hold whole blocks raises,
+    naming the slabs' rows, and the 2D family raises, naming ROADMAP
+    A10a-2d. ``logger="wandb"`` raised until it took the console logger
+    where wandb cannot be imported, as the JAX builder does; the
+    TensorBoard logger still raises."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
     if change == dict(dp_devices=1):
@@ -565,9 +569,10 @@ def test_builder_raises_for_what_is_not_ported(change):
         return
     if change == dict(sp_devices=2):
         built = builder.build(dataclasses.replace(cfg, **change), device="cpu")
-        assert built.generator.layout == "direct" and built.config.sp_devices == 2
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10a-packed"):
-            builder.build(dataclasses.replace(cfg, generator_layout="packed", **change), device="cpu")
+        assert built.generator.layout == "packed" and built.config.sp_devices == 2
+        with pytest.raises(ValueError, match=r"slabs of \[18\] rows"):
+            builder.build(dataclasses.replace(cfg, generator_layout="packed", train_patch_size=(36, 128, 128),
+                                              **change), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md, A10a-2d"):
             builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
         return
@@ -575,6 +580,11 @@ def test_builder_raises_for_what_is_not_ported(change):
         assert builder.build(dataclasses.replace(cfg, **change), device="cpu").generator.layout == "packed"
         with pytest.raises(ValueError, match="3D-only"):
             builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
+        return
+    if change == dict(logger="wandb"):
+        assert not has_wandb()  # neither this machine nor the card's has it
+        assert isinstance(builder.build(dataclasses.replace(cfg, **change), device="cpu").logger_interface,
+                          ConsoleLogger)
         return
     if "logger" in change:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

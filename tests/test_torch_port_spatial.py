@@ -58,16 +58,20 @@ PATCH = (32, 16, 16)
 GEN = dict(n_resnet_blocks=1, n_updownsample_blocks=1, init_channels_out=2)
 CRITIC = dict(init_channels_out=2, discriminator_depth=1)
 LR, BETAS, GP_EPS = 1e-3, (0.5, 0.999), 0.3
-JAX_CASES = [(mode, placement) for mode in ("wc", "gp") for placement in ("same", "torch")]
+# (mode, tconv_placement, generator layout); the direct cases first
+JAX_CASES = [(mode, placement, layout) for layout in ("direct", "packed") for mode in ("wc", "gp")
+             for placement in ("same", "torch")]
+PACKED_CASES = [key for key in JAX_CASES if key[2] == "packed"]
 OPTIONS = ("gp", "options")
 METRIC_TOL = dict(rtol=2e-4, atol=1e-5)
 PARAM_TOL = dict(rtol=2e-3, atol=2e-5)
 
 
-def _case(mode, placement, seed=0):
+def _case(mode, placement, layout="direct", seed=0):
     """The JAX nets and state, and the port's case (the same weights, as
     state dicts)."""
-    jgen, gvars, tgen = carried_generator(GEN, seed, shape=(1, *PATCH, 1), tconv_placement=placement)
+    jgen, gvars, tgen = carried_generator(GEN, seed, shape=(1, *PATCH, 1), tconv_placement=placement,
+                                          layout=layout)
     jcritic = JaxCritic(**CRITIC)
     cvars = jcritic.init(jax.random.key(seed + 1), jnp.zeros((1, *PATCH, 1)), train=False)
     cvars = randomize_norms(_np_tree(cvars), np.random.default_rng(seed + 1))
@@ -81,7 +85,7 @@ def _case(mode, placement, seed=0):
         step=jnp.zeros((), jnp.int32), gen_params=as_j(gvars["params"]), gen_stats=as_j(gvars["batch_stats"]),
         critic_params=as_j(cvars["params"]), critic_stats=as_j(cvars["batch_stats"]),
         gen_opt=tx.init(as_j(gvars["params"])), critic_opt=tx.init(as_j(cvars["params"])), rng=jax.random.key(seed))
-    case = dict(gen_kw=dict(GEN, tconv_placement=placement), critic_kw=CRITIC, gen=tgen.state_dict(),
+    case = dict(gen_kw=dict(GEN, tconv_placement=placement, layout=layout), critic_kw=CRITIC, gen=tgen.state_dict(),
                 critic=tcritic.state_dict(), lr=LR, betas=BETAS, seed=0, weight_clip=jcfg.weight_clip,
                 gp_eps=jcfg.gp_eps)
     return SimpleNamespace(jgen=jgen, jcritic=jcritic, tx=tx, jcfg=jcfg, jstate=jstate, case=case)
@@ -123,13 +127,15 @@ def sp(tmp_path_factory):
     batch = _batches(rng)
     pairs = {key: _case(*key) for key in JAX_CASES}
     # the val steps, on the WC case's initial state (the train steps donate it)
-    vpair = pairs["wc", "same"]
-    vo, vs = jax_steps.build_val_steps(vpair.jgen, vpair.jcritic, jax_steps.StepConfig(augment=None))
     val_batch = rng.integers(-500, 500, (4, *PATCH)).astype(np.int16)
     w = jnp.ones((4,), jnp.float32)
-    sub = vs(vpair.jstate, jnp.asarray(val_batch), w)
-    want_val = (float(vo(vpair.jstate, jnp.asarray(val_batch), w)), float(sub[0]), float(sub[1]),
-                np.asarray(sub[2]).transpose(0, 4, 1, 2, 3))
+    want_val = {}
+    for layout in ("direct", "packed"):
+        vpair = pairs["wc", "same", layout]
+        vo, vs = jax_steps.build_val_steps(vpair.jgen, vpair.jcritic, jax_steps.StepConfig(augment=None))
+        sub = vs(vpair.jstate, jnp.asarray(val_batch), w)
+        want_val[layout] = (float(vo(vpair.jstate, jnp.asarray(val_batch), w)), float(sub[0]), float(sub[1]),
+                            np.asarray(sub[2]).transpose(0, 4, 1, 2, 3))
     want = {}
     for key, pair in pairs.items():
         jsteps = jax_steps.build_train_steps(pair.jgen, pair.jcritic, pair.tx, pair.tx, pair.jcfg)
@@ -235,22 +241,61 @@ def test_dp_sp_gp_cycle_matches_jax(sp):
         _close_states(critic, want_critic, dict(rtol=5e-3, atol=5e-5))
 
 
-@pytest.mark.parametrize("shape", MESH_SHAPES)
-def test_dp_sp_val_steps_match_jax(sp, shape):
-    opt, realism, zncc, sample_hat = sp.want_val
-    got_one = val(sp.payload["cases"]["wc", "same"], sp.payload["val_batch"])
-    for got in [got_one, *(r["val"] for r in sp.ranks[shape])]:
+def _check_val(sp, shape, layout, key):
+    opt, realism, zncc, sample_hat = sp.want_val[layout]
+    got_one = val(sp.payload["cases"]["wc", "same", layout], sp.payload["val_batch"])
+    for got in [got_one, *(r[key] for r in sp.ranks[shape])]:
         np.testing.assert_allclose(got[:3], (opt, realism, zncc), rtol=1e-5, atol=1e-6)
     for res in sp.ranks[shape]:
         d = res["rank"] // shape[1]
-        np.testing.assert_allclose(res["val"][3].numpy(), sample_hat[d * 4 // shape[0]:(d + 1) * 4 // shape[0]],
+        np.testing.assert_allclose(res[key][3].numpy(), sample_hat[d * 4 // shape[0]:(d + 1) * 4 // shape[0]],
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_dp_sp_val_steps_match_jax(sp, shape):
+    _check_val(sp, shape, "direct", "val")
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_dp_sp_packed_val_steps_match_jax(sp, shape):
+    """The val steps with the packed generator: its slabs' corrections
+    gathered whole again (``gather_slab``)."""
+    _check_val(sp, shape, "packed", "val_packed")
+
+
+@pytest.mark.parametrize("key", PACKED_CASES)
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_dp_sp_packed_step_matches_the_one_rank_step(sp, shape, key):
+    """The packed layout's slabs (whole f4 blocks at 8 rows a slab at
+    (1, 4)) against the port's one-rank packed step: metrics and states
+    at JAX's dp x sp tolerance, gradients within 1e-4 relative and 1e-5
+    of a leaf's largest entry."""
+    want_metrics, want_gen, want_critic, want_grads = one_step(sp.payload["cases"][key], sp.payload["batch"])
+    for res in sp.ranks[shape]:
+        metrics, gen, critic, grads = res["steps"][key]
+        _close_metrics(metrics, want_metrics, METRIC_TOL)
+        _close_states(gen, want_gen, PARAM_TOL)
+        _close_states(critic, want_critic, PARAM_TOL)
+        for k, w in want_grads.items():
+            torch.testing.assert_close(grads[k], w, rtol=1e-4, atol=1e-5 * w.abs().max().item(), msg=k)
 
 
 @pytest.mark.parametrize("check", ["reflect 7", "zeros k4 s2", "tconv torch"])
 def test_halo_exchange_gradcheck_and_gradgradcheck(sp, check):
     for res in sp.ranks[1, 2]:
         assert res["halo"][check] == (True, True)
+
+
+@pytest.mark.parametrize("check", ["packed stem reflect", "packed projection reflect", "packed down zeros",
+                                   "packed tconv torch"])
+def test_packed_exchange_matches_the_whole_and_gradchecks(sp, check):
+    """float64, two ranks: each rank's slab of the packed conv equals its
+    share of the conv of the whole tensor, and ``gradcheck`` /
+    ``gradgradcheck`` pass through the block-row exchange (the reflect
+    ends rebuilt on the first and the last slab)."""
+    for res in sp.ranks[1, 2]:
+        assert res["halo"][check] == (True, True, True)
 
 
 def test_trainer_rejects_nondivisible_spatial_dim():
@@ -358,3 +403,64 @@ def test_b3_on_a_halo_extended_slab_is_b3_on_the_whole(rows, monkeypatch):
     torch.library.opcheck(s2d_conv3d_block_op, (ext.detach(), w, b, 4, "reflect", True))
     with pytest.raises(ValueError, match="halo=True"):
         s2d_conv3d_block(ext[:, :, 1:], w, b, padding_mode="reflect", halo=True)
+
+
+@pytest.mark.parametrize("nb,space,mode", [
+    (8, 2, "reflect"),   # the stem's f2 blocks at two ranks (L = 2 blocks of 2 voxels)
+    (11, 3, "reflect"),  # unequal slabs of 3, 4, 4 blocks: the first only just holds its L+1 boundary blocks
+    (16, 4, "zeros"),    # a stride-2 downsample (3 block taps at block stride 2, one zero block a side)
+    (10, 4, "zeros"),    # unequal slabs of 2, 3, 2, 3 blocks
+])
+def test_packed_block_plans_rebuild_the_padded_tensor(nb, space, mode):
+    """Without a process group: the exchange plans in block rows (the
+    all-reduce summed here), then the reflect ends of the first and the
+    last slab built from their own boundary blocks
+    (``ops/packed.reflect_slab_ends``), give each rank the block rows of
+    the whole tensor padded as one device pads it:
+    ``reflect_pad_packed``'s 7^3 stem pad, or whole zero blocks."""
+    from contrast_gan_3d_tpu_torch.ops.packed import _packed_K, reflect_pad_packed, reflect_slab_ends
+    from contrast_gan_3d_tpu_torch.ops.s2d_conv import zero_pad_cl
+
+    f = 2
+    x = torch.arange(nb * 3 * 3 * 8 * 2, dtype=torch.float64).reshape(1, nb, 3, 3, 8 * 2) + 1
+    if mode == "reflect":
+        L, K, b_stride, n_out = 2, _packed_K(7, 2, 2, 1, 1), 1, nb
+        whole = reflect_pad_packed(x, f, 3, axes=(0,))[0]
+    else:
+        L, K, b_stride, n_out = 1, _packed_K(3, 2, 2, 2, 1), 2, nb // 2
+        whole = zero_pad_cl(x, [(L, L), (0, 0), (0, 0)])
+    windows = [conv_window(o0, max(o1, o0 + 1), K, b_stride, L) for o0, o1 in
+               (bounds(n_out, space, q) for q in range(space))]
+    exts = _simulated_exchange(x.transpose(0, 1), nb, space, windows, "zeros")
+    for q, ((lo, hi), ext) in enumerate(zip(windows, exts)):
+        ext = ext.transpose(0, 1)
+        if mode == "reflect":
+            s0, s1 = bounds(nb, space, q)
+            ext = reflect_slab_ends(ext, x[:, s0:s1], f, L, lo, nb)
+        rows = whole[:, lo + L:hi + L]
+        torch.testing.assert_close(ext[:, :rows.shape[1]], rows, rtol=0, atol=0)
+        assert not ext[:, rows.shape[1]:].any()  # beyond the padded tensor: zero blocks (the conv's extension)
+
+
+def test_resolve_layout_under_sp_devices():
+    """basic_3d under ``sp_devices=2`` resolves to the packed layout (slabs
+    of 64 rows); a first patch dim whose slabs are not whole blocks at
+    every stage (36 over 2: 18 rows, not a multiple of 4) resolves to
+    direct under "auto" and raises under an explicit "packed"; at 4 ranks
+    a 32-row patch (slabs of 8) is packed, a 16-row one (slabs of 4, under
+    the reflect pad's 8) direct."""
+    import dataclasses
+
+    from contrast_gan_3d_tpu_torch.experiments import builder, config
+
+    cfg = dataclasses.replace(config.PRESETS["basic_3d"](), sp_devices=2)
+    assert builder.resolve_layout(cfg) == "packed"
+    odd = dataclasses.replace(cfg, train_patch_size=(36, 128, 128))
+    assert builder.resolve_layout(odd) == "direct"
+    with pytest.raises(ValueError, match=r"slabs of \[18\] rows"):
+        builder.resolve_layout(dataclasses.replace(odd, generator_layout="packed"))
+    four = dict(sp_devices=4, generator_args=dict(GEN))
+    assert builder.resolve_layout(dataclasses.replace(cfg, train_patch_size=PATCH, val_patch_size=PATCH,
+                                                      **four)) == "packed"
+    assert builder.resolve_layout(dataclasses.replace(cfg, train_patch_size=(16, 16, 16),
+                                                      val_patch_size=(16, 16, 16), **four)) == "direct"

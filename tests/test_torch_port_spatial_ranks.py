@@ -13,6 +13,7 @@ from torch.autograd import gradcheck, gradgradcheck
 
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
+from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_conv3d_padded, packed_tconv3d, reflect_pad_packed
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL, dp_sp_mesh, pad_batch_to_multiple
 from contrast_gan_3d_tpu_torch.parallel.spatial import bounds, conv_window, halo_extend, tconv_window
 from contrast_gan_3d_tpu_torch.trainer import optim
@@ -122,6 +123,60 @@ def halo_checks(mesh):
     return out
 
 
+def packed_checks(mesh):
+    """The packed layout's convs on slabs (``ops/packed.packed_conv3d_padded``
+    / ``packed_tconv3d`` under the mesh) in float64 at two ranks: (each rank's output
+    equals its slab of the conv of the whole tensor, ``gradcheck``,
+    ``gradgradcheck``) of the stem's reflect-padded 7^3 f2 -> f2 conv, the
+    projection's f2 -> f4, a stride-2 downsample f2 -> f2 and the
+    torch-placed transpose conv. The gradchecks perturb the whole tensor
+    on every rank in lockstep (``_halo_fn``'s construction)."""
+    rng = np.random.default_rng(11)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape))
+    x = f(1, 8, 3, 3, 8)  # 8 block rows: two slabs of 4
+    cases = {
+        "packed stem reflect": (x, f(7, 7, 7, 1, 1), dict(f_in=2, f_out=2, pad=3, mode="reflect")),
+        "packed projection reflect": (f(1, 8, 4, 4, 8), f(7, 7, 7, 1, 1), dict(f_in=2, f_out=4, pad=3,
+                                                                               mode="reflect")),
+        "packed down zeros": (f(1, 8, 2, 2, 8), f(3, 3, 3, 1, 2), dict(f_in=2, f_out=2, stride=2, pad=1)),
+        "packed tconv torch": (f(1, 8, 2, 2, 2), f(3, 3, 3, 2, 1), None),
+    }
+    out = {}
+    for name, (whole, w, kw) in cases.items():
+        n = whole.shape[1]
+        if kw is None:
+            op = lambda v, m=mesh: packed_tconv3d(v, w, None, stride=2, convention="torch", mesh=m)
+            want = packed_tconv3d(whole, w, None, stride=2, convention="torch")
+        else:
+            op = lambda v, m=mesh, kw=kw: packed_conv3d_padded(v, w, None, mesh=m, **kw)
+            f_in, f_out, stride = kw["f_in"], kw["f_out"], kw.get("stride", 1)
+            blocks = tuple(d * f_in // (stride * f_out) for d in whole.shape[1:4])
+            # the whole tensor padded and convolved as packed_conv3d takes it
+            if kw.get("mode") == "reflect":
+                padded, o = reflect_pad_packed(whole, f_in, kw["pad"])
+                want = packed_conv3d(padded, w, None, f_in=f_in, f_out=f_out, stride=stride, out_blocks=blocks,
+                                     o=(o, o, o))
+            else:
+                want = packed_conv3d(whole, w, None, f_in=f_in, f_out=f_out, stride=stride, pad=kw["pad"],
+                                     out_blocks=blocks)
+        lo, hi = mesh.slab(n)
+        got = op(whole.narrow(1, lo, hi - lo))
+        n_out = want.shape[1]
+        o0, o1 = bounds(n_out, mesh.space, mesh.space_index)
+        same = bool(torch.allclose(got, want[:, o0:o1], rtol=1e-10, atol=1e-10))
+        offsets = [bounds(n_out, mesh.space, q)[0] for q in range(mesh.space)]
+
+        def fn(v, op=op, n_out=n_out, offset=offsets[mesh.space_index]):
+            v = mesh.all_sum(v) / mesh.world_size
+            y = op(v.narrow(1, lo, hi - lo))
+            return mesh.all_sum(torch.nn.functional.pad(y, (0, 0, 0, 0, 0, 0, offset, n_out - offset - y.shape[1])))
+
+        v = whole.clone().requires_grad_(True)
+        out[name] = (same, gradcheck(fn, (v,), raise_exception=False, fast_mode=True),
+                     gradgradcheck(fn, (v,), raise_exception=False, fast_mode=True))
+    return out
+
+
 def sp_worker(payload_path, out_dir):
     torch.set_num_threads(1)
     payload = torch.load(payload_path, weights_only=False)
@@ -134,7 +189,8 @@ def sp_worker(payload_path, out_dir):
             res["steps"][key] = one_step(case, payload["batch"], mesh)
         if shape == CYCLE_MESH:
             res["cycle"] = cycle(payload["cycle_case"], payload["cycle_batches"], payload["pattern"], mesh)
-        res["val"] = val(payload["cases"]["wc", "same"], payload["val_batch"], mesh)
+        res["val"] = val(payload["cases"]["wc", "same", "direct"], payload["val_batch"], mesh)
+        res["val_packed"] = val(payload["cases"]["wc", "same", "packed"], payload["val_batch"], mesh)
         if world == 2:
-            res["halo"] = halo_checks(mesh)
+            res["halo"] = {**halo_checks(mesh), **packed_checks(mesh)}
     torch.save(result, f"{out_dir}/rank{torch.distributed.get_rank()}.pt")
