@@ -370,6 +370,25 @@ failure raises and exits non-zero):
     gates (the three-way rule against the one-rank f32 direct step of the
     same seed), no B1, B3 or dx launch, and each rank's own peak below one
     rank's.
+49. spatial partitioning of the 2D family (``--only sp_2d``): two gloo
+    ranks on ``cuda:0`` (1 x 2 dp x sp: each rank 64 rows of every 128^2
+    slice, H of NCHW) train ``conf_2d`` at full width (6 ResNet blocks,
+    the 16-channel depth-3 critic; the generator direct, the 2D family's
+    only layout) on 256 + 128 + 128 slices: an f32 weight-clip
+    ``combined_step`` at phase 48's f32 metric and parameter gates, its
+    gradients by the three-way rule one precision up (each rank's from the
+    one-rank float64 step's within twice the one-rank f32 step's distance
+    plus 1e-4: phase 48's 1e-2 of a leaf's largest entry is f32 rounding at
+    this size, ``SP2D_F32_FLOOR``), a bf16 weight-clip
+    (``conf_2d``) and a bf16 gradient-penalty (``gradient_penalty_2d``)
+    one at its bf16 gates and three-way rule (the one-rank f32 step of the
+    preset its reference), and the val steps at 512^2 (128 LOW slices, 256
+    rows a rank, the corrected slices gathered whole; 256 OPT slices for
+    the critic) from the fresh f32 state: all against one rank; per rank
+    the step's own peak and time against one rank's and no B1, B3 or dx
+    launch. Then HDF5 on this machine: without h5py an ``.h5`` patient
+    path raises the ``ImportError`` that names it (with h5py, a corpus
+    member is written and read back).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -2103,15 +2122,16 @@ def no_block_conv(launches: dict, what: str) -> dict:
     return launches
 
 
-def bf16_three_way(card16: dict, cpu16: dict, cpu32: dict, what: str):
+def bf16_three_way(card16: dict, cpu16: dict, cpu32: dict, what: str, floor: float = BF16_PARITY_FLOOR):
     """The train parity bf16 phase's rule per tensor: the card's bf16
     relative L2 distance from CPU f32 at most twice the CPU bf16 run's (on
     that tensor, or its median over the tensors where that is larger) plus
-    1e-3. Returns the tensor nearest its limit: (name, card error, CPU
-    error, share of the limit)."""
+    ``floor`` (1e-3). Returns the tensor nearest its limit: (name, card
+    error, CPU error, share of the limit). Phase 49 applies it one
+    precision up: f32 gradients against an f64 reference."""
     errs = {n: (_rel_l2(card16[n], ref), _rel_l2(cpu16[n], ref)) for n, ref in cpu32.items() if ref.norm() > 0}
     median16 = statistics.median(e[1] for e in errs.values())
-    share = {n: e[0] / (2 * max(e[1], median16) + BF16_PARITY_FLOOR) for n, e in errs.items()}
+    share = {n: e[0] / (2 * max(e[1], median16) + floor) for n, e in errs.items()}
     worst = max(share, key=share.get)
     if not share[worst] <= 1.0:
         raise AssertionError(f"{what}: {worst} card bf16 {errs[worst][0]:.2e} from CPU f32, CPU bf16 "
@@ -5152,6 +5172,216 @@ def slice_15_phases():
         return sp_phase(Path(tmp))
 
 
+# --- slice 17: spatial partitioning of the 2D family (phase 49), HDF5 -----------------------------------------------
+
+# (label, preset, dtype) of the compared combined steps, on both ranks; the
+# one-rank f32 gradient-penalty step is the bf16 GP step's three-way
+# reference only
+SP2D_STEPS = (("f32 wc", "conf_2d", torch.float32), ("bf16 wc", "conf_2d", torch.bfloat16),
+              ("bf16 gp", "gradient_penalty_2d", torch.bfloat16))
+SP2D_REFERENCE = ("f32 gp", "gradient_penalty_2d", torch.float32)
+SP2D_MODE = {"conf_2d": "wc", "gradient_penalty_2d": "gp"}
+# the f32 gradients' gate: phase 48's 1e-2 of a leaf's largest entry fails
+# here on an H100 (1.37e-2 at resnet_0.block1.conv.weight; PERF.md) while
+# float64 puts the mesh on the one-rank step to 1e-14 on the CPU
+# (``tests/mesh_grad_bisect.py --family 2d``): each rank's f32 gradients
+# from the one-rank float64 step's within twice the one-rank f32 step's
+# distance (the bf16 three-way rule one precision up), plus this floor of
+# relative L2; phase 48's measure is still reported
+SP2D_F32_FLOOR = 1e-4
+SP2D_VAL = (512, 512)
+# the corrected slices against one rank's, max |diff| / max |one rank| (f32,
+# TF32 off: the slabs' convs may take other cuDNN algorithms than the whole)
+SP2D_VAL_REL = 1e-4
+
+
+def sp2d_runs(patches, val_batches, device, mesh=None) -> dict:
+    """Phase 49's runs on this process's device, over ``mesh`` (None: one
+    rank): the val steps at 512^2 from the fresh f32 conf_2d state, then
+    each compared step from a state built by ``build`` (the preset's seed)
+    under deterministic algorithms: its launches, metrics, states and
+    gradients (on the host), then one warm step's own peak and time.
+    ``launches``: every launch of the phase, block-conv counters by name."""
+    out = {}
+    start = read_counts()
+    steps = SP2D_STEPS if mesh is not None else (*SP2D_STEPS, SP2D_REFERENCE)
+    if mesh is None:
+        out["f64 wc"] = sp2d_f64_grads(patches, device)
+    for label, preset, dtype in steps:
+        built = build(load_config(preset, compute_dtype=DTYPE_NAME[dtype]), device=device)
+        trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                          built.trainer_config, seed=built.seed, logger_interface=NoopLogger(), device=device,
+                          mesh=mesh)
+        if label == "f32 wc":
+            low, opt = (torch.as_tensor(b, device=device) for b in val_batches)
+            w_low, w_opt = (torch.ones((len(b),), device=device) for b in (low, opt))
+            with torch.no_grad():
+                realism, zncc, sample_hat, _ = trainer.val_subopt_step(trainer.state, low, w_low)
+                critic = trainer.val_opt_step(trainer.state, opt, w_opt)
+            out["val"] = dict(realism=float(realism), zncc=float(zncc), critic=float(critic),
+                              sample_hat=sample_hat.detach().cpu())
+        batch = trainer._assemble(patches)[:3]
+        torch.cuda.synchronize()
+        before = read_counts()
+        with deterministic_scope():
+            _, metrics = trainer.steps.combined_step(trainer.state, *batch)
+        host = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+        res = dict(metrics={k: float(v) for k, v in metrics.items()}, counts=_count_delta(before),
+                   states=tuple(host(sd) for sd in _states(trainer)),
+                   grads={n: host(g) for n, g in _grads(trainer).items()})
+        res["own_peak_gib"], res["seconds"] = _warm_call(lambda: trainer.steps.combined_step(trainer.state, *batch))
+        out[label] = res
+        del trainer, built, batch
+        torch.cuda.empty_cache()
+    out["launches"] = _count_delta(start)
+    return out
+
+
+def sp2d_f64_grads(patches, device) -> dict:
+    """The gradients of the one-rank f32 weight-clip step taken in float64
+    throughout (conf_2d's networks from the same seed, cast; f64 scaled
+    batches, statistics and losses): the f32 gradients' reference."""
+    cfg = load_config("conf_2d", compute_dtype="float32")
+    built = build(cfg, device=device)
+    f64 = torch.float64
+    gen = ResnetGenerator(**{**dict(ndim=2), **{k: v for k, v in cfg.generator_args.items() if k != "layout"},
+                             "dtype": f64})
+    critic = PatchGANDiscriminator(**{**dict(ndim=2), **cfg.critic_args, "dtype": f64})
+    gen.load_state_dict(built.generator.state_dict(), strict=True)
+    critic.load_state_dict(built.critic.state_dict(), strict=True)
+    trainer = Trainer(gen.to(f64), critic.to(f64), built.gen_tx, built.critic_tx,
+                      dataclasses.replace(built.step_config, dtype=f64), built.trainer_config, seed=built.seed,
+                      logger_interface=NoopLogger(), device=device)
+    with deterministic_scope():
+        trainer.steps.combined_step(trainer.state, *trainer._assemble(patches)[:3])
+    grads = {n: {k: v.detach().cpu() for k, v in g.items()} for n, g in _grads(trainer).items()}
+    del trainer, built
+    torch.cuda.empty_cache()
+    return {"grads": grads}
+
+
+def _sp2d_rank(payload_path: str, out_dir: str):
+    """One of phase 49's two gloo ranks on ``cuda:0``, in full f32 as the
+    script's own process runs."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = dp_sp_mesh(1, SP_SPACE, device="cuda:0")
+    payload = torch.load(payload_path, weights_only=False)
+    patches = {k: {n: torch.as_tensor(a, device="cuda:0") for n, a in v.items()} for k, v in payload["patches"].items()}
+    zero_counts()
+    torch.save(sp2d_runs(patches, payload["val"], "cuda:0", mesh), Path(out_dir) / f"rank{mesh.rank}.pt")
+
+
+def sp2d_phase(tmp: Path):
+    """Phase 49: the two-rank 2D sp runs against the one-rank runs (see the
+    module docstring). Returns the ranks' launches (summed) and the
+    figures."""
+    rng = np.random.default_rng(49)
+    patches = train_patches(rng, SLICE, MIX_2D, "cpu")
+    val = tuple(rng.integers(-1024, 1500, (CONF_2D.val_batch_size[k], *SP2D_VAL), dtype=np.int16) for k in (LOW, OPT))
+    torch.save({"patches": {k: {n: a.numpy() for n, a in v.items()} for k, v in patches.items()}, "val": val},
+               tmp / "sp2d_batch.pt")
+    t0 = time.perf_counter()
+    spawn_ranks(_sp2d_rank, SP_SPACE, (str(tmp / "sp2d_batch.pt"), str(tmp)), backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(SP_SPACE)]
+    one = sp2d_runs({k: {n: a.cuda() for n, a in v.items()} for k, v in patches.items()}, val, "cuda")
+    out = {"spawn_wall_s": wall, "ranks": SP_SPACE, "rows_per_rank": SLICE[0] // SP_SPACE}
+    nets = ("generator", "critic")
+    for label, preset, dtype in SP2D_STEPS:
+        want = one[label]
+        for n in nets:
+            a, b = (rank[label]["grads"][n] for rank in ranks)
+            unequal = [k for k in a if not torch.equal(a[k], b[k])]
+            if unequal:
+                raise AssertionError(f"sp_2d {label}: the ranks' {n} gradients differ in {unequal}")
+        rows = []
+        for r, rank in enumerate(ranks):
+            got = rank[label]
+            no_block_conv(got["counts"], f"sp_2d rank {r} {label}")
+            rel = metrics_close(got["metrics"], want["metrics"], f"sp_2d rank {r} {label}", dtype)
+            if dtype == torch.float32:
+                grad = {n: bf16_three_way(got["grads"][n], want["grads"][n], one["f64 wc"]["grads"][n],
+                                          f"sp_2d rank {r} {label} {n}", floor=SP2D_F32_FLOOR)[3] for n in nets}
+                grad["phase_48_measure"] = {n: grads_close(got["grads"][n], want["grads"][n],
+                                                           f"sp_2d rank {r} {label} {n}", limit=float("inf"))
+                                            for n in nets}
+            else:
+                ref = one[f"f32 {SP2D_MODE[preset]}"]["grads"]
+                grad = {n: bf16_three_way(got["grads"][n], want["grads"][n], ref[n], f"sp_2d rank {r} {label} {n}")[3]
+                        for n in nets}
+            close = [params_close(g, w, f"sp_2d rank {r} {label} {n}", dtype, (got["grads"][n], want["grads"][n]))
+                     for g, w, n in zip(got["states"], want["states"], nets)]
+            ratio = got["own_peak_gib"] / want["own_peak_gib"]
+            if not ratio < 1.0:
+                raise AssertionError(f"sp_2d rank {r} {label}: own peak {got['own_peak_gib']:.3f} GiB, one rank's "
+                                     f"{want['own_peak_gib']:.3f}: the slab holds no less than the whole")
+            rows.append(dict(metric_rel=rel, grad=grad, generator=close[0], critic=close[1],
+                             launches=got["counts"], own_peak_gib=got["own_peak_gib"], seconds=got["seconds"],
+                             peak_ratio=ratio, time_ratio=got["seconds"] / want["seconds"]))
+        out[label] = dict(one_rank=dict(own_peak_gib=want["own_peak_gib"], seconds=want["seconds"]), ranks=rows)
+        print(f"sp_2d {label} combined_step ({preset}, {SP_SPACE} gloo ranks on one card, {out['rows_per_rank']}-row "
+              f"slabs): per rank launches "
+              f"{[r['launches'] for r in rows]}; own peak {[round(r['own_peak_gib'], 3) for r in rows]} GiB "
+              f"against {want['own_peak_gib']:.3f} GiB on one rank ({[round(r['peak_ratio'], 3) for r in rows]}x); "
+              f"step {[round(r['seconds'], 4) for r in rows]} s against {want['seconds']:.4f} s "
+              f"({[round(r['time_ratio'], 3) for r in rows]}x); metrics within "
+              f"{max(r['metric_rel'] for r in rows):.2e}; gradients {[r['grad'] for r in rows]}; parameters "
+              f"{[(r['generator'], r['critic']) for r in rows]}", flush=True)
+    want = one["val"]
+    val_rows = []
+    for r, rank in enumerate(ranks):
+        got = rank["val"]
+        rel = metrics_close({k: got[k] for k in ("realism", "zncc", "critic")},
+                            {k: want[k] for k in ("realism", "zncc", "critic")}, f"sp_2d rank {r} val")
+        diff = (got["sample_hat"] - want["sample_hat"]).abs().max().item() / want["sample_hat"].abs().max().item()
+        if got["sample_hat"].shape != want["sample_hat"].shape or not diff <= SP2D_VAL_REL:
+            raise AssertionError(f"sp_2d rank {r} val: corrected slices {tuple(got['sample_hat'].shape)} "
+                                 f"{diff:.2e} of max |one rank| from one rank's")
+        val_rows.append(dict(metric_rel=rel, corrected_rel=diff))
+    out["val"] = dict(slices=tuple(want["sample_hat"].shape), ranks=val_rows)
+    print(f"sp_2d val steps at {SP2D_VAL[0]}x{SP2D_VAL[1]} ({CONF_2D.val_batch_size[LOW]} LOW slices gathered whole, "
+          f"{CONF_2D.val_batch_size[OPT]} OPT): {json.dumps(val_rows)}", flush=True)
+    launches = {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
+    no_block_conv(launches, "sp_2d, both ranks")
+    no_block_conv(one["launches"], "sp_2d, one rank")
+    print(f"sp_2d: B1 / B2 / B3 / dx launches, both ranks {json.dumps(launches)}; spawn {wall:.1f} s", flush=True)
+    return launches, out
+
+
+def hdf5_phase(tmp: Path) -> dict:
+    """Phase 49's HDF5 check on this machine: without h5py an ``.h5``
+    patient path raises the ``ImportError`` that names h5py (nothing falls
+    back to ``.npy``); with h5py a corpus member is written and read back."""
+    vol = np.arange(8 * 8 * 4, dtype=np.int16).reshape(8, 8, 4)
+    meta = {"spacing": np.ones(3), "offset": np.zeros(3)}
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        try:
+            load_patient(f"{tmp / 'corpus.h5'}::p")
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise AssertionError(f"hdf5: the ImportError does not name h5py: {e}") from e
+            print(f"hdf5: no h5py on this machine; an .h5 patient path raises ImportError: {e}", flush=True)
+            return {"h5py": False, "error": str(e)}
+        raise AssertionError("hdf5: an .h5 patient path without h5py raised no ImportError")
+    member = write_patient(vol, vol > 100, meta, "p", tmp / "corpus.h5")
+    data, got = load_patient(member)
+    if not np.array_equal(np.asarray(data[..., 0]), vol) or got["name"] != "p":
+        raise AssertionError(f"hdf5: {member} does not read back")
+    print(f"hdf5: h5py on this machine; {member} written and read back", flush=True)
+    return {"h5py": True, "member": member}
+
+
+def slice_17_phases():
+    """Phase 49."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp2d_") as tmp:
+        launches, out = sp2d_phase(Path(tmp))
+        out["hdf5"] = hdf5_phase(Path(tmp))
+    return launches, out
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -5184,6 +5414,7 @@ ONLY = {
     "remat": remat_phase,
     "jax_ckpt": lambda: jax_ckpt_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_jax_ckpt_"))),
     "sp": slice_15_phases,
+    "sp_2d": slice_17_phases,
 }
 
 
@@ -5358,6 +5589,8 @@ def main(argv=None) -> int:
     print(f"instance, dropout, remat, jax_ckpt: {time.perf_counter() - t_start:.1f} s", flush=True)
     sp_launches, sp_results = slice_15_phases()
     print(f"sp: {time.perf_counter() - t_start:.1f} s", flush=True)
+    sp2d_launches, sp2d_results = slice_17_phases()
+    print(f"sp_2d, hdf5: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -5407,7 +5640,10 @@ def main(argv=None) -> int:
                    # and GP steps; a bf16 WC step and cycle), direct; the
                    # packed bf16 WC and GP steps launch none (asserted)
                    "sp": sp_launches[DTYPE_NAME[dtype]][key],
-                   "sp_packed": sp_launches["packed"][key] if dtype == torch.bfloat16 else 0}
+                   "sp_packed": sp_launches["packed"][key] if dtype == torch.bfloat16 else 0,
+                   # the 2D family under sp launches none, f32 and bf16
+                   # (asserted): both ranks' counters
+                   "sp_2d": sp2d_launches[key]}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -5425,7 +5661,7 @@ def main(argv=None) -> int:
         "init": s12["init"], "dp": s12["dp"][1], "sharded": s12["sharded"][1], "memory": s12["memory"],
         "dataset": s13["dataset"][1], "recall": s13["recall"][1], "overlap": s13["overlap"][1],
         "flops": s13["flops"][1], "instance": s14["instance"][1], "dropout": s14["dropout"],
-        "remat": s14["remat"][1], "jax_ckpt": s14["jax_ckpt"][1], "sp": sp_results,
+        "remat": s14["remat"][1], "jax_ckpt": s14["jax_ckpt"][1], "sp": sp_results, "sp_2d": sp2d_results,
     }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -8,8 +8,9 @@ loads the latest ``<step>.pt`` in the checkpoint directory (or
 holds no ``<step>.pt`` (the generator's ``tconv_placement`` and ``norm``
 from its ``<step>.meta.json``), or with ``--reference-pt`` the reference
 ``<iteration>.pt`` file given in its place, builds the generator from it, and writes each corrected
-scan as ``<out_dir>/<name>.<format>`` (.mhd with a compressed .raw, .nii or
-.nii.gz), in f32 as the JAX command does, the host I/O overlapped with the
+scan as ``<out_dir>/<name>.<format>`` (.mhd with a compressed .raw, .nii,
+.nii.gz, or .h5 with ``--output-format h5``; the scans may be HDF5 scans,
+patients or corpus members ``corpus.h5::name`` too), in f32 as the JAX command does, the host I/O overlapped with the
 correction. Runs on the card unless ``--device cpu``, with cuDNN held to
 its deterministic algorithms: its transpose convolutions otherwise may sum
 in another order from one call to the next, and a scan corrected twice, or
@@ -19,7 +20,8 @@ sliding window for a 3D batch-norm generator, batch 24; otherwise direct,
 batch 8). ``--sharded`` splits each volume's patch grid over every
 visible card (``CCTAContrastCorrector.shard_over``; on the CPU, one
 share). The first SIGTERM or Ctrl-C finishes the volumes in flight and
-exits 0; a second one aborts. HDF5 output is not ported (ROADMAP).
+exits 0; a second one aborts. HDF5 needs h5py, which the card's machine
+lacks: an ``.h5`` path there raises ``ImportError``.
 """
 
 import argparse
@@ -55,7 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--sharded", action="store_true",
                    help="split each volume's patch grid over every visible card (keeps the layout)")
     p.add_argument("--output-format", choices=("mhd", "nii", "nii.gz", "h5"), default="mhd",
-                   help="corrected-scan format (h5 is not ported: ROADMAP, A8)")
+                   help="corrected-scan format (h5 needs h5py, which the card's machine lacks)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.reference_pt and args.iteration is not None:
@@ -66,9 +68,6 @@ def parse_args(argv=None):
 def main(argv=None) -> list:
     """Run the command in-process; returns the paths written."""
     args = parse_args(argv)
-    if args.output_format == "h5":
-        raise NotImplementedError("--output-format h5: HDF5 output: no h5py on the card's machine (ROADMAP.md, A8) "
-                                  "is not ported yet; see ROADMAP.md")
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     device = resolve_device(args.device)

@@ -5,7 +5,9 @@ patients (the port's counterpart of the JAX package's
     python -m contrast_gan_3d_tpu_torch.create_dataset patients/ out/ \\
         --n-folds 3 --seed 42
 
-For every ``<patients>/*.npy`` patient (``preprocess``'s output) it samples
+For every preprocessed patient under ``<patients>`` (``preprocess``'s
+output: ``*.npy``, standalone ``*.h5`` patients and the members of ``*.h5``
+corpus files; ``<patients>`` may itself be a corpus file) it samples
 one 19^3 patch at 0.5 mm around each ostium on the card
 (``ops/resample.sample_world_patch``), fits the Gaussian mixtures of
 ``data/labeling.py`` to all patches in one batched EM on the card, labels
@@ -14,8 +16,8 @@ each scan by its aortic-root HU (``label_ccta_scans``), and writes
 ``<out>/cross_val_splits.pkl`` (``{"train": [fold, ...], "test": [fold,
 ...]}``, the layout ``train --cval-splits`` reads). The sheet is csv: the
 JAX script writes csv too where openpyxl is missing, as on the card's
-machine. Runs on the card unless ``--device cpu``. HDF5 patients and
-corpora are not ported (h5py; ROADMAP.md, queue A item 6).
+machine. Runs on the card unless ``--device cpu``. HDF5 needs h5py, which
+the card's machine lacks.
 """
 
 import argparse
@@ -36,7 +38,8 @@ from contrast_gan_3d_tpu_torch.data.labeling import (
     pick_gmm_component,
     write_sheet,
 )
-from contrast_gan_3d_tpu_torch.data.preprocess import HDF5_NOTE, load_patient
+from contrast_gan_3d_tpu_torch.data import hdf5
+from contrast_gan_3d_tpu_torch.data.preprocess import load_patient
 from contrast_gan_3d_tpu_torch.ops.resample import sample_world_patch
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -46,14 +49,27 @@ SHEET_COLUMNS = ("ID", "path", "mu", "std", "label")
 
 
 def patient_paths(src: Path) -> list:
-    """The preprocessed ``.npy`` patients under ``src``, sorted; HDF5
-    patients or corpora raise."""
-    hdf5 = [src] if src.suffix.lower() in (".h5", ".hdf5") else sorted(src.glob("*.h5")) + sorted(src.glob("*.hdf5"))
-    if hdf5:
-        raise SystemExit(f"{hdf5[0]}: HDF5 patients are {HDF5_NOTE}")
+    """The preprocessed patients under ``src``, as the JAX script lists
+    them: the ``.npy`` files, sorted, then each ``.h5`` / ``.hdf5`` file's
+    patients (a standalone patient, or a corpus file's members), or
+    ``src``'s own when it is a corpus file. An HDF5 file of neither schema
+    (a raw scan never preprocessed) fails, as does a directory without
+    patients."""
+
+    def members_or_raise(h5_file) -> list:
+        members = hdf5.corpus_members(h5_file)
+        if not members:
+            raise SystemExit(f"{h5_file}: neither a preprocessed patient nor a corpus (no '{hdf5.SCAN_DS}' "
+                             f"datasets); raw scans go through preprocess first")
+        return members
+
+    if src.suffix.lower() in (".h5", ".hdf5"):
+        return members_or_raise(src)
     paths = [str(p) for p in sorted(src.glob("*.npy"))]
+    for h5_file in sorted(src.glob("*.h5")) + sorted(src.glob("*.hdf5")):
+        paths.extend(members_or_raise(h5_file))
     if not paths:
-        raise SystemExit(f"{src}: no preprocessed patients (.npy) found")
+        raise SystemExit(f"{src}: no preprocessed patients (.npy/.h5) found")
     return paths
 
 
@@ -70,7 +86,7 @@ def ostia_patches(patient, device) -> tuple:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("patients_dir", type=Path, help="directory of preprocessed patients (.npy)")
+    p.add_argument("patients_dir", type=Path, help="directory of preprocessed patients (.npy, .h5), or a .h5 corpus")
     p.add_argument("out_dir", type=Path)
     p.add_argument("--n-folds", type=int, default=3)
     p.add_argument("--seed", type=int, default=42)

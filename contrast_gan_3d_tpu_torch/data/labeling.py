@@ -20,8 +20,8 @@ Sheets are lists of row dicts, read and written as csv with the standard
 library (``read_sheet`` / ``write_sheet``). ``.xlsx`` needs openpyxl,
 which the card's machine lacks: reading one raises, and ``ostia_dataframe``
 writes ``.csv`` in its place, as the JAX package does without openpyxl.
-HDF5 corpus entries in folds are not expanded (h5py; ROADMAP.md, queue A
-item 6)."""
+A fold entry that names an HDF5 corpus file expands to its members under
+the entry's label (``divide_scans_in_fold``)."""
 
 import csv
 import logging
@@ -33,6 +33,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from contrast_gan_3d_tpu_torch.data import hdf5
 from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 
@@ -474,10 +475,17 @@ def cross_val_splits(n_folds: int, *dataset_paths, test_size: float = 0.2,
 
 
 def divide_scans_in_fold(fold) -> Dict[int, List]:
-    """Group a fold's (path, label) pairs by label, in fold order."""
+    """Group a fold's (path, label) pairs by label, in fold order. An entry
+    naming a whole HDF5 file expands to its patients, all under the entry's
+    label (``data/hdf5.corpus_members``; a standalone patient file is
+    itself): per-label corpus files (``opt.h5`` / ``low.h5`` /
+    ``high.h5``) are the layout a multi-host run shards."""
     out: Dict[int, List] = {}
     for path, label in fold:
-        out.setdefault(int(label), []).append(path)
+        if hdf5.is_hdf5_path(path) and hdf5.split_member(path)[1] is None:
+            out.setdefault(int(label), []).extend(hdf5.corpus_members(path))
+        else:
+            out.setdefault(int(label), []).append(path)
     return out
 
 

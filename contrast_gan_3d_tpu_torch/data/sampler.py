@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from contrast_gan_3d_tpu_torch import native
+from contrast_gan_3d_tpu_torch.native import crop_pad_int16, crop_pad_int16_reference  # noqa: F401
 from contrast_gan_3d_tpu_torch.data.preprocess import load_patient
 from contrast_gan_3d_tpu_torch.utils import geometry as geom
 
@@ -34,33 +34,6 @@ def _pad_to(volume: np.ndarray, target: Sequence[int]) -> np.ndarray:
     if any(p != (0, 0) for p in pads):
         volume = np.pad(volume, pads)
     return volume
-
-
-def crop_pad_int16(volume: np.ndarray, start, patch_size) -> np.ndarray:
-    """A zero-padded (px, py, pz, C) int16 window of the (W, H, D, C)
-    ``volume`` whose ``start`` may be negative or overhang it. A
-    C-contiguous int16 ndarray (a memmapped patient is one) goes through
-    the native crop, as in the JAX package, which reads only the window's
-    rows, so only their pages of a memmap; anything else takes the plain
-    version."""
-    if (isinstance(volume, np.ndarray) and volume.ndim == 4 and volume.dtype == np.int16
-            and volume.flags["C_CONTIGUOUS"]):
-        return native.crop_pad_int16(volume, start, patch_size)
-    return crop_pad_int16_reference(volume, start, patch_size)
-
-
-def crop_pad_int16_reference(volume: np.ndarray, start, patch_size) -> np.ndarray:
-    """The plain version of :func:`crop_pad_int16`, a numpy slice copy."""
-    px, py, pz = (int(p) for p in patch_size)
-    out = np.zeros((px, py, pz, volume.shape[3]), np.int16)
-    src_sl, dst_sl = [], []
-    for s, p, dim in zip(start, (px, py, pz), volume.shape[:3]):
-        lo, hi = max(0, int(s)), min(dim, int(s) + p)
-        src_sl.append(slice(lo, hi))
-        dst_sl.append(slice(lo - int(s), lo - int(s) + max(0, hi - lo)))
-    if all(sl.stop > sl.start for sl in src_sl):
-        out[tuple(dst_sl)] = volume[tuple(src_sl)]
-    return out
 
 
 class CCTAPatchSampler:
@@ -100,6 +73,9 @@ class CCTAPatchSampler:
         self._rng_lock = threading.Lock()
         self._patients: Dict[str, tuple] = {}
         self._patients_lock = threading.Lock()
+        # one h5py file per HDF5 corpus file, shared by its members
+        # (data/hdf5.open_patient_h5): not one descriptor per patient
+        self._h5_files: Dict[str, object] = {}
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -208,7 +184,7 @@ class CCTAPatchSampler:
             hit = self._patients.get(path)
         if hit is not None:
             return hit
-        loaded = load_patient(path)
+        loaded = load_patient(path, h5_file_cache=self._h5_files)
         with self._patients_lock:
             return self._patients.setdefault(path, loaded)
 

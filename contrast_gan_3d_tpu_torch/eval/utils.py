@@ -1,6 +1,6 @@
 """Patient-level correction (counterpart of
 ``contrast_gan_3d_tpu/eval/utils.py``): correct one patient, a raw
-.mhd/.nii scan or a preprocessed .npy patient, and write the result; or
+.mhd/.nii/.h5 scan or a preprocessed .npy/.h5 patient, and write the result; or
 stream a cohort through one corrector with the host I/O overlapped."""
 
 import logging
@@ -12,6 +12,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from contrast_gan_3d_tpu_torch.data import hdf5
 from contrast_gan_3d_tpu_torch.data.preprocess import load_patient
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
 from contrast_gan_3d_tpu_torch.utils import io_utils
@@ -24,10 +25,21 @@ INT16 = np.iinfo(np.int16)
 
 def load_patient_or_scan(patient_path):
     """A raw image file or a preprocessed patient -> ((W, H, D) int16, meta).
-    HDF5 patients and scans raise ``NotImplementedError`` (ROADMAP, A8)."""
+    An ``.h5`` path is an HDF5 patient or corpus member (``scan_and_mask``,
+    ``data/hdf5.py``) or a raw HDF5 scan (``image``): the patient schema is
+    probed first. A member address names a patient only, so a missing
+    member raises the ``KeyError`` that lists the members there are."""
     p = str(patient_path)
     if p.lower().endswith(_SCAN_SUFFIXES):
         return io_utils.load_scan(p)
+    if hdf5.is_hdf5_path(p):
+        try:
+            scan_and_mask, meta = hdf5.open_patient_h5(p)
+        except KeyError:
+            if hdf5.split_member(p)[1] is not None:
+                raise
+            return io_utils.load_scan(p)
+        return np.asarray(scan_and_mask[..., 0]), meta
     scan_and_mask, meta = load_patient(p)
     return np.array(scan_and_mask[..., 0]), meta  # read out of the memmap
 
@@ -46,7 +58,7 @@ def _savepath(savedir, patient_path, suffix: str) -> Path:
 
 def correct_patient(corrector: CCTAContrastCorrector, savedir, patient_path, suffix: str = ".mhd") -> Path:
     """Correct one patient and write ``<savedir>/<name><suffix>`` (.mhd,
-    .nii or .nii.gz)."""
+    .nii, .nii.gz or .h5)."""
     scan, meta = load_patient_or_scan(patient_path)
     savepath = _savepath(savedir, patient_path, suffix)
     corrector.save(device_int16(corrector(scan)), savepath, meta)

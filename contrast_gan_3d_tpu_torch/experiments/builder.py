@@ -32,7 +32,8 @@ What the JAX builder chooses automatically, the port resolves so:
   as without it, but where a slab of the packed layout would not hold
   whole blocks at every stage (``models/generator.packed_slab_note``):
   "auto" is then "direct" (logged) and an explicit "packed" raises,
-  naming the slabs' rows. The 2D family raises, naming ROADMAP A10a-2d;
+  naming the slabs' rows. The 2D family splits its slices' first dim (H
+  of NCHW) the same way, on the direct layout;
 - ``augment_backend="device"`` -> ``StepConfig.augment``; ``"host"`` -> a
   ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
   JAX builder falls back to the device augmentation where its native
@@ -68,7 +69,6 @@ from contrast_gan_3d_tpu_torch.data.augment import Augment2DConfig, AugmentConfi
 from contrast_gan_3d_tpu_torch.data.host_augment import HostAugmenter, HostAugmenter2D
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
 from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
-from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator, packed_slab_note
 from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
@@ -186,8 +186,6 @@ def _check_portable(cfg: ExperimentConfig):
     """Raise for what the port does not run."""
     if cfg.logger == "tensorboard" or (cfg.logger == "wandb" and has_wandb()):
         raise NotImplementedError(f"{cfg.name}: the {cfg.logger} logger {ROADMAP_NOTE}")
-    if cfg.sp_devices and cfg.is_2d:
-        raise NotImplementedError(f"{cfg.name}: {SP_2D_NOTE}")
     if cfg.augment_backend not in ("host", "device"):
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
     if cfg.logger not in ("file", "console", "none", "wandb"):

@@ -24,15 +24,16 @@ the backward (flax ``nn.remat``), with BatchNorm's running statistics and
 dropout's masks as the forward left them (the recomputation runs the halo
 exchanges again, in the forward's order on every rank).
 
-Spatial partitioning (3D, ``mesh.space`` > 1, ``models/norm.set_mesh``):
-``ConvBlock.forward(x, rows)`` takes an X-slab of a tensor whose global
-extent along X is ``rows`` and returns this rank's slab of the output
+Spatial partitioning (2D or 3D, ``mesh.space`` > 1,
+``models/norm.set_mesh``): ``ConvBlock.forward(x, rows)`` takes an
+X-slab (dim 2, H of an NCHW slice) of a tensor whose global extent along
+X is ``rows`` and returns this rank's slab of the output
 (``out_rows(rows)`` rows): the conv runs VALID along X on the slab
 extended by its halo (``parallel/spatial.halo_input``: the neighbours'
-rows, the layer's padding only at the global ends), padded along Y and Z
-as without a mesh. A stride-2 conv's slab starts wherever its output rows
-start; a transpose conv takes the input rows its window reads, on the
-side ``tconv_placement`` puts it; ``S2DConv`` runs B3 on the extended
+rows, the layer's padding only at the global ends), padded along the
+other spatial dims as without a mesh. A stride-2 conv's slab starts
+wherever its output rows start; a transpose conv takes the input rows its
+window reads, on the side ``tconv_placement`` puts it; ``S2DConv`` runs B3 on the extended
 slab (``s2d_conv3d_block(halo=True)``, whatever its rows) where Y and Z
 divide f. The norms count and sum over the global extent, dropout keeps
 its slab of the whole patch's mask. ``rows`` None is the unpartitioned
@@ -52,9 +53,6 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import s2d_conv3d_block
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import d2s_tconv3d, reflect_pad
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 from contrast_gan_3d_tpu_torch.parallel.spatial import conv_rows, conv_window, halo_input, tconv_window
-
-SP_2D_NOTE = "spatial partitioning of the 2D family is not ported yet; see ROADMAP.md, A10a-2d"
-
 
 class S2DConv(nn.Conv3d):
     """Stride-1 SAME 3D conv computed via space-to-depth and the block-conv
@@ -141,13 +139,15 @@ def _conv_forward(conv, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_valid_x(conv, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``conv``'s convolution of an extended X-slab, no bias: VALID along
-    X, padded along Y and Z as ``conv`` pads."""
+    """``conv``'s convolution of an extended X-slab (NCDHW or NCHW), no
+    bias: VALID along X, padded along the other spatial dims as ``conv``
+    pads."""
     p = conv.padding[1:]
     if conv.padding_mode == "reflect":
         x = reflect_pad(x, [(q, q) for q in p], dims=range(3, x.dim()))
-        p = (0, 0)
-    return torch.conv3d(x, w, None, conv.stride, (0, *p), conv.dilation, conv.groups)
+        p = (0,) * len(p)
+    fn = torch.conv3d if x.dim() == 5 else torch.conv2d
+    return fn(x, w, None, conv.stride, (0, *p), conv.dilation, conv.groups)
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -261,8 +261,6 @@ class ConvBlock(nn.Module):
     def _conv_slab(self, x: torch.Tensor, rows: int) -> torch.Tensor:
         """This rank's output rows of the conv of the X-slab ``x`` of a
         global extent ``rows`` (see the module docstring)."""
-        if self.ndim != 3:
-            raise NotImplementedError(SP_2D_NOTE)
         conv = self.conv
         k, s = conv.kernel_size[0], conv.stride[0]
         n_out = self.out_rows(rows)
@@ -285,8 +283,10 @@ class ConvBlock(nn.Module):
             if self.transpose:
                 # the full transpose conv of the slab starts at global row s * first
                 lo, start = self.tconv_offset, o0 + self.tconv_offset - s * first
-                y = torch.conv_transpose3d(x, w, stride=s)
-                y = y[:, :, start : start + count, lo : lo + s * x.shape[3], lo : lo + s * x.shape[4]]
+                tconv = torch.conv_transpose3d if self.ndim == 3 else torch.conv_transpose2d
+                y = tconv(x, w, stride=s)
+                y = y[(slice(None), slice(None), slice(start, start + count))
+                      + tuple(slice(lo, lo + s * n) for n in x.shape[3:])]
             else:
                 y = _conv_valid_x(conv, x, w)
             y = _add_bias(y, None if conv.bias is None else conv.bias.to(self.dtype))

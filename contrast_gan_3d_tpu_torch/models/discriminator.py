@@ -14,10 +14,12 @@ dtype (``models/blocks.py``); the logits come out in it. ``remat=True``
 recomputes each block's activations in the backward
 (``models/blocks.remat``), as the JAX critic's ``nn.remat`` blocks are,
 through the gradient penalty's double backward too. Under spatial
-partitioning (``mesh.space`` > 1, 3D) x is this rank's X-slab of the
-patches and the logits are its slab of the logit map, which need not
-split evenly (a 4^3 stride-1 last conv leaves X/8 - 1 rows at depth 1);
-the blocks exchange their halos (``models/blocks.py``).
+partitioning (``mesh.space`` > 1, 2D or 3D) x is this rank's X-slab of
+the patches and the logits are its slab of the logit map, which need not
+split evenly (a 4^ndim stride-1 last conv leaves X/8 - 1 rows at depth 1,
+15 over 7 / 8 at depth 3 on 128^2 slices): a rank left without logit rows
+computes a phantom row and keeps none (``parallel/spatial.py``); the
+blocks exchange their halos (``models/blocks.py``).
 """
 
 from typing import Optional

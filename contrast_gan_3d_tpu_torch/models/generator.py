@@ -44,8 +44,9 @@ does.
 block. It trades time for memory; the results are the same.
 
 Under spatial partitioning (``mesh.space`` S > 1, set by
-``models/norm.set_mesh``; 3D) x is this rank's X-slab of the patches,
-``(B, 1, X/S, Y, Z)``, and so is the output. In the direct layout every
+``models/norm.set_mesh``) x is this rank's X-slab of the patches,
+``(B, 1, X/S, Y, Z)`` or, in 2D, ``(B, 1, X/S, Y)``, and so is the
+output. In the direct layout every
 block exchanges its conv halos with the other slabs (``models/
 blocks.py``), and the stem and the projection run B3 -> B1 on each
 extended slab, whatever its rows, where Y and Z divide 4. In the packed
@@ -53,8 +54,8 @@ layout each slab must hold whole blocks at every stage
 (:func:`packed_slab_note`): the stages exchange halos in block rows
 (``ops/packed.packed_conv3d_padded`` / ``packed_tconv3d`` under the
 mesh), reflect only at the global ends, and normalise over the global
-count; the ResNet blocks take their direct slabs. The 2D family raises there (ROADMAP
-A10a-2d).
+count; the ResNet blocks take their direct slabs. The 2D family has the
+direct layout only; its convs are cuDNN's on every slab.
 """
 
 from typing import Optional
@@ -62,7 +63,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from contrast_gan_3d_tpu_torch.models.blocks import SP_2D_NOTE, ConvBlock, ResNetBlock, remat
+from contrast_gan_3d_tpu_torch.models.blocks import ConvBlock, ResNetBlock, remat
 from contrast_gan_3d_tpu_torch.models.utils import init_like_flax
 from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d_padded, packed_tconv3d
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
@@ -193,8 +194,6 @@ class ResnetGenerator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # under spatial partitioning: the patches' global extent along X
         rows = x.shape[2] * self.mesh.space if self.mesh.space > 1 else None
-        if rows is not None and self.ndim != 3:
-            raise NotImplementedError(SP_2D_NOTE)
         if self.layout == "packed":
             return self.forward_packed(x, self.packed_input, self.packed_output)
         blocks = (self.first, *(getattr(self, f"down_{i}") for i in range(self.n_updownsample_blocks)),

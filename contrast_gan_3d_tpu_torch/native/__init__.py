@@ -151,13 +151,31 @@ def warp_num_threads() -> int:
     return int(load().warp_num_threads())
 
 
+def crop_pad_int16_reference(volume, start, patch_size) -> np.ndarray:
+    """The plain version of :func:`crop_pad_int16`: one numpy slice of the
+    window clipped to the volume, copied into zeros (a windowed read on
+    any sliceable array)."""
+    px, py, pz = (int(p) for p in patch_size)
+    out = np.zeros((px, py, pz, volume.shape[3]), np.int16)
+    src_sl, dst_sl = [], []
+    for s, p, dim in zip(start, (px, py, pz), volume.shape[:3]):
+        lo, hi = max(0, int(s)), min(dim, int(s) + p)
+        src_sl.append(slice(lo, hi))
+        dst_sl.append(slice(lo - int(s), lo - int(s) + max(0, hi - lo)))
+    if all(sl.stop > sl.start for sl in src_sl):
+        out[tuple(dst_sl)] = volume[tuple(src_sl)]
+    return out
+
+
 def crop_pad_int16(volume: np.ndarray, start, patch_size, out: Optional[np.ndarray] = None) -> np.ndarray:
-    """A zero-padded (px, py, pz, C) window of the C-contiguous (W, H, D, C)
-    int16 ``volume`` whose ``start`` may be negative or overhang it. Only
-    the window's rows are read, so on a memmap only their pages fault in."""
-    if not (isinstance(volume, np.ndarray) and volume.ndim == 4 and volume.dtype == np.int16
-            and volume.flags["C_CONTIGUOUS"]):
-        raise ValueError("crop_pad_int16 takes a C-contiguous (W, H, D, C) int16 ndarray")
+    """A zero-padded (px, py, pz, C) window of the (W, H, D, C) int16
+    ``volume`` whose ``start`` may be negative or overhang it. Only the
+    window's rows are read: a C-contiguous ndarray goes through the C crop
+    (on a memmap only the window's pages fault in); any other sliceable
+    array (an h5py dataset, a strided view) through one windowed read of
+    the clipped window (on an h5py dataset only the chunks it touches)."""
+    if not (volume.ndim == 4 and volume.dtype == np.int16):
+        raise ValueError(f"crop_pad_int16 takes a (W, H, D, C) int16 array, not {volume.dtype} {volume.shape}")
     px, py, pz = (int(p) for p in patch_size)
     C = volume.shape[3]
     if out is None:
@@ -166,6 +184,9 @@ def crop_pad_int16(volume: np.ndarray, start, patch_size, out: Optional[np.ndarr
         # the C code memsets and writes px*py*pz*C int16s through out's
         # pointer: a wrong buffer would be heap corruption, not an error
         raise ValueError(f"out must be a C-contiguous int16 array of shape {(px, py, pz, C)}")
+    if not (isinstance(volume, np.ndarray) and volume.flags["C_CONTIGUOUS"]):
+        out[...] = crop_pad_int16_reference(volume, start, patch_size)
+        return out
     load().crop_pad_int16(volume.ctypes.data, *(int(d) for d in volume.shape),
                           int(start[0]), int(start[1]), int(start[2]), px, py, pz, out.ctypes.data)
     return out

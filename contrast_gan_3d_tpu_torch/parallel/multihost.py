@@ -11,13 +11,12 @@ split each of its batches:
 - :func:`initialize` joins the process group from torchrun's environment
   (NCCL with a card, gloo without);
 - :func:`host_fold_shard` gives each host a disjoint round-robin share of
-  every label's patients (each host samples only its shard);
+  every label's patients, HDF5 corpus files expanded to their members
+  first (the sharded HDF5 corpus: each host reads only its members);
 - :func:`host_local_batch_slice` is the slice of a global batch a host
   loads.
 
 The rank's device and its share of a host batch are ``parallel/mesh.py``'s.
-HDF5 corpora in a fold are not expanded (ROADMAP.md, queue A item 6): a
-fold here holds plain patient files.
 """
 
 import logging
@@ -27,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from contrast_gan_3d_tpu_torch.data.hdf5 import shard_members
 from contrast_gan_3d_tpu_torch.data.labeling import divide_scans_in_fold
 
 logger = logging.getLogger(__name__)
@@ -73,8 +73,10 @@ def host_local_batch_slice(global_batch: int, host_index: Optional[int] = None,
 
 def host_fold_shard(fold, host_index: Optional[int] = None, host_count: Optional[int] = None) -> List:
     """This host's share of a fold's (path, label) entries: every label's
-    patients dealt round-robin over the hosts (``paths[h::H]``), so the
-    hosts sample disjoint patients with balanced label mixes. Every host
+    patients (an HDF5 corpus file's members, ``divide_scans_in_fold``)
+    dealt round-robin over the hosts (``paths[h::H]``,
+    ``data/hdf5.shard_members``), so the hosts sample disjoint patients
+    with balanced label mixes and none opens another's members. Every host
     needs every label's stream: a label with fewer patients than hosts
     raises."""
     h, n = host_topology()
@@ -82,7 +84,7 @@ def host_fold_shard(fold, host_index: Optional[int] = None, host_count: Optional
     n = n if host_count is None else host_count
     shard = []
     for label, paths in divide_scans_in_fold(fold).items():
-        mine = list(paths[h::n])
+        mine = shard_members(paths, h, n)
         if not mine:
             raise ValueError(f"label {label} has {len(paths)} patients, too few for {n} hosts (host {h} would have "
                              f"an empty stream)")

@@ -6,12 +6,13 @@ mesh shards a conv's input over its ``space`` axis,
 Under a :class:`~contrast_gan_3d_tpu_torch.parallel.mesh.DataMesh` with
 ``space`` S > 1 the S ranks of a data index hold the same samples, each the
 rows ``bounds(n, S, index)`` of the first spatial dim (X, dim 2 of an
-NCDHW activation) of every tensor whose global extent there is n. A conv
+NCDHW activation, or of an NCHW slice of the 2D family) of every tensor
+whose global extent there is n. A conv
 layer computes the output rows its rank holds: it asks for the input rows
 those read (``conv_window`` / ``tconv_window``), gets them from its own
 slab, from the other ranks' slabs (the halo) and, outside ``[0, n)``, from
 the layer's padding (``halo_extend``), and runs VALID along X on that
-extended slab (padded along Y and Z as on one device). Reflect padding
+extended slab (padded along the other spatial dims as on one device). Reflect padding
 therefore happens only at the global ends of X, on the first and the last
 slab; every interior boundary takes the neighbour's voxels, and a slab
 narrower than the halo takes rows from beyond its neighbour. The packed
@@ -39,7 +40,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-SLAB_DIM = 2  # X of an NCDHW activation
+SLAB_DIM = 2  # X of an NCDHW activation (H of an NCHW slice)
 
 
 def bounds(n: int, parts: int, index: int) -> Tuple[int, int]:

@@ -9,11 +9,16 @@ Expected layout per patient (ASOCA/MMWHS style):
   <root>/<name>/ostia.xml                  MeVisLab ostia markers
 
 Each scan becomes ``<out_dir>/<name>.npy`` + ``<name>_meta.pkl``
-(``data/preprocess.create_patient``), what the train CLI's splits name.
-``--out-spacing`` resamples on the card unless ``--device cpu``. A scan
-without its centerline folder or ostia file is skipped with a warning; a
-scan that fails is logged and the others go on. HDF5 output (``--format
-h5``, ``--h5-chunks``) is not ported (ROADMAP.md, queue A item 6).
+(``data/preprocess.create_patient``), what the train CLI's splits name;
+``--format h5`` writes a standalone ``<name>.h5`` each, and an ``out_dir``
+ending in ``.h5`` packs every patient into that one corpus file
+(``data/hdf5.py``; both need h5py, which the card's machine lacks).
+``--h5-chunks`` sets the HDF5 chunk shape (z-thin, e.g. ``64 64 1 2``, for
+corpora the 2D slice samplers read). ``--out-spacing`` resamples on the
+card unless ``--device cpu``. A scan without its centerline folder or
+ostia file is skipped with a warning; a scan that fails is logged and the
+others go on. ``--shard I/N`` runs one of N jobs: give each its own corpus
+file (a corpus file has one writer at a time).
 """
 
 import argparse
@@ -21,7 +26,7 @@ import logging
 import sys
 from pathlib import Path
 
-from contrast_gan_3d_tpu_torch.data.preprocess import HDF5_NOTE, create_patient
+from contrast_gan_3d_tpu_torch.data.preprocess import create_patient
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 from contrast_gan_3d_tpu_torch.utils.io_utils import stem
 
@@ -31,19 +36,22 @@ logger = logging.getLogger("contrast_gan_3d_tpu_torch.preprocess")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("root", type=Path, help="dataset root")
-    p.add_argument("out_dir", type=Path, help="output directory for patients")
+    p.add_argument("out_dir", type=Path, help="output directory for patients, or a .h5 corpus file for all of them")
     p.add_argument("--glob", default="*.mhd", help="scan file glob")
-    p.add_argument("--format", choices=("npy", "h5"), default="npy", help="patient storage (h5 is not ported)")
+    p.add_argument("--format", choices=("npy", "h5"), default="npy",
+                   help="per-patient storage: .npy + pickle, or standalone HDF5 (a .h5 out_dir is a corpus either way)")
     p.add_argument("--out-spacing", type=float, nargs="+", default=None, metavar="MM",
                    help="resample scans to this spacing (1 value = isotropic, or 3 per-axis mm) before packing; "
                         "default keeps native spacing like the reference")
     p.add_argument("--h5-chunks", type=int, nargs=4, default=None, metavar=("CX", "CY", "CZ", "CC"),
-                   help="HDF5 chunk shape (not ported)")
+                   help="HDF5 chunk shape (default 64 64 64 C); 2D slice corpora want z-thin chunks, e.g. 64 64 1 2")
     p.add_argument("--shard", default=None, metavar="I/N", help="process only scans[i::n]")
     p.add_argument("--device", default="cuda", help="where --out-spacing resamples: cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.format == "h5" or args.h5_chunks is not None or args.out_dir.suffix.lower() in (".h5", ".hdf5"):
-        p.error(f"HDF5 output (--format h5, --h5-chunks, a .h5 out_dir) is {HDF5_NOTE}")
+    if args.h5_chunks is not None and args.format != "h5" and args.out_dir.suffix.lower() not in (".h5", ".hdf5"):
+        # .npy patients have no chunks: a silent no-op would leave a cohort
+        # its user believes slice-read-optimised
+        p.error("--h5-chunks needs --format h5 or a .h5 corpus out_dir (.npy patients are not chunked)")
     if args.out_spacing is not None and len(args.out_spacing) not in (1, 3):
         p.error(f"--out-spacing takes 1 or 3 values, got {len(args.out_spacing)}")
     args.shard_of = None
@@ -59,7 +67,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> list:
-    """Run the command in-process; returns the patients' ``.npy`` paths."""
+    """Run the command in-process; returns the patients' paths (``.npy``,
+    ``.h5`` or ``corpus.h5::name``)."""
     args = parse_args(argv)
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
@@ -83,7 +92,9 @@ def main(argv=None) -> list:
             logger.warning("Skipping %s: missing centerlines dir or ostia.xml", scan)
             continue
         try:
-            written.append(create_patient(scan, pdir, ostia, args.out_dir, out_spacing=out_spacing, device=device))
+            written.append(create_patient(scan, pdir, ostia, args.out_dir, out_spacing=out_spacing, fmt=args.format,
+                                          h5_chunks=tuple(args.h5_chunks) if args.h5_chunks else None,
+                                          device=device))
         except Exception as e:  # one bad scan must not stop the batch
             logger.exception("FAILED %s: %s", scan, e)
             failures.append(scan)

@@ -19,11 +19,13 @@ loaders and keeps its share of each batch. Outside torchrun the command
 starts the N ranks itself; under ``torchrun --nproc-per-node N`` each
 process is one. ``--multihost`` joins torchrun's multi-node group (and
 implies ``--dp-devices 0``): each host samples its round-robin share of
-the fold (``multihost.host_fold_shard``) and its ranks split that host's
-batches. Train batches are rounded up to multiples of the data-parallel
+the fold (``multihost.host_fold_shard``; a fold entry naming an HDF5
+corpus file is dealt by its members, so each host reads only its own) and
+its ranks split that host's batches. Train batches are rounded up to multiples of the data-parallel
 ranks, as JAX's CLI rounds them. On the CPU (``--device cpu``) the ranks
 are gloo processes. ``--sp-devices S`` (JAX's dp x sp mesh) also splits
-each patch's first dim over S ranks, which exchange conv halos
+each patch's first dim (each 2D slice's, for the 2D presets) over S ranks,
+which exchange conv halos
 (``parallel/spatial.py``): ``D x S`` ranks in all, D from ``--dp-devices``
 (1 when neither it nor the config sets it; 0: every visible card over
 S), one card each (NCCL), gloo processes on the CPU. The first dims of

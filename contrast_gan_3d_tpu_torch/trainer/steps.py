@@ -56,11 +56,12 @@ gradient of the sum of the ranks' equal losses). Weight clipping runs on
 every rank, and the metrics are the global values. The state's networks
 must start equal on every rank (``init_state`` broadcasts rank 0's).
 
-Spatial partitioning (a mesh with ``space`` S > 1, JAX's dp x sp mesh,
-3D, either generator layout): each rank still passes its data index's share of
-whole patches; the step augments them whole, scales them, and keeps its
-X-slab (``parallel/spatial.split_slab``), so the draws are those of the
-one-rank step. The networks exchange conv halos between the slabs, and
+Spatial partitioning (a mesh with ``space`` S > 1, JAX's dp x sp mesh;
+3D on either generator layout, 2D slices on the direct one): each rank
+still passes its data index's share of whole patches or slices; the step
+augments them whole (the 2D rotation and mirroring too), scales them, and
+keeps its X-slab (``parallel/spatial.split_slab``: the first dim of each
+patch or slice), so the draws are those of the one-rank step. The networks exchange conv halos between the slabs, and
 the norms and losses reduce with global counts; the val steps return the
 corrected batch and the attenuation whole again (``gather_slab``).
 """

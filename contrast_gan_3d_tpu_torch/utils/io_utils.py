@@ -3,9 +3,11 @@ readers and writers in ``contrast_gan_3d_tpu/utils/io_utils.py``).
 
 Reads .mhd/.mha and .nii/.nii.gz volumes, reorients them to LPS in index
 order (W, H, D), casts to int16 and shifts/clips into [MIN_HU, MAX_HU];
-writes compressed .mhd (with a .raw data file), .mha and .nii(.gz).
-HDF5 images raise ``NotImplementedError``: the card's machine has no h5py
-(ROADMAP, A8). Parses the centerline point clouds (``vessel*.txt``), the
+writes compressed .mhd (with a .raw data file), .mha and .nii(.gz). Reads
+and writes HDF5 scans (an ``image`` dataset in index order with
+``spacing`` / ``offset`` / ``direction`` attributes, the JAX package's
+schema) through h5py, imported only for an ``.h5`` path: the card's
+machine has no h5py, and there such a path raises ``ImportError``. Parses the centerline point clouds (``vessel*.txt``), the
 MeVisLab ostia markers (``ostia.xml``) and ASOCA annotation files.
 """
 
@@ -23,7 +25,6 @@ from contrast_gan_3d_tpu_torch.constants import MAX_HU, MIN_HU, ORIENTATION
 logger = logging.getLogger(__name__)
 
 PathLike = Union[str, Path]
-HDF5_NOTE = "not ported: HDF5 images need h5py, which the card's machine lacks (see ROADMAP.md, A8)"
 
 # ---------------------------------------------------------------------------
 # path helpers
@@ -391,6 +392,37 @@ def _is_hdf5(name: str) -> bool:
     return name.endswith((".h5", ".hdf5"))
 
 
+def read_hdf5_image(path: PathLike) -> Tuple[np.ndarray, Dict]:
+    """A raw volume stored in HDF5: dataset ``image`` in index order (x, y,
+    z), attributes ``spacing`` / ``offset`` / ``direction`` (default 1 mm,
+    0, identity, as :func:`read_mhd`'s)."""
+    from contrast_gan_3d_tpu_torch.data.hdf5 import h5py_module
+
+    with h5py_module().File(str(path), "r") as fd:
+        if "image" not in fd:
+            raise ValueError(f"{path}: no 'image' dataset (HDF5 scan schema)")
+        array = np.asarray(fd["image"])
+        ndims = array.ndim
+        attrs = fd["image"].attrs
+        spacing = np.asarray(attrs.get("spacing", np.ones(ndims)), np.float64)
+        origin = np.asarray(attrs.get("offset", np.zeros(ndims)), np.float64)
+        direction = np.asarray(attrs.get("direction", np.eye(ndims)), np.float64).reshape(ndims, ndims)
+    return array, {"spacing": spacing, "offset": origin, "direction": direction}
+
+
+def write_hdf5_image(volume_xyz: np.ndarray, path: PathLike, spacing=None, origin=None, direction=None,
+                     compression: Optional[str] = None):
+    """Write a raw volume in :func:`read_hdf5_image`'s schema."""
+    from contrast_gan_3d_tpu_torch.data.hdf5 import h5py_module
+
+    ndims = volume_xyz.ndim
+    with h5py_module().File(str(path), "w") as fd:
+        ds = fd.create_dataset("image", data=volume_xyz, compression=compression)
+        ds.attrs["spacing"] = np.asarray(np.ones(ndims) if spacing is None else spacing, np.float64)
+        ds.attrs["offset"] = np.asarray(np.zeros(ndims) if origin is None else origin, np.float64)
+        ds.attrs["direction"] = np.asarray(np.eye(ndims) if direction is None else direction, np.float64)
+
+
 def read_image(path: PathLike) -> Tuple[np.ndarray, Dict]:
     name = str(path).lower()
     if name.endswith((".mhd", ".mha")):
@@ -398,7 +430,7 @@ def read_image(path: PathLike) -> Tuple[np.ndarray, Dict]:
     if name.endswith((".nii", ".nii.gz")):
         return read_nifti(path)
     if _is_hdf5(name):
-        raise NotImplementedError(f"{path}: {HDF5_NOTE}")
+        return read_hdf5_image(path)
     raise ValueError(f"Unsupported image format: {path}")
 
 
@@ -419,7 +451,15 @@ def read_image_meta(path: PathLike) -> Dict:
             h = _parse_nifti_header(fd.read(348), path)
         return dict(h["meta"], shape=h["shape"])
     if _is_hdf5(name):
-        raise NotImplementedError(f"{path}: {HDF5_NOTE}")
+        from contrast_gan_3d_tpu_torch.data.hdf5 import h5py_module
+
+        with h5py_module().File(path, "r") as fd:
+            ds = fd["image"]
+            ndims = ds.ndim
+            return {"spacing": np.asarray(ds.attrs.get("spacing", np.ones(ndims))),
+                    "offset": np.asarray(ds.attrs.get("offset", np.zeros(ndims))),
+                    "direction": np.asarray(ds.attrs.get("direction", np.eye(ndims))),
+                    "shape": tuple(int(s) for s in ds.shape)}
     raise ValueError(f"Unsupported image format: {path}")
 
 
@@ -468,7 +508,7 @@ def save_scan(
     direction: Optional[np.ndarray] = None,
 ):
     """Write a (W, H, D) volume as int16: compressed .mhd by default,
-    NIfTI for a .nii / .nii.gz ``savepath``. ``direction`` is the LPS
+    NIfTI for a .nii / .nii.gz ``savepath``, HDF5 for a .h5 / .hdf5 one. ``direction`` is the LPS
     direction matrix to write (pass the loaded ``meta["direction"]`` to keep
     an oblique frame)."""
     volume_whd = volume_whd.astype(np.int16)
@@ -476,7 +516,7 @@ def save_scan(
     if name.endswith((".nii", ".nii.gz")):
         write_nifti(volume_whd, savepath, spacing=spacing, origin=offset, direction=direction)
     elif _is_hdf5(name):
-        raise NotImplementedError(f"{savepath}: {HDF5_NOTE}")
+        write_hdf5_image(volume_whd, savepath, spacing=spacing, origin=offset, direction=direction)
     else:
         write_mhd(volume_whd, savepath, spacing=spacing, origin=offset, direction=direction)
 

@@ -18,7 +18,8 @@ algorithms on the card); the JAX script's two race for the sampler.
 ``--eval-cohort N`` also writes N held-out raw LOW scans and OPT anchors
 in the raw layout ``preprocess`` reads, the corrected LOW files, and
 ``original_list.json`` / ``corrected_list.json`` for ``eval_hu_shift``.
-``--data-format h5`` is not ported (ROADMAP.md, queue A item 6).
+``--data-format h5`` writes the cohort into one HDF5 corpus file and trains
+from its members (h5py, absent on the card's machine).
 """
 
 import argparse
@@ -32,7 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from contrast_gan_3d_tpu_torch.data.pipeline import create_loaders
-from contrast_gan_3d_tpu_torch.data.preprocess import HDF5_NOTE, write_patient
+from contrast_gan_3d_tpu_torch.data.preprocess import write_patient
 from contrast_gan_3d_tpu_torch.eval.corrector import CCTAContrastCorrector
 from contrast_gan_3d_tpu_torch.experiments.builder import build
 from contrast_gan_3d_tpu_torch.experiments.config import load_config
@@ -103,12 +104,11 @@ def parse_args(argv=None):
                    help="also write N held-out raw LOW scans, correct them, and write the eval lists")
     p.add_argument("--p-centerline-3d", type=float, default=0.0,
                    help="fraction of train crops centred on centerline points")
-    p.add_argument("--data-format", choices=("npy", "h5"), default="npy", help="patient storage (h5 is not ported)")
+    p.add_argument("--data-format", choices=("npy", "h5"), default="npy",
+                   help="patient storage driving the run (h5: one corpus file end to end; needs h5py)")
     p.add_argument("--seed", type=int, default=None, help="training seed override (the cohort stays fixed)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.data_format == "h5":
-        p.error(f"--data-format h5 is {HDF5_NOTE}")
     if args.family == "2d" and args.gp:
         p.error("--family 2d validates the weight-clip conf_2d stack")
     return args
@@ -128,10 +128,11 @@ def main(argv=None) -> dict:
     shape = tuple(args.shape)
     rng = np.random.default_rng(0)
     fold = []
+    out_store = tmp / ("data/corpus.h5" if args.data_format == "h5" else "data")
     for label, hu in VESSEL_HU.items():
         for i in range(3):
             vol, mask, meta = synth_patient(rng, shape, hu)
-            fold.append((str(write_patient(vol, mask, meta, f"s{label}_{i}", tmp / "data")), label))
+            fold.append((str(write_patient(vol, mask, meta, f"s{label}_{i}", out_store)), label))
 
     is_2d = args.family == "2d"
     cfg = replace(

@@ -4,6 +4,7 @@ kept as the origin of the C9 numbers in PERF.md. It imports only the port.
 
     python tests/mesh_grad_bisect.py
     python tests/mesh_grad_bisect.py --dtypes float32 --patch 64 64 64 --meshes 1x2
+    python tests/mesh_grad_bisect.py --family 2d --patch 64 64 --mix 32 16 16 --meshes 1x2
 
 One ``combined_step`` of basic_3d's full-width networks (the direct
 generator, 1,035,297 parameters; the critic, batch norm for weight clip
@@ -15,6 +16,9 @@ run under deterministic algorithms, in each dtype (float64 runs the
 generator's stem and projection as plain convs: B3 -> B1's plain version
 accumulates in f32, as the kernel does). The default patch,
 32^3, is the smallest the step takes (the critic's logits need 32 rows).
+``--family 2d`` runs conf_2d's networks instead (6 ResNet blocks, the
+16-channel critic, ``ndim=2``; the 2D family has no stem kernel) on 2D
+slices (``--patch`` of two dims, 32^2 the smallest).
 Per run it prints, for each network, the largest ``max |g_mesh - g_one| /
 max |g_one|`` over the leaves (the card's gate, ``chip_smoke.py``'s
 ``DP_GRAD_REL``) and the leaf that reaches it, and the largest relative
@@ -56,14 +60,17 @@ def patches(patch, mix, seed=48):
 
 def step(mode: str, dtype: str, batch: dict, mesh=LOCAL) -> dict:
     """One deterministic ``combined_step``: metrics and gradients by
-    network and name."""
+    network and name (conf_2d's networks for 2D slices)."""
     spec, dt = MODES[mode], DTYPES[dtype]
+    flat = batch[OPT]["data"].ndim == 3
     torch.manual_seed(SEED)
     # B1's plain version accumulates in f32, as the kernel does: float64
     # takes the stem's and the projection's plain convs (the same function)
-    gen = ResnetGenerator(layout="direct", dtype=dt, s2d_factor=4 if dt == torch.float32 else None).to(dt)
+    gen_kw = dict(ndim=2, n_resnet_blocks=6) if flat else dict(s2d_factor=4 if dt == torch.float32 else None)
+    gen = ResnetGenerator(layout="direct", dtype=dt, **gen_kw).to(dt)
     torch.manual_seed(SEED + 1)
-    critic = PatchGANDiscriminator(norm=spec["norm"], dtype=dt).to(dt)
+    critic = PatchGANDiscriminator(norm=spec["norm"], dtype=dt, **(dict(ndim=2, init_channels_out=16) if flat
+                                                                    else {})).to(dt)
     tx = partial(make_optimizer, "adam", lr=spec["lr"], betas=spec["betas"])
     trainer = Trainer(gen, critic, tx, tx, StepConfig(weight_clip=spec["weight_clip"], dtype=dt),
                       TrainerConfig(), seed=SEED, device="cpu", mesh=mesh)
@@ -96,13 +103,18 @@ def worst(got: dict, want: dict) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--patch", type=int, nargs=3, default=(32, 32, 32))
+    p.add_argument("--family", choices=("3d", "2d"), default="3d")
+    p.add_argument("--patch", type=int, nargs="+", default=None, help="default 32^3, or 32^2 with --family 2d")
     p.add_argument("--mix", type=int, nargs=3, default=(6, 3, 3))
     p.add_argument("--dtypes", nargs="+", default=["float64", "float32"], choices=sorted(DTYPES))
     p.add_argument("--modes", nargs="+", default=["wc", "gp"], choices=sorted(MODES))
     p.add_argument("--meshes", nargs="+", default=["1x2", "2x1"])
     args = p.parse_args(argv)
     torch.set_num_threads(4)
+    if args.patch is None:
+        args.patch = [32] * (2 if args.family == "2d" else 3)
+    if len(args.patch) != (2 if args.family == "2d" else 3):
+        p.error(f"--patch takes {2 if args.family == '2d' else 3} dims for --family {args.family}")
     batch = patches(tuple(args.patch), tuple(args.mix))
     for dtype in args.dtypes:
         for mode in args.modes:

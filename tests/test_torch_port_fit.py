@@ -122,9 +122,13 @@ def test_patients_round_trip_like_jax(tmp_path, rng):
     assert Path(tp).read_bytes() == Path(jp).read_bytes()
     assert set(tm) == set(jm) and tm["name"] == "p"
     np.testing.assert_array_equal(tm["centerlines_world"], jm["centerlines_world"])
-    for bad in ("corpus.h5::p", tmp_path / "x.h5"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_patient(bad)
+    # HDF5 patients raised until HDF5 was ported: a standalone file and a
+    # corpus member the JAX package wrote load as its own loader loads them
+    for out in (tmp_path / "h5", tmp_path / "corpus.h5"):
+        jh = jax_preprocess.write_patient(vol, mask, meta, "p", out, fmt="h5")
+        (jd, jm), (td, tm) = jax_preprocess.load_patient(jh), load_patient(jh)
+        np.testing.assert_array_equal(np.asarray(td), np.asarray(jd))
+        assert set(tm) == set(jm) and tm["name"] == "p"
 
 
 @pytest.mark.parametrize("p_centerline_3d", [0.0, 0.6])
@@ -558,8 +562,9 @@ def test_builder_raises_for_what_is_not_ported(change):
     ported: basic_3d now builds with the packed generator, as without a
     mesh (the direct layout until the packed one was partitioned); an
     explicit packed layout whose slabs would not hold whole blocks raises,
-    naming the slabs' rows, and the 2D family raises, naming ROADMAP
-    A10a-2d. ``logger="wandb"`` raised until it took the console logger
+    naming the slabs' rows. The 2D family raised until its spatial
+    partitioning was ported: conf_2d now builds its ndim-2 networks, the
+    generator on the direct layout. ``logger="wandb"`` raised until it took the console logger
     where wandb cannot be imported, as the JAX builder does; the
     TensorBoard logger still raises."""
     change = dict(change)
@@ -573,8 +578,9 @@ def test_builder_raises_for_what_is_not_ported(change):
         with pytest.raises(ValueError, match=r"slabs of \[18\] rows"):
             builder.build(dataclasses.replace(cfg, generator_layout="packed", train_patch_size=(36, 128, 128),
                                               **change), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, A10a-2d"):
-            builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
+        built_2d = builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
+        assert built_2d.config.sp_devices == 2 and built_2d.generator.layout == "direct"
+        assert built_2d.generator.ndim == 2 and built_2d.critic.first.ndim == 2
         return
     if change == dict(generator_layout="packed"):
         assert builder.build(dataclasses.replace(cfg, **change), device="cpu").generator.layout == "packed"

@@ -94,7 +94,7 @@ def test_crop_bit_identical_to_jax_native(rng, tmp_path, start):
         np.testing.assert_array_equal(native.crop_pad_int16(volume, start, (6, 7, 5)), want)
         np.testing.assert_array_equal(crop_pad_int16(volume, start, (6, 7, 5)), want)
     np.testing.assert_array_equal(crop_pad_int16_reference(vol, start, (6, 7, 5)), want)
-    # a non-contiguous view takes the plain version
+    # a non-contiguous view takes the windowed read
     view = np.asfortranarray(vol)
     np.testing.assert_array_equal(crop_pad_int16(view, start, (6, 7, 5)), want)
 
@@ -105,8 +105,15 @@ def test_crop_refuses_a_wrong_buffer(rng):
                 np.empty((4, 4, 4, 2), np.int16, order="F")):
         with pytest.raises(ValueError, match="out must be"):
             native.crop_pad_int16(vol, (0, 0, 0), (4, 4, 4), out=out)
-    with pytest.raises(ValueError, match="C-contiguous"):
-        native.crop_pad_int16(np.asfortranarray(vol), (0, 0, 0), (4, 4, 4))
+    # a volume that is not a C-contiguous ndarray (here a Fortran-order
+    # copy; an HDF5 patient's h5py dataset) is cropped by a windowed read,
+    # as in the JAX package, where it raised before HDF5 was ported; a
+    # wrong dtype or rank is refused
+    np.testing.assert_array_equal(native.crop_pad_int16(np.asfortranarray(vol), (0, 0, 0), (4, 4, 4)),
+                                  crop_pad_int16_reference(vol, (0, 0, 0), (4, 4, 4)))
+    for bad in (vol.astype(np.int32), vol[..., 0]):
+        with pytest.raises(ValueError, match="int16 array"):
+            native.crop_pad_int16(bad, (0, 0, 0), (4, 4, 4))
     out = np.full((4, 4, 4, 2), 7, np.int16)
     assert native.crop_pad_int16(vol, (2, 2, 2), (4, 4, 4), out=out) is out
     np.testing.assert_array_equal(out, crop_pad_int16_reference(vol, (2, 2, 2), (4, 4, 4)))

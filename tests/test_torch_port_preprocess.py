@@ -354,22 +354,45 @@ def test_preprocess_cli_shard_picks_jax_scans(tmp_path, rng, monkeypatch):
     assert sorted(mine) == ["pa.npy", "pb.npy", "pc.npy"]
 
 
-@pytest.mark.parametrize("argv", [["--format", "h5"], ["--h5-chunks", "8", "8", "1", "2"], ["--shard", "2/2"],
+@pytest.mark.parametrize("argv", [["--format", "zarr"], ["--h5-chunks", "8", "8", "1", "2"], ["--shard", "2/2"],
                                   ["--out-spacing", "0.5", "0.5"]])
 def test_preprocess_cli_usage_errors(tmp_path, argv):
-    """HDF5 output names ROADMAP item 6; a bad shard or spacing count is a
-    usage error too."""
+    """An unknown format, HDF5 chunks for ``.npy`` patients (as the JAX
+    script refuses them), a bad shard or spacing count. ``--format h5``
+    was a usage error until HDF5 was ported; it is a format now
+    (``test_create_patient_hdf5_not_ported``)."""
     with pytest.raises(SystemExit) as e:
         preprocess.main([str(tmp_path), str(tmp_path / "out"), *argv, "--device", "cpu"])
     assert e.value.code == 2
 
 
 def test_create_patient_hdf5_not_ported(tmp_path, rng):
+    """HDF5 patients raised until HDF5 was ported: ``fmt="h5"`` (a
+    standalone ``pa.h5``, chunked as asked) and a ``.h5`` corpus out_dir
+    (the member ``corpus.h5::pa``) now write what the JAX package writes
+    from the same scan, read back equal to its ``.npy`` patient; so do the
+    CLIs' ``--format h5 --h5-chunks`` and a corpus out_dir."""
+    import h5py
+
     root = _raw_cohort(tmp_path / "raw", rng, names=("pa",), shape=(8, 8, 8))
-    for kw in (dict(fmt="h5"), dict(out_dir=tmp_path / "corpus.h5")):
-        args = dict(out_dir=tmp_path / "out") | kw
-        with pytest.raises(NotImplementedError, match="item 6"):
-            port_pre.create_patient(root / "pa.mhd", root / "pa", root / "pa" / "ostia.xml", device="cpu", **args)
+    raw = (root / "pa.mhd", root / "pa", root / "pa" / "ostia.xml")
+    want_npy = jax_pre.load_patient(jax_pre.create_patient(*raw, tmp_path / "jax"))
+    for kw, address in ((dict(fmt="h5", h5_chunks=(8, 8, 1, 2)), "out/pa.h5"), (dict(), "corpus.h5::pa")):
+        out = tmp_path / address.split("/")[0].split("::")[0]
+        got = port_pre.create_patient(*raw, out, device="cpu", **kw)
+        want = jax_pre.create_patient(*raw, tmp_path / "jax" / out.name, **kw)
+        assert str(got) == str(tmp_path / address) and str(want).endswith(address.split("/")[-1])
+        for data, meta in (port_pre.load_patient(got), jax_pre.load_patient(want)):
+            np.testing.assert_array_equal(np.asarray(data), np.asarray(want_npy[0]))
+            np.testing.assert_allclose(meta["centerlines_world"], want_npy[1]["centerlines_world"])
+            assert meta["name"] == "pa"
+    with h5py.File(tmp_path / "out" / "pa.h5", "r") as fd:
+        assert fd["scan_and_mask"].chunks == (8, 8, 1, 2)
+    got = preprocess.main([str(root), str(tmp_path / "cli"), "--format", "h5", "--h5-chunks", "8", "8", "1", "2",
+                           "--device", "cpu"])
+    assert [str(p) for p in got] == [str(tmp_path / "cli" / "pa.h5")]
+    got = preprocess.main([str(root), str(tmp_path / "cli" / "corpus.h5"), "--device", "cpu"])
+    assert got == [f"{tmp_path / 'cli' / 'corpus.h5'}::pa"]
 
 
 def test_preprocess_cli_logs_a_failing_scan_and_goes_on(tmp_path, rng):

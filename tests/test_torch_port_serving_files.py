@@ -177,12 +177,30 @@ def test_save_scan_writes_what_jax_writes(rng, tmp_path, suffix):
 
 
 def test_hdf5_raises_pointing_at_the_roadmap(rng, tmp_path):
+    """HDF5 scans raised until HDF5 was ported: a raw HDF5 scan the JAX
+    package wrote loads as JAX loads it (``load_scan``, the header-only
+    ``read_image_meta``, ``load_patient_or_scan``); the port's ``save_scan``
+    writes the file JAX's would (read back equal by JAX), and a missing
+    corpus member raises the ``KeyError`` listing the members there are."""
     vol = _volume(rng)
-    for call in (lambda: pio.load_scan(tmp_path / "a.h5"), lambda: pio.read_image_meta(tmp_path / "a.hdf5"),
-                 lambda: pio.save_scan(vol, None, None, tmp_path / "a.h5"),
-                 lambda: load_patient_or_scan(tmp_path / "a.h5"), lambda: load_patient_or_scan("c.h5::p")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    geo = dict(spacing=np.array([0.4, 0.5, 0.625]), origin=np.array([-12.5, 30.25, 101.0]))
+    jio.write_hdf5_image(vol, tmp_path / "a.h5", **geo)
+    jio.write_hdf5_image(vol, tmp_path / "a.hdf5", **geo)
+    got, want = pio.load_scan(tmp_path / "a.h5"), jio.load_scan(tmp_path / "a.h5")
+    np.testing.assert_array_equal(got[0], want[0])
+    for k in ("spacing", "offset", "direction"):
+        np.testing.assert_array_equal(got[1][k], want[1][k])
+    meta, jmeta = pio.read_image_meta(tmp_path / "a.hdf5"), jio.read_image_meta(tmp_path / "a.hdf5")
+    assert meta["shape"] == jmeta["shape"] == SCAN
+    np.testing.assert_array_equal(meta["spacing"], jmeta["spacing"])
+    np.testing.assert_array_equal(load_patient_or_scan(tmp_path / "a.h5")[0],
+                                  jax_load_patient_or_scan(tmp_path / "a.h5")[0])
+    pio.save_scan(vol, geo["origin"], geo["spacing"], tmp_path / "port.h5")
+    jio.save_scan(vol, geo["origin"], geo["spacing"], tmp_path / "jax.h5")
+    np.testing.assert_array_equal(jio.load_scan(tmp_path / "port.h5")[0], jio.load_scan(tmp_path / "jax.h5")[0])
+    write_patient(vol, vol > 0, {"spacing": geo["spacing"], "offset": geo["origin"]}, "present", tmp_path / "c.h5")
+    with pytest.raises(KeyError, match="present"):
+        load_patient_or_scan(f"{tmp_path / 'c.h5'}::absent")
 
 
 def test_path_helpers_match_jax():
@@ -409,17 +427,13 @@ def test_correct_scans_command_writes_the_outputs(cohort, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--reference-pt"], ["--sharded"], ["--output-format", "h5"]])
 def test_correct_scans_unported_options_point_at_the_roadmap(tmp_path, flag):
-    """HDF5 output still raises. ``--reference-pt`` and ``--sharded`` raised
+    """``--reference-pt``, ``--sharded`` and ``--output-format h5`` raised
     until they were ported; they now read the checkpoint they are given (a
     missing one is a missing file; the corrections themselves are held in
-    ``tests/test_torch_port_reference_ckpt.py`` and
-    ``tests/test_torch_port_cli.py``)."""
+    ``tests/test_torch_port_reference_ckpt.py``,
+    ``tests/test_torch_port_cli.py`` and ``tests/test_torch_port_hdf5.py``)."""
     args = [str(tmp_path / "none.pt"), str(tmp_path / "out"), "x.mhd", *flag, "--device", "cpu"]
-    if flag in (["--reference-pt"], ["--sharded"]):
-        with pytest.raises(FileNotFoundError):
-            correct_scans.main(args)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         correct_scans.main(args)
 
 

@@ -223,9 +223,16 @@ def test_create_dataset_matches_jax(tmp_path, monkeypatch):
 
 
 def test_create_dataset_refuses_hdf5(tmp_path):
-    (tmp_path / "c.h5").write_bytes(b"")
-    with pytest.raises(SystemExit, match="h5py"):
+    """HDF5 patients were refused until HDF5 was ported; now a raw HDF5
+    scan (never preprocessed) is refused, as the JAX script refuses it,
+    and so is a directory without patients."""
+    from contrast_gan_3d_tpu_torch.utils.io_utils import write_hdf5_image
+
+    write_hdf5_image(np.zeros((6, 6, 4), np.int16), tmp_path / "c.h5")
+    with pytest.raises(SystemExit, match="preprocess"):
         create_dataset.main([str(tmp_path), str(tmp_path / "out"), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no preprocessed patients"):
+        create_dataset.main([str(tmp_path / "empty"), str(tmp_path / "out"), "--device", "cpu"])
 
 
 # --- eval_overlap_quality --------------------------------------------------------------------------------------
