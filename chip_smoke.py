@@ -9,6 +9,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only dataset recall overlap flops
     python3 chip_smoke.py --only instance dropout remat jax_ckpt
     python3 chip_smoke.py --only sp
+    python3 chip_smoke.py --only images
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -140,11 +141,11 @@ failure raises and exits non-zero):
 14. serving from files: a corrector built with
     ``CCTAContrastCorrector.from_checkpoint`` from the ``<step>.pt`` the
     device run of phase 11 wrote (its generator equal to the trainer's
-    tensor for tensor); three 512x512x128 CT-like scans written with the
+    tensor for tensor); three 512x256x128 CT-like scans written with the
     port's writers (.mhd compressed, .nii.gz, a preprocessed .npy
     patient); ``correct_scans.main`` over them in f32 with the command's
     defaults, as the JAX command runs (128^3 patches, 50% overlap, layout
-    auto = packed, batch 24: 49 patches, 3 forwards, no block-conv launch,
+    auto = packed, batch 24: 21 patches, 1 forward, no block-conv launch,
     counted); the direct layout's corrector from the same checkpoint
     (batch 8) corrects one scan in memory beside it, cuDNN free and
     deterministic; with cuDNN held to its
@@ -240,10 +241,11 @@ failure raises and exits non-zero):
     each in its handler thread (f32: the checkpoint's generator is f32),
     the reply equal to the in-process correction, the kernels not rebuilt;
 31. correction artifacts (``torch.export``): ``export_corrector`` writes the
-    packed corrector as a bundle at depths 64 and 128 (128 and 192 until
-    the time limit pressed); loaded fresh (``ArtifactBundle.from_dir``),
-    warmed, timed warm beside the live corrector, it routes a 512x512x100
-    request to its 128-deep artifact and serves it behind a daemon equal
+    packed corrector as a bundle of 256x256 planes at depths 64 and 128
+    (depths 128 and 192, then 512x512 planes, until the time limit
+    pressed); loaded fresh (``ArtifactBundle.from_dir``), warmed, timed
+    warm on a 256x256x128 volume beside the live corrector, it routes a
+    256x256x100 request to its 128-deep artifact and serves it behind a daemon equal
     to the live ``z_bucket`` corrector; a direct-layout artifact launches B1 and B3
     (8 each) as its operators, equal to its live corrector; an artifact
     exported on the CPU (256x256x128) loads onto the card
@@ -257,7 +259,7 @@ failure raises and exits non-zero):
     then each entry point under PyTorch's default switches, bit-equal to
     TF32 off (``utils/device.full_f32``), and its time beside the TF32-on
     body's;
-33. offline preprocessing (``--only preprocess``): three CT-like
+33. offline preprocessing (``--only preprocess``): two CT-like
     512x512x256 int16 raw scans at 0.39 x 0.39 x 0.625 mm, written
     uncompressed, with ``vessel*.txt`` centerlines and ``ostia.xml``,
     through ``preprocess.main --out-spacing 0.5`` on the card and with
@@ -389,6 +391,25 @@ failure raises and exits non-zero):
     launch. Then HDF5 on this machine: without h5py an ``.h5`` patient
     path raises the ``ImportError`` that names it (with h5py, a corpus
     member is written and read back).
+50. the image path (``--only images``): ``Trainer.fit`` on ``basic_3d``
+    at full width (bf16, device augmentation, packed, 6 + 3 + 3 patches of
+    128^3, validation 2 + 2 + 2 of 256x256x128) over one 288x288x160
+    patient per label, 10 iterations in cycles of 5 with logs, images and
+    validation every 5, behind a ``MultiThreadedLogger`` whose logger takes
+    images and keeps their shapes, dtypes, finiteness and names (the
+    card's machine has no matplotlib): train image events at 0 and 5 of
+    four (6, 128, 128, 128) arrays (the JAX trainer's), a validation event
+    of four (4, 256, 256, 128), all finite, no block-conv launch; the
+    ``images`` share of ``TimeBudget`` and ms per train image event; the
+    preview and its four copies to the host timed apart, and the preview
+    bit-equal from one rng state called twice. Then the host modules on
+    this machine: without matplotlib a plot raises the ``ImportError``
+    naming it and ``build(basic_3d, logger="file")`` gives a
+    ``FileLogger`` that takes scalars only (one warning) and writes
+    ``scalars.jsonl``; without tensorboardX ``logger="tensorboard"``
+    raises the ``ImportError`` naming it; with a stub ``wandb`` module
+    ``logger="wandb"`` builds ``MultiThreadedLogger(WandbLogger)``, and
+    the stub's run gets the scalars with ``iteration``.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -472,7 +493,7 @@ from contrast_gan_3d_tpu_torch.ops.sliding_window import num_patches
 from contrast_gan_3d_tpu_torch.parallel.mesh import DataMesh, data_mesh, dp_sp_mesh, free_port, spawn_ranks
 from contrast_gan_3d_tpu_torch.serving import CorrectionServer, correct_remote
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
-from contrast_gan_3d_tpu_torch.trainer.logger import NoopLogger
+from contrast_gan_3d_tpu_torch.trainer.logger import MultiThreadedLogger, NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, SCAN_TYPES, Trainer, TrainerConfig
@@ -965,6 +986,7 @@ def profile(fn, label, top=15):
     behind a backward kernel (none in a forward-only call). Returns
     {wall_ms, busy_ms, busy_share}, the busy figures None where the
     profiler recorded no device time."""
+    t_call = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -973,11 +995,15 @@ def profile(fn, label, top=15):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, intervals = collections.Counter(), []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-            intervals.append((e.time_range.start, e.time_range.end))
+    # the raw device events: building the op tree (prof.events()) takes
+    # seconds per window, and only the backward breakdown below needs it
+    by_name, intervals, backward = collections.Counter(), [], False
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns() / 1e3
+            intervals.append((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+        elif e.name() == "aten::convolution_backward":
+            backward = True
     kernel_us, busy = sum(by_name.values()), busy_us(intervals)
     if not kernel_us:
         print(f"profile {label}: wall {wall_us / 1e3:.1f} ms; the profiler recorded no device time (busy not "
@@ -988,11 +1014,13 @@ def profile(fn, label, top=15):
           f"{sum(1 for _ in by_name)} kernel names", flush=True)
     for name, us in by_name.most_common(top):
         print(f"  {us / 1e3:9.2f} ms {100 * us / kernel_us:5.1f}%  {name[:110]}", flush=True)
-    rows = [e for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::convolution_backward"]
+    rows = [e for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::convolution_backward"] \
+        if backward else []
     for e in sorted(rows, key=lambda e: -e.device_time_total):
         # input shapes: grad_output, input, weight
         print(f"  convolution_backward {e.device_time_total / 1e3:9.2f} ms x{e.count} "
               f"{e.input_shapes[:3]}", flush=True)
+    print(f"profile {label}: {time.perf_counter() - t_call:.1f} s with its warm-up and reading", flush=True)
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, busy_share=busy / wall_us)
 
 
@@ -1391,12 +1419,14 @@ FIT_PATIENT = (288, 288, 160)
 # below) is whole
 FIT_ITERATIONS, FIT_RESUME_TO, FIT_HOST_ITERATIONS = 15, 20, 15
 FIT_PROFILE_ITERATIONS = 10
-FIT_WINDOW_ITERATIONS = 20
+FIT_WINDOW_ITERATIONS = 10  # 20 until cut against the 1200 s limit
 FIT_HOST_REPEATS = 1
 # phase 13: the native warp at the training patch size; phase 14: the
 # serving-from-files cohort
 NATIVE_SHAPE, NATIVE_PATCHES, NATIVE_EQUAL_MIN = (128, 128, 128), 4, 0.999
-FILES_SHAPE, FILES_PATCH, FILES_OVERLAP = (512, 512, 128), (128, 128, 128), 0.5
+# 512x256 planes: 512x512 spent 75 s of a slow machine writing the files
+# (cut against the 1200 s limit)
+FILES_SHAPE, FILES_PATCH, FILES_OVERLAP = (512, 256, 128), (128, 128, 128), 0.5
 FILES_FORMATS = ("mhd", "nii.gz", "npy")
 # the default generator's parameter count (basic_3d)
 GEN_PARAMS = 1_035_297
@@ -1968,8 +1998,8 @@ def serving_files_phase(tmp: Path, ckpt_dir: Path, ckpt_state: dict, device="cud
     forwards = -(-num_patches(FILES_SHAPE, FILES_PATCH, FILES_OVERLAP, packed_io=True) // PACKED_BATCH)
     print(f"serving files: correct_scans.main over {len(scans)} scans in {command_s:.2f} s (set-up included); "
           f"{forwards} forwards of {PACKED_BATCH} per volume (packed); launches {launches}", flush=True)
-    if forwards != 3:
-        raise AssertionError(f"serving files: {forwards} packed forwards per volume, expected 3")
+    if forwards != 1:  # 21 patches of 128^3 at 50% in 512x256x128 (512x512x128: 49, 3 forwards)
+        raise AssertionError(f"serving files: {forwards} packed forwards per volume, expected 1")
 
     # the direct layout beside it, in memory, cuDNN free and deterministic
     direct = CCTAContrastCorrector.from_checkpoint(ckpt_dir, inference_patch_size=FILES_PATCH,
@@ -3159,10 +3189,12 @@ def bare_packed_train_phase():
 # (shape, int16 reply): z 100 and 150 bucket to 128 and 192 (--z-bucket 64)
 SERVE_REQUESTS = (((512, 512, 128), False), ((512, 512, 100), True), ((512, 512, 150), True))
 SERVE_SHAPES = [[512, 512, 128], [512, 512, 192]]
-# the artifact bundle's depths: a 512x512x100 request routes to the second
-# (a 192-deep artifact cost 45 s of export and load, against the script's
-# 1200 s limit)
-EXPORT_SHAPES = ((512, 512, 64), (512, 512, 128))
+# the artifact bundle's shapes: a 256x256x100 request routes to the second
+# (a 192-deep artifact cost 45 s of export and load, and 512x512 planes,
+# two packed forwards a shape to trace, about 35 s more on a slow machine:
+# both cut against the script's 1200 s limit)
+EXPORT_SHAPES = ((256, 256, 64), (256, 256, 128))
+EXPORT_REQUEST = (256, 256, 100)
 SERVE_LOAD_CLIENTS, SERVE_LOAD_PER_CLIENT = 4, 2
 SERVE_VOLUME = (512, 512, 128)
 CPU_EXPORT_VOLUME = (256, 256, 128)  # 9 patches: one generator forward to trace
@@ -3327,7 +3359,7 @@ def serve_phase(tmp: Path, ckpt: Path):
 def export_phase(tmp: Path, ckpt: Path, live):
     """Phase 31: correction artifacts at full width. ``export_corrector``
     writes the packed bf16 corrector as a bundle (``EXPORT_SHAPES``); the
-    bundle, loaded fresh, routes a 512x512x100 request to its 128-deep
+    bundle, loaded fresh, routes a 256x256x100 request to its 128-deep
     artifact and serves it behind a daemon (``serve --artifact``'s path),
     equal to the live corrector ``live`` (z_bucket 64: both correct it at
     depth 128); a
@@ -3348,12 +3380,12 @@ def export_phase(tmp: Path, ckpt: Path, live):
     if [a.volume_shape for a in bundle.artifacts] != list(EXPORT_SHAPES):
         raise AssertionError(f"bundle: artifacts {[a.volume_shape for a in bundle.artifacts]}, "
                              f"expected {EXPORT_SHAPES}")
-    if bundle.pick(SERVE_REQUESTS[1][0]) is not bundle.artifacts[1]:
-        raise AssertionError(f"bundle: {SERVE_REQUESTS[1][0]} did not route to the {EXPORT_SHAPES[1]} artifact")
+    if bundle.pick(EXPORT_REQUEST) is not bundle.artifacts[1]:
+        raise AssertionError(f"bundle: {EXPORT_REQUEST} did not route to the {EXPORT_SHAPES[1]} artifact")
     t0 = time.perf_counter()
     bundle.warmup()
     results["first_calls_s"] = time.perf_counter() - t0
-    vol = rng.integers(-1024, 1500, SERVE_VOLUME).astype(np.int16)
+    vol = rng.integers(-1024, 1500, EXPORT_SHAPES[1]).astype(np.int16)
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3369,10 +3401,10 @@ def export_phase(tmp: Path, ckpt: Path, live):
     asrv.start()
     try:
         torch.backends.cudnn.deterministic = True
-        vol = rng.integers(-1024, 1500, SERVE_REQUESTS[1][0]).astype(np.int16)
+        vol = rng.integers(-1024, 1500, EXPORT_REQUEST).astype(np.int16)
         reply = launches_during(lambda: correct_remote("http://%s:%d" % asrv.address, vol, timeout=HTTP_TIMEOUT),
                                 counts)
-        same_reply(reply, live(vol), "artifact bundle daemon 512x512x100")
+        same_reply(reply, live(vol), "artifact bundle daemon " + "x".join(map(str, EXPORT_REQUEST)))
         no_block_conv(counts, "export (packed)")
         direct = CCTAContrastCorrector(live.generator, overlap=0.25, dtype=torch.bfloat16, layout="direct")
         t0 = time.perf_counter()
@@ -3507,7 +3539,7 @@ def c6_phase(tmp: Path):
 PRE_SHAPE = (512, 512, 256)
 PRE_SPACING = (0.39, 0.39, 0.625)
 PRE_OUT_SPACING = 0.5
-PRE_SCANS = 3
+PRE_SCANS = 2  # 3 until cut against the 1200 s limit
 OSTIA_SIZE, OSTIA_SPACING = (19, 19, 19), 0.5
 # the device world patch computes its coordinates in f32, the host engine
 # in f64: a few 1e-5 voxel apart at these extents, times up to ~2500 HU
@@ -3550,7 +3582,7 @@ def preprocess_phase(tmp: Path):
     """Phase 33 (``--only preprocess``): the port's ``preprocess`` command
     on a raw cohort at scan size (``raw_scan_cohort``) with ``--out-spacing
     0.5`` (399x399x320 patients), on the card and with ``--device cpu``:
-    3 patients each; mask and meta bit-equal; the scans within 1 HU (the
+    ``PRE_SCANS`` patients each; mask and meta bit-equal; the scans within 1 HU (the
     count of voxels apart printed); the device ``sample_world_patch``
     against the host ``extract_ostia_patch`` on the card's patients (19^3
     at 0.5 mm, within 1e-4 of max|x|); the native ``trilinear_f32`` against
@@ -3795,7 +3827,7 @@ DP_MIX = (6, 3, 3)
 DP_CYCLES = 3  # eager, capture + replay, replay
 DP_CLI_ITERATIONS = 10  # two 5-iteration cycles: the first eager, the second captured and replayed
 SHARD_VOLUME, SHARD_OVERLAP, SHARD_TOL_HU = (512, 512, 128), 0.25, 0.01
-SHARD_FILES = 2
+SHARD_FILES = 1  # 2 until cut against the 1200 s limit
 # phase 39's memory_report programs; MEMORY_MESH_PROGRAMS: ``--only memory_mesh``
 MEMORY_PROGRAMS = tuple(p for p in memory_report.PROGRAMS if p not in memory_report.MESHES)
 MEMORY_MESH_PROGRAMS = ("gp96", "gp96_sp2", "gp96_dp2")
@@ -5382,6 +5414,209 @@ def slice_17_phases():
     return launches, out
 
 
+
+# phase 50: basic_3d's image path at full width (10 iterations, K = 5: image
+# events at 0 and 5, validation at 5; validate_every 10 would not fire
+# inside 10 iterations), one patient per label
+IMAGES_ITERATIONS = 10
+IMAGES_OVERRIDES = dict(log_every=5, log_images_every=5, validate_every=5, val_iterations=1, checkpoint_every=None,
+                        logger="none", augment_backend="device")
+LOGGER_NAME = "contrast_gan_3d_tpu_torch.trainer.logger"
+
+
+class ImageShapesLogger(NoopLogger):
+    """Takes images and keeps what the card's machine can check without
+    matplotlib: per event the arrays' shapes, dtypes and finiteness, the
+    names, the step and the stage (on the render thread of the
+    ``MultiThreadedLogger`` around it, as a real logger renders)."""
+
+    logs_images = True
+
+    def __init__(self):
+        self.events = []
+
+    def log_images(self, sample, reconstruction, attenuation, masks, names, step, stage="train"):
+        arrays = (sample, reconstruction, attenuation, masks)
+        self.events.append(dict(stage=stage, step=step, names=list(names or []),
+                                shapes=[tuple(a.shape) for a in arrays], dtypes=[str(a.dtype) for a in arrays],
+                                finite=all(bool(np.isfinite(a).all()) for a in arrays)))
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def images_fit_phase(tmp: Path, device="cuda") -> dict:
+    """Phase 50 (a): ``Trainer.fit`` on basic_3d at full width (bf16, device
+    augmentation, packed, its own batch and patches) with a logger that
+    takes images, behind ``MultiThreadedLogger``; checks the events, the
+    arrays' shapes (JAX's trainer's: train (n, 128, 128, 128) with n the
+    LOW + HIGH names, validation (4, 256, 256, 128)), their finiteness, no
+    block-conv launch, and that the preview is bit-equal called twice from
+    one rng state; times the preview and its four device-to-host copies."""
+    rng = np.random.default_rng(50)
+    fold = []
+    for label, hu in ((0, 400), (-1, 250), (1, 600)):
+        vol, mask, meta = synthetic_patient(rng, FIT_PATIENT, hu)
+        fold.append((str(write_patient(vol, mask, meta, f"images_{label}", tmp / "patients")), label))
+    cfg = dataclasses.replace(load_config("basic_3d"), train_iterations=IMAGES_ITERATIONS, **IMAGES_OVERRIDES)
+    built = build(cfg, device=device)
+    recorder = ImageShapesLogger()
+    log = MultiThreadedLogger(recorder)
+    trainer = Trainer(built.generator, built.critic, built.gen_tx, built.critic_tx, built.step_config,
+                      built.trainer_config, seed=built.seed, logger_interface=log, device=device)
+    loaders = create_loaders(fold, cfg.train_patch_size, cfg.train_batch_size, np.random.default_rng(built.seed),
+                             num_threads=cfg.num_workers[0], device=device)
+    val_loaders = create_loaders(fold, cfg.val_patch_size, cfg.val_batch_size, np.random.default_rng(built.seed + 1),
+                                 num_threads=cfg.num_workers[1], device=device)
+    if trainer.cfg.cycle_length != FIT_K or trainer.state.generator.layout != "packed":
+        raise AssertionError(f"images: cycle_length {trainer.cfg.cycle_length}, layout "
+                             f"{trainer.state.generator.layout} (expected {FIT_K}, packed)")
+    # the batch the preview is timed on below (the loaders stop with fit)
+    batch = {st: next(loaders[st]) for st in SCAN_TYPES}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(loaders, val_loaders)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = no_block_conv(read_counts(), "images (packed fit)")
+    train_events = sorted((e for e in recorder.events if e["stage"] == "train"), key=lambda e: e["step"])
+    val_events = [e for e in recorder.events if e["stage"] == "validation"]
+    n = cfg.train_batch_size[LOW] + cfg.train_batch_size[HIGH]
+    n_val = cfg.val_batch_size[LOW] + cfg.val_batch_size[HIGH]
+    if [e["step"] for e in train_events] != [0, 5] or [e["step"] for e in val_events] != [5]:
+        raise AssertionError(f"images: events {[(e['stage'], e['step']) for e in recorder.events]}")
+    for e in train_events:
+        if e["shapes"] != [(n, *cfg.train_patch_size)] * 4 or len(e["names"]) != n:
+            raise AssertionError(f"images: train event at {e['step']}: shapes {e['shapes']}, {len(e['names'])} names")
+    if val_events[0]["shapes"] != [(n_val, *cfg.val_patch_size)] * 4:
+        raise AssertionError(f"images: validation shapes {val_events[0]['shapes']}")
+    if not all(e["finite"] for e in recorder.events):
+        raise AssertionError(f"images: non-finite image arrays {recorder.events}")
+    budget = trainer.time_budget
+    images_ms = 1e3 * budget.total["images"] / len(train_events)
+
+    # the preview and its copies, timed apart; twice from one rng state
+    _, subopt, mask, names = trainer._assemble(batch)
+    rng_state = trainer.state.rng.get_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = trainer._preview_step(trainer.state, rng_state, subopt, mask)
+    torch.cuda.synchronize()
+    preview_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host = [t[:len(names), 0].detach().float().cpu().numpy() for t in first]
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    copy_mib = sum(a.nbytes for a in host) / 2**20
+    second = trainer._preview_step(trainer.state, rng_state, subopt, mask)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("images: the preview from one rng state differs between two calls")
+    for loader in (*loaders.values(), *val_loaders.values()):
+        loader.stop()
+    shares = budget.shares()
+    out = dict(events=[(e["stage"], e["step"]) for e in recorder.events], train_shapes=train_events[0]["shapes"],
+               train_dtypes=train_events[0]["dtypes"], validation_shapes=val_events[0]["shapes"],
+               images_share=shares["images"], images_ms_per_event=images_ms, preview_ms=preview_ms,
+               copy_ms=copy_ms, copy_mib=copy_mib, fit_s=wall, shares=shares, launches=launches)
+    print(f"images: basic_3d fit, {IMAGES_ITERATIONS} iterations (bf16 packed, K = {FIT_K}, device augmentation) "
+          f"in {wall:.1f} s: train image events {[e['step'] for e in train_events]} of {train_events[0]['shapes'][0]} "
+          f"({train_events[0]['dtypes'][0]}), validation {val_events[0]['shapes'][0]}, all finite; "
+          f"images share {shares['images']:.4f}, {images_ms:.1f} ms per train image event; preview {preview_ms:.1f} "
+          f"ms, its four copies to the host {copy_ms:.1f} ms ({copy_mib:.1f} MiB); the preview bit-equal from one rng "
+          f"state; time budget {json.dumps({k: round(v, 4) for k, v in shares.items()})}; card {nvidia_smi()}",
+          flush=True)
+    return out
+
+
+def images_host_phase(tmp: Path, device="cuda") -> dict:
+    """Phase 50 (b): the figures and loggers on this machine. Without
+    matplotlib a plotting call raises the ImportError naming it and the
+    builder's file logger takes scalars only (one warning); without
+    tensorboardX ``logger="tensorboard"`` raises the ImportError naming it;
+    a stub ``wandb`` module gets the scalars with ``iteration``."""
+    from contrast_gan_3d_tpu_torch.utils import visualization as viz
+
+    out = {}
+    has = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "tensorboardX", "wandb")}
+    try:
+        viz.close(viz.plot_axial_slices(np.zeros((4, 4, 4), np.float32)))
+        if not has["matplotlib"]:
+            raise AssertionError("images: a plot without matplotlib raised nothing")
+        out["plot"] = "rendered"
+    except ImportError as e:
+        if has["matplotlib"] or "matplotlib" not in str(e):
+            raise AssertionError(f"images: a plot raised {e!r}") from e
+        out["plot"] = f"ImportError: {e}"
+    records = _Records()
+    logging.getLogger(LOGGER_NAME).addHandler(records)
+    try:
+        cfg = load_config("basic_3d")
+        lg = build(dataclasses.replace(cfg, logger="file"), checkpoint_dir=str(tmp / "file"),
+                   device=device).logger_interface
+        lg.log_scalars({"D": 1.5}, 3)
+        lg.end_hook()
+        line = (tmp / "file" / "metrics" / "scalars.jsonl").read_text().strip()
+        warned = [m for m in records.messages if "matplotlib" in m]
+        if (type(lg).__name__, type(lg.inner).__name__) != ("MultiThreadedLogger", "FileLogger") or \
+                lg.logs_images != has["matplotlib"] or len(warned) != (0 if has["matplotlib"] else 1) or \
+                line != '{"stage": "train", "iteration": 3, "D": 1.5}':
+            raise AssertionError(f"images: file logger {type(lg).__name__}({type(lg.inner).__name__}), logs_images "
+                                 f"{lg.logs_images}, warnings {warned}, scalars {line!r}")
+        out["file"] = dict(logs_images=lg.logs_images, warning=warned[0] if warned else None)
+        try:
+            tb = build(dataclasses.replace(cfg, logger="tensorboard"), checkpoint_dir=str(tmp / "tb"),
+                       device=device).logger_interface
+            tb.end_hook()
+            if not has["tensorboardX"]:
+                raise AssertionError("images: tensorboard without tensorboardX raised nothing")
+            out["tensorboard"] = type(tb.inner).__name__
+        except ImportError as e:
+            if has["tensorboardX"] or "tensorboardX" not in str(e):
+                raise AssertionError(f"images: logger tensorboard raised {e!r}") from e
+            out["tensorboard"] = f"ImportError: {e}"
+        logged = []
+        stub = types.SimpleNamespace(run=types.SimpleNamespace(define_metric=lambda *a, **k: None,
+                                                               log=logged.append), Image=None)
+        saved = sys.modules.get("wandb")
+        sys.modules["wandb"] = stub
+        try:
+            wb = build(dataclasses.replace(cfg, logger="wandb"), device=device).logger_interface
+            wb.log_scalars({"D": 2.5}, 7)
+            wb.end_hook()
+        finally:
+            if saved is None:
+                sys.modules.pop("wandb")
+            else:
+                sys.modules["wandb"] = saved
+        if (type(wb).__name__, type(wb.inner).__name__) != ("MultiThreadedLogger", "WandbLogger") or \
+                logged != [{"train/D": 2.5, "iteration": 7}]:
+            raise AssertionError(f"images: wandb logger {type(wb).__name__}, stub got {logged}")
+        out["wandb_stub"] = logged[0]
+    finally:
+        logging.getLogger(LOGGER_NAME).removeHandler(records)
+    print(f"images on this machine: matplotlib {has['matplotlib']}, tensorboardX {has['tensorboardX']}, wandb "
+          f"{has['wandb']}; plot: {out['plot']}; file logger logs_images {out['file']['logs_images']} (warning: "
+          f"{out['file']['warning']}), scalars.jsonl written; tensorboard: {out['tensorboard']}; wandb stub got "
+          f"{out['wandb_stub']}", flush=True)
+    return out
+
+
+def images_phase(device="cuda"):
+    """Phase 50 (``--only images``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_images_") as tmp:
+        out = images_fit_phase(Path(tmp), device)
+        out["host"] = images_host_phase(Path(tmp), device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"images: phase 50 {out['seconds']:.1f} s", flush=True)
+    return out["launches"], out
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -5415,6 +5650,7 @@ ONLY = {
     "jax_ckpt": lambda: jax_ckpt_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_jax_ckpt_"))),
     "sp": slice_15_phases,
     "sp_2d": slice_17_phases,
+    "images": images_phase,
 }
 
 
@@ -5591,6 +5827,8 @@ def main(argv=None) -> int:
     print(f"sp: {time.perf_counter() - t_start:.1f} s", flush=True)
     sp2d_launches, sp2d_results = slice_17_phases()
     print(f"sp_2d, hdf5: {time.perf_counter() - t_start:.1f} s", flush=True)
+    images_launches, images_results = images_phase()
+    print(f"images: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -5643,7 +5881,10 @@ def main(argv=None) -> int:
                    "sp_packed": sp_launches["packed"][key] if dtype == torch.bfloat16 else 0,
                    # the 2D family under sp launches none, f32 and bf16
                    # (asserted): both ranks' counters
-                   "sp_2d": sp2d_launches[key]}
+                   "sp_2d": sp2d_launches[key],
+                   # the image path runs basic_3d's packed bf16 fit: none
+                   # (asserted)
+                   "images": images_launches[key]}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -5662,6 +5903,7 @@ def main(argv=None) -> int:
         "dataset": s13["dataset"][1], "recall": s13["recall"][1], "overlap": s13["overlap"][1],
         "flops": s13["flops"][1], "instance": s14["instance"][1], "dropout": s14["dropout"],
         "remat": s14["remat"][1], "jax_ckpt": s14["jax_ckpt"][1], "sp": sp_results, "sp_2d": sp2d_results,
+        "images": images_results,
     }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

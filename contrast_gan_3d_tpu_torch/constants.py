@@ -12,6 +12,8 @@ AORTIC_ROOT_PATCH_SPACING = np.array([0.5] * 3)
 
 # scans are shifted and clipped into this Hounsfield-unit range at load time
 MIN_HU, MAX_HU = -1024, 1500
+# the display window of the figures (level 240, window 1000)
+VMIN, VMAX = -260, 740
 
 # every volume is reoriented to LPS and stored (W, H, D) = (x, y, z)
 ORIENTATION = "LPS"

@@ -157,6 +157,19 @@ class GaussianMixture1D:
     def n_components(self) -> int:
         return len(self.means)
 
+    # sklearn's attribute names, which the figures read
+    @property
+    def weights_(self) -> np.ndarray:
+        return self.weights
+
+    @property
+    def means_(self) -> np.ndarray:
+        return self.means
+
+    @property
+    def covariances_(self) -> np.ndarray:
+        return self.covariances
+
 
 def _random_state(seed):
     return np.random.mtrand._rand if seed is None else np.random.RandomState(seed)

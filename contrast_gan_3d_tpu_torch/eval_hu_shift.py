@@ -8,12 +8,16 @@ Each eval list is JSON, ``[[[scan, centerline_dir, myocardium|null],
 label], ...]``. For every series it gathers the masked voxel intensities
 (``eval/hu_distribution_shift.py``), logs them and writes
 ``<out_dir>/hu_shift_<tag>.json``: mean, std, median and count per
-ScanType and region. Host numpy only, no device. The KDE comparison figure
-needs matplotlib, which the card's machine lacks: not ported (ROADMAP.md,
-queue A item 6).
+ScanType and region. Then it draws the KDE comparison figure
+(``utils/visualization.hu_distribution_shift_plot``: the centerlines and
+ostia regions, one curve per ``<tag>/<ScanType>`` series) into
+``hu_shift_<tag>.png``, or ``hu_shift_compare.png`` for more than one
+series, at dpi 120. Where matplotlib cannot be imported, the summaries are
+written and one warning names it. Host numpy only, no device.
 """
 
 import argparse
+import importlib.util
 import json
 import logging
 import sys
@@ -55,15 +59,25 @@ def main(argv=None) -> dict:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(levelname)s | %(message)s")
     args.out_dir.mkdir(parents=True, exist_ok=True)
-    summaries = {}
+    summaries, series = {}, {}
     for tag, eval_list in args.lists:
-        summary = summarize_hu_shift(collect_voxels_intensity(load_eval_list(eval_list), args.workers))
+        voxels = collect_voxels_intensity(load_eval_list(eval_list), args.workers)
+        summary = summarize_hu_shift(voxels)
         out_json = args.out_dir / f"hu_shift_{tag}.json"
         out_json.write_text(json.dumps(summary, indent=2))
         logger.info("Wrote %s: %s", out_json, json.dumps(summary))
         summaries[tag] = summary
-    logger.info("The KDE figure is not ported: it needs matplotlib, which the card's machine lacks "
-                "(ROADMAP.md, queue A item 6)")
+        series |= {f"{tag}/{st.name}": by_region for st, by_region in voxels.items()}
+    if importlib.util.find_spec("matplotlib") is None:
+        logger.warning("matplotlib is not installed: no KDE figure (the summaries are written)")
+        return summaries
+    from contrast_gan_3d_tpu_torch.utils import visualization as viz
+
+    name = f"hu_shift_{args.tag}.png" if len(args.lists) == 1 else "hu_shift_compare.png"
+    fig = viz.hu_distribution_shift_plot(series, regions=("centerlines", "ostia"))
+    fig.savefig(args.out_dir / name, dpi=120)
+    viz.close(fig)
+    logger.info("Wrote %s", args.out_dir / name)
     return summaries
 
 

@@ -38,14 +38,17 @@ What the JAX builder chooses automatically, the port resolves so:
   ``HostAugmenter`` (2D: ``HostAugmenter2D``) for the train loaders. The
   JAX builder falls back to the device augmentation where its native
   library does not build; the port's builds or raises;
-- ``is_2d`` (the 2D family) -> both networks with ``ndim=2``, and an
-  ``Augment2DConfig`` (rotation and mirror); the JAX package's 2D file
-  logger differs from its 3D one only in its image files, unported here;
-- ``logger="file"`` -> ``scalars.jsonl`` under ``<checkpoint_dir>/metrics``,
-  or ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``);
-  ``logger="wandb"`` where wandb cannot be imported -> ``ConsoleLogger``
-  (logged), as the JAX builder falls back; with wandb installed it raises
-  (its logger is not ported), as ``"tensorboard"`` does.
+- ``is_2d`` (the 2D family) -> both networks with ``ndim=2``, an
+  ``Augment2DConfig`` (rotation and mirror) and the 2D loggers, which
+  render the batch as one slice grid;
+- ``logger`` -> the JAX builder's loggers, each inside a
+  ``MultiThreadedLogger`` with ``np.random.default_rng(seed)``: "file" ->
+  ``FileLogger`` (``FileLogger2D``) under ``<checkpoint_dir>/metrics``, or
+  ``<LOGS_DIR>/<name>/metrics`` without a checkpoint dir (``config.py``);
+  "tensorboard" -> ``TensorBoardLogger`` (2D) under ``<checkpoint_dir>/tb``
+  or ``<LOGS_DIR>/<name>/tb`` (it needs ``tensorboardX``); "wandb" ->
+  ``WandbLogger`` (2D), or ``ConsoleLogger`` (logged) where wandb cannot be
+  imported; "console" and "none" as named; any other name raises.
 
 The networks' initial weights are drawn on the CPU from the config's seed
 (torch initialises a module when it is built, where the JAX package draws
@@ -71,12 +74,17 @@ from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler
 from contrast_gan_3d_tpu_torch.experiments.config import DEFAULT_SEED, ExperimentConfig
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator, packed_slab_note
-from contrast_gan_3d_tpu_torch.ops.block_conv import ROADMAP_NOTE
 from contrast_gan_3d_tpu_torch.trainer.logger import (
     ConsoleLogger,
     FileLogger,
+    FileLogger2D,
     LoggerInterface,
+    MultiThreadedLogger,
     NoopLogger,
+    TensorBoardLogger,
+    TensorBoardLogger2D,
+    WandbLogger,
+    WandbLogger2D,
     has_wandb,
 )
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
@@ -87,6 +95,9 @@ from contrast_gan_3d_tpu_torch.utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the loggers that write under a directory: (its name, 3D class, 2D class)
+_DIR_LOGGERS = {"file": ("metrics", FileLogger, FileLogger2D),
+                "tensorboard": ("tb", TensorBoardLogger, TensorBoardLogger2D)}
 
 
 @dataclass
@@ -183,13 +194,12 @@ def resolve_remat(cfg: ExperimentConfig) -> bool:
 
 
 def _check_portable(cfg: ExperimentConfig):
-    """Raise for what the port does not run."""
-    if cfg.logger == "tensorboard" or (cfg.logger == "wandb" and has_wandb()):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.logger} logger {ROADMAP_NOTE}")
+    """Raise for a backend the port does not know."""
     if cfg.augment_backend not in ("host", "device"):
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}: expected host | device")
-    if cfg.logger not in ("file", "console", "none", "wandb"):
-        raise ValueError(f"unknown logger {cfg.logger!r}: expected file | console | none | wandb")
+    if cfg.logger not in ("wandb", "tensorboard", "file", "console", "none"):
+        # a typo must not silently turn off a long run's logging
+        raise ValueError(f"unknown logger {cfg.logger!r}: expected wandb | tensorboard | file | console | none")
 
 
 def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="cuda") -> BuiltExperiment:
@@ -248,14 +258,19 @@ def build(cfg: ExperimentConfig, checkpoint_dir: Optional[str] = None, device="c
     # resolved against the stop_sync_every this TrainerConfig carries
     trainer_config = dataclasses.replace(
         trainer_config, cycle_length=resolve_cycle_length(cfg, trainer_config.stop_sync_every))
-    if cfg.logger == "file":
+    rng = np.random.default_rng(seed)
+    if cfg.logger == "wandb" and has_wandb():
+        wandb_cls = WandbLogger2D if cfg.is_2d else WandbLogger
+        logger_interface: LoggerInterface = MultiThreadedLogger(wandb_cls(scaler, rng=rng))
+    elif cfg.logger in _DIR_LOGGERS:
+        sub, cls_3d, cls_2d = _DIR_LOGGERS[cfg.logger]
         # beside the checkpoints, or under the project's logs directory
-        out_dir = Path(checkpoint_dir) / "metrics" if checkpoint_dir else paths.LOGS_DIR / cfg.name / "metrics"
-        logger_interface: LoggerInterface = FileLogger(out_dir)
-    elif cfg.logger == "console":
-        logger_interface = ConsoleLogger()
-    elif cfg.logger == "wandb":  # wandb cannot be imported (_check_portable)
+        out_dir = Path(checkpoint_dir) / sub if checkpoint_dir else paths.LOGS_DIR / cfg.name / sub
+        logger_interface = MultiThreadedLogger((cls_2d if cfg.is_2d else cls_3d)(scaler, out_dir, rng=rng))
+    elif cfg.logger == "wandb":  # wandb cannot be imported
         logger.info("%s: logger wandb -> console (wandb is not installed)", cfg.name)
+        logger_interface = ConsoleLogger()
+    elif cfg.logger == "console":
         logger_interface = ConsoleLogger()
     else:
         logger_interface = NoopLogger()

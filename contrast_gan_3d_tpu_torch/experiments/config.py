@@ -117,8 +117,8 @@ class ExperimentConfig:
     # (StepConfig.augment)
     augment_backend: str = "host"
 
-    # logging backend: file (JSONL scalars) | console | none; wandb and
-    # tensorboard are not ported (the builder raises)
+    # logging backend: wandb | tensorboard | file (JSONL scalars and PNG
+    # grids) | console | none (experiments/builder.py)
     logger: str = "console"
 
     # schedule iterations per dispatch: None = auto (the builder's

@@ -39,7 +39,13 @@ captured CUDA graph, so ``--debug`` dispatches every iteration eagerly
 ``--profiler-schedule``) into Chrome traces there.
 Without ``--cval-splits`` the folds are one stratified split of the
 config's ``dataset_paths`` csv sheets (``data/labeling.cross_val_splits``,
-the JAX CLI's fallback). wandb is not ported (ROADMAP).
+the JAX CLI's fallback). ``--logger`` picks the experiment logger
+(``experiments/builder.py``); under several ranks only rank 0 keeps a
+file, TensorBoard or wandb logger. With ``--logger wandb`` each fold
+starts its wandb run before ``build`` (named for the run id, ``-fold<i>``
+past one fold; ``--wandb-project``, ``--wandb-entity``) and finishes it
+after, and a ``--run-id`` resumes that run's group and starting fold, as
+the JAX CLI does; where wandb fails to start, training goes on.
 """
 
 import argparse
@@ -148,7 +154,7 @@ def make_profiler(out_dir, steps: int = 20, schedule: Optional[str] = None) -> t
 
 @dataclass
 class TrainManager:
-    """Per-fold orchestration (the JAX ``TrainManager`` without wandb).
+    """Per-fold orchestration (the JAX ``TrainManager``).
     ``mesh``: this rank's ``DataMesh`` in a data-parallel run."""
 
     config: ExperimentConfig
@@ -162,10 +168,56 @@ class TrainManager:
     device: str = "cuda"
     mesh: Optional[DataMesh] = None
     profiler_factory: Optional[object] = None  # () -> torch.profiler.profile
+    wandb_project: Optional[str] = None
+    wandb_entity: Optional[str] = None
+    group: Optional[str] = None
     runs: List[FoldRun] = field(default_factory=list)
     _t0: float = field(default_factory=time.monotonic)
 
+    def maybe_restore_wandb_run(self):
+        """Resuming a named wandb run restores its group and starting fold
+        from the wandb API, as the JAX CLI does."""
+        if self.run_id is None or self.config.logger != "wandb":
+            return
+        try:
+            import wandb
+
+            run = wandb.Api().run("/".join(p for p in (self.wandb_entity, self.wandb_project, self.run_id) if p))
+        except Exception as e:  # no wandb, no service: a fresh run state
+            logger.warning("wandb resume lookup failed (%s); fresh run state", e)
+            return
+        self.group = getattr(run, "group", None) or self.group
+        fold = (getattr(run, "config", None) or {}).get("fold")
+        if fold is not None:
+            self.starting_fold = int(fold)
+        logger.info("Resumed wandb run '%s': group=%s starting_fold=%d", self.run_id, self.group, self.starting_fold)
+
+    def _start_wandb(self, cfg: ExperimentConfig, run_name: str, fold_idx: int):
+        """The fold's wandb run, before ``build`` (the logger defines its
+        step metric on the active run): an explicit run id names it (one
+        per fold past one fold), else wandb makes one up."""
+        try:
+            import wandb
+
+            wandb.init(id=(run_name if self.max_folds > 1 else self.run_id) if self.run_id else None,
+                       resume="allow" if self.run_id else None, name=run_name, project=self.wandb_project,
+                       entity=self.wandb_entity, group=self.group, config=asdict_flat(cfg) | {"fold": fold_idx})
+        except Exception as e:  # a tracker that fails to start must not stop training
+            logger.warning("wandb init failed (%s); continuing", e)
+
+    @staticmethod
+    def _finish_wandb():
+        """Close the fold's run, or the next fold's init would join it."""
+        try:
+            import wandb
+
+            if wandb.run is not None:
+                wandb.finish()
+        except Exception:  # as JAX's: nothing to close
+            pass
+
     def __call__(self):
+        self.maybe_restore_wandb_run()
         if len(self.train_folds) != len(self.val_folds):
             raise SystemExit(f"cval splits misaligned: {len(self.train_folds)} train vs "
                              f"{len(self.val_folds)} val folds")
@@ -220,8 +272,10 @@ class TrainManager:
                 loader_val_bs = {k: max(1, v // mesh.hosts) for k, v in loader_val_bs.items()}
                 logger.info("Host %d/%d: %d-patient fold shard, per-host train batches %s", mesh.host_index,
                             mesh.hosts, len(train_fold), loader_train_bs)
-            if mesh.rank != 0 and cfg.logger == "file":
+            if mesh.rank != 0 and cfg.logger in ("wandb", "tensorboard", "file"):
                 cfg = replace(cfg, logger="none")  # rank 0 writes the metrics
+        if cfg.logger == "wandb":
+            self._start_wandb(cfg, run_name, fold_idx)
 
         built = build(cfg, checkpoint_dir=str(ckpt_dir), device=self.device)
         host_rng = np.random.default_rng(built.seed)
@@ -263,6 +317,8 @@ class TrainManager:
                 budget_timer.cancel()
             for signum, handler in (prev_handlers or {}).items():
                 signal.signal(signum, handler)
+            if cfg.logger == "wandb":
+                self._finish_wandb()
         self.runs.append(FoldRun(trainer, train_loaders, val_loaders))
 
 
@@ -285,7 +341,9 @@ def parse_args(argv=None):
                    help="schedule iterations per dispatch. Omitted: auto (the schedule period, 5 for every preset "
                         "but train_generator_more, when every cadence divides it; replayed as one CUDA graph on "
                         "the card). 1 forces per-iteration dispatch; K > 1 forces K")
-    p.add_argument("--logger", choices=["file", "console", "none"], default=None)
+    p.add_argument("--logger", choices=["wandb", "tensorboard", "file", "console", "none"], default=None)
+    p.add_argument("--wandb-project", default=None)
+    p.add_argument("--wandb-entity", default=None)
     p.add_argument("--dp-devices", type=int, default=None,
                    help="data-parallel over N cards, one rank each (0 = every visible card); on the CPU, N gloo "
                         "ranks")
@@ -401,7 +459,8 @@ def main(argv=None) -> Optional[TrainManager]:
         profiler_factory = lambda: make_profiler(args.profiler_dir, args.profiler_steps, args.profiler_schedule)
     manager = TrainManager(cfg, splits["train"], splits["test"], checkpoint_root=Path(args.checkpoint_root),
                            run_id=args.run_id, starting_fold=args.starting_fold, max_folds=args.max_folds,
-                           max_hours=args.max_hours, device=device, mesh=mesh, profiler_factory=profiler_factory)
+                           max_hours=args.max_hours, device=device, mesh=mesh, profiler_factory=profiler_factory,
+                           wandb_project=args.wandb_project, wandb_entity=args.wandb_entity)
     try:
         manager()
     finally:

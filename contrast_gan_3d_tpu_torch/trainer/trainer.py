@@ -504,7 +504,8 @@ class Trainer:
                 loss_G -= loss_fake
                 loss_sim += float(l_sim)
                 if i == 0 and collect_images:
-                    loggable.append((batch, data, sample_hat, atten))
+                    n = len(batch["data"])  # without the padding to the ranks
+                    loggable.append((batch, data[:n], sample_hat[:n], atten[:n]))
         if loggable:
             host = lambda t: t.detach().float().cpu().numpy()
             self.logger_interface.log_images(
@@ -535,7 +536,12 @@ class Trainer:
     def _log_train_images(self, subopt, mask, names, iteration: int, rng_before=None):
         """Render the batch the step trained on: with on-device augmentation
         the preview re-derives it from ``rng_before``; otherwise the batch
-        arrived as it trained (host-augmented or not augmented)."""
+        arrived as it trained (host-augmented or not augmented). The logger
+        gets what the JAX Trainer hands it: the first ``len(names)`` samples
+        (all where there are no names) of the scaled sample, the
+        reconstruction, the attenuation and the mask, ``(n, W, H, D)`` (2D:
+        ``(n, W, H)``), as float32 numpy arrays."""
+        n = len(names) if names else mask.shape[0]
         if self._preview_step is not None and rng_before is not None:
             sample, sample_hat, atten, mask = self._preview_step(self.state, rng_before, subopt, mask)
         else:
@@ -543,7 +549,7 @@ class Trainer:
             _, _, sample_hat, atten = self.val_subopt_step(self.state, subopt, w)
             sample = self.step_cfg.scaler(subopt.float()).unsqueeze(1)
             mask = mask.unsqueeze(1)
-        host = lambda t: t[:, 0].detach().float().cpu().numpy()
+        host = lambda t: t[:n, 0].detach().float().cpu().numpy()
         self.logger_interface.log_images(host(sample), host(sample_hat), host(atten), host(mask), names,
                                          iteration, "train")
 

@@ -69,7 +69,7 @@ from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.norm import LayerNorm
 from contrast_gan_3d_tpu_torch.ops import resample as rs
 from contrast_gan_3d_tpu_torch.trainer import optim
-from contrast_gan_3d_tpu_torch.trainer.logger import FileLogger
+from contrast_gan_3d_tpu_torch.trainer.logger import FileLogger2D
 from contrast_gan_3d_tpu_torch.trainer.steps import (
     StepConfig,
     build_preview_step,
@@ -789,7 +789,7 @@ def test_conf_2d_cli_fit_matches_jax_fit(fold_2d, tmp_path):
     args = _cli_args(tmp_path, fold_2d, "cli")
     manager = train_cli.main([*args, "--iterations", "6"])
     trainer = manager.runs[0].trainer
-    assert trainer.iteration == 6 and isinstance(trainer.logger_interface, FileLogger)
+    assert trainer.iteration == 6 and isinstance(trainer.logger_interface.inner, FileLogger2D)
     assert isinstance(manager.runs[0].train_loaders[0].sampler.augmenter, HostAugmenter2D)
     lines = (tmp_path / "runs" / "cli" / "metrics" / "scalars.jsonl").read_text().splitlines()
     got = [r for r in map(json.loads, lines) if r["stage"] == "train"]

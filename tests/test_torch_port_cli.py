@@ -206,7 +206,10 @@ def test_train_sp_devices_logs_the_one_rank_losses(tmp_path, monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     fold = _patients(tmp_path / "patients")
     conf, splits = tmp_path / "tiny.py", tmp_path / "splits.pkl"
-    conf.write_text(MESH_OVERRIDE.replace('logger="file")', 'logger="file", generator_layout="direct")'))
+    # no images in either run: a mesh of ranks logs none, so the one-rank
+    # run's time budget would carry an images window the ranks' lack
+    conf.write_text(MESH_OVERRIDE.replace('logger="file")',
+                                          'logger="file", generator_layout="direct", log_images_every=None)'))
     splits.write_bytes(pickle.dumps({"train": [fold], "test": [fold]}))
     args = lambda run_id: ["--conf", str(conf), "--cval-splits", str(splits), "--checkpoint-root",
                            str(tmp_path / "runs"), "--run-id", run_id, "--device", "cpu", "--iterations", "4"]

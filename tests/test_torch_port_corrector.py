@@ -124,8 +124,10 @@ def test_corrector_unported_options_point_to_roadmap(carried, kw):
     assert corrector.is_2d and corrector.batch_size == 8
 
 
-# packages the card's machine does not have: the port must not need them
-ABSENT_ON_THE_CARD = ("pandas", "sklearn", "h5py", "matplotlib", "wandb", "tensorboardX", "msgpack", "orbax")
+# packages the port must not need when a module is imported (the card's
+# machine lacks most of them; the figures and loggers import theirs at use)
+ABSENT_ON_THE_CARD = ("pandas", "sklearn", "h5py", "matplotlib", "wandb", "tensorboardX", "msgpack", "orbax",
+                      "seaborn", "tensorboard")
 
 
 def test_port_imports_nothing_of_jax():
@@ -146,7 +148,9 @@ def test_port_imports_nothing_of_jax():
         "create_dataset", "synthetic_tracker", "eval_marker_recall", "eval.marker_recall_rate",
         "eval_overlap_quality", "flops_accounting",
         # JAX checkpoints read without msgpack, and their import
-        "utils.msgpack", "import_jax_checkpoint")} <= set(mods)
+        "utils.msgpack", "import_jax_checkpoint",
+        # the figures, the batch viewer and its command (matplotlib at first use)
+        "utils.visualization", "utils.batch_viewer", "view_batches")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"

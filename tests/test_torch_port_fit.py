@@ -48,7 +48,8 @@ from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import count_parameters
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
-from contrast_gan_3d_tpu_torch.trainer.logger import ConsoleLogger, FileLogger, LoggerInterface, has_wandb
+from contrast_gan_3d_tpu_torch.trainer.logger import (ConsoleLogger, FileLogger, LoggerInterface,
+                                                      MultiThreadedLogger, TensorBoardLogger, has_wandb)
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig
 from contrast_gan_3d_tpu_torch.trainer.trainer import Trainer, TrainerConfig, install_preemption_handler
@@ -565,8 +566,10 @@ def test_builder_raises_for_what_is_not_ported(change):
     naming the slabs' rows. The 2D family raised until its spatial
     partitioning was ported: conf_2d now builds its ndim-2 networks, the
     generator on the direct layout. ``logger="wandb"`` raised until it took the console logger
-    where wandb cannot be imported, as the JAX builder does; the
-    TensorBoard logger still raises."""
+    where wandb cannot be imported, as the JAX builder does. The
+    TensorBoard logger raised until it was ported: it now builds inside a
+    ``MultiThreadedLogger``, as the JAX builder builds it (every logger's
+    wiring against JAX's: ``tests/test_torch_port_logger.py``)."""
     change = dict(change)
     cfg = config.PRESETS[change.pop("preset", "basic_3d")]()
     if change == dict(dp_devices=1):
@@ -588,13 +591,15 @@ def test_builder_raises_for_what_is_not_ported(change):
             builder.build(dataclasses.replace(config.conf_2d(), **change), device="cpu")
         return
     if change == dict(logger="wandb"):
-        assert not has_wandb()  # neither this machine nor the card's has it
+        assert not has_wandb()  # not installed here (the card's machine has it; tests stub it)
         assert isinstance(builder.build(dataclasses.replace(cfg, **change), device="cpu").logger_interface,
                           ConsoleLogger)
         return
     if "logger" in change:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        built = builder.build(dataclasses.replace(cfg, **change), device="cpu")
+        assert isinstance(built.logger_interface, MultiThreadedLogger)
+        assert isinstance(built.logger_interface.inner, TensorBoardLogger)
+        built.logger_interface.end_hook()
         return
     tiny = dict(generator_args=GEN, critic_args=CRITIC, train_patch_size=PATCH, val_patch_size=PATCH,
                 compute_dtype="float32", augment=False)
@@ -630,7 +635,8 @@ def test_builder_resolves_the_automatic_choices(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             builder.build(cfg)
     assert built.step_config.dtype == torch.float32
-    assert isinstance(built.logger_interface, FileLogger)
+    assert isinstance(built.logger_interface, MultiThreadedLogger)
+    assert isinstance(built.logger_interface.inner, FileLogger)
     built.logger_interface.log_scalars({"D": 1.5, "G": float("nan")}, 3)
     line = (tmp_path / "metrics" / "scalars.jsonl").read_text()
     assert '"D": 1.5' in line and '"G": null' in line
@@ -645,7 +651,7 @@ def test_file_logger_without_a_checkpoint_dir_writes_under_the_logs_dir(tmp_path
     monkeypatch.setattr(paths, "LOGS_DIR", tmp_path / "logs")
     cfg = dataclasses.replace(config.basic_3d(), logger="file")
     built = builder.build(cfg, device="cpu")
-    assert isinstance(built.logger_interface, FileLogger) and built.trainer_config.checkpoint_dir is None
+    assert isinstance(built.logger_interface.inner, FileLogger) and built.trainer_config.checkpoint_dir is None
     built.logger_interface.log_scalars({"D": 0.5}, 1)
     assert '"D": 0.5' in (tmp_path / "logs" / "basic_3d" / "metrics" / "scalars.jsonl").read_text()
 

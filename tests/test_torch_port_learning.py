@@ -235,14 +235,16 @@ def test_hu_shift_matches_jax(tmp_path):
 
 def test_eval_hu_shift_cli_writes_jax_summaries(tmp_path):
     """Two series: ``hu_shift_<tag>.json`` each, equal to JAX's summary of
-    the same list; no figure (matplotlib is not on the card's machine)."""
+    the same list, and the comparison figure JAX's script names
+    ``hu_shift_compare.png`` (no figure until the figures were ported; its
+    pixels against JAX's: ``tests/test_torch_port_logger.py``)."""
     lst = _eval_cohort(tmp_path / "raw")
     out = tmp_path / "out"
     summaries = eval_hu_shift.main([str(lst), str(out), "--workers", "1", "--series", f"again={lst}"])
     want = jax_hu.summarize_hu_shift(jax_hu.collect_voxels_intensity(eval_hu_shift.load_eval_list(lst), 1))
     for tag in ("original", "again"):
         assert json.loads((out / f"hu_shift_{tag}.json").read_text()) == want == summaries[tag]
-    assert not list(out.glob("*.png"))
+    assert [p.name for p in out.glob("*.png")] == ["hu_shift_compare.png"]
     with pytest.raises(SystemExit):
         eval_hu_shift.main([str(lst), str(out), "--series", "no-equals-sign"])
 
