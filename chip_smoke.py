@@ -10,6 +10,7 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only instance dropout remat jax_ckpt
     python3 chip_smoke.py --only sp
     python3 chip_smoke.py --only images
+    python3 chip_smoke.py --only tools b96_small b96
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -410,6 +411,26 @@ failure raises and exits non-zero):
     raises the ``ImportError`` naming it; with a stub ``wandb`` module
     ``logger="wandb"`` builds ``MultiThreadedLogger(WandbLogger)``, and
     the stub's run gets the scalars with ``iteration``.
+51. the JAX repo's last tools (``--only tools``): ``bench_host_augment``
+    at 128^3 on this host (its JSON, beside the card's name and power
+    limit); phase 3's weights (and a seeded default critic) written as a
+    reference ``.pt``, turned into a port run by
+    ``import_torch_checkpoint``, read by ``from_checkpoint``: under cuDNN's
+    deterministic algorithms its correction of phase 22's 256x256x128
+    volume (128^3, 50%, batch 8, f32, packed) equals
+    ``from_reference_checkpoint``'s of the same file; one bf16 packed
+    ``combined_step`` (6 + 6 patches of 128^3) from the imported state,
+    at the file's iteration, finite; that state saved and
+    ``export_torch_checkpoint``-ed, read back by
+    ``load_reference_checkpoint``: both networks' state dicts bit-equal.
+    No block-conv launch.
+52. the b96 probe, cut (``--only b96_small``): ``b96_probe`` at full width
+    (bf16, packed) on 6 + 6 patches of 128^3 (cut from JAX's 48 + 48, the
+    whole script's time limit), ``--reps 1``, both modes: its four
+    programs and ten stage prefixes, every line printed and finite, no
+    block-conv launch. ``--only b96`` (outside the whole run, as
+    ``memory_mesh``) runs the probe as JAX does: 48 + 48, both modes,
+    three reps.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -449,7 +470,8 @@ from contrast_gan_3d_tpu_torch import correct_scans, eval_hu_shift, export_corre
 from contrast_gan_3d_tpu_torch import memory_report, validate_learning
 from contrast_gan_3d_tpu_torch import create_dataset, eval_marker_recall, eval_overlap_quality, flops_accounting, \
     synthetic_tracker
-from contrast_gan_3d_tpu_torch import import_jax_checkpoint
+from contrast_gan_3d_tpu_torch import b96_probe, bench_host_augment, export_torch_checkpoint, import_jax_checkpoint, \
+    import_torch_checkpoint
 from contrast_gan_3d_tpu_torch import train as train_cli
 from contrast_gan_3d_tpu_torch.data import augment as aug
 from contrast_gan_3d_tpu_torch.data.labeling import read_sheet
@@ -495,7 +517,7 @@ from contrast_gan_3d_tpu_torch.serving import CorrectionServer, correct_remote
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.trainer.logger import MultiThreadedLogger, NoopLogger
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
-from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, schedule_branches
+from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, build_train_steps, init_state, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, SCAN_TYPES, Trainer, TrainerConfig
 from contrast_gan_3d_tpu_torch.utils import geometry, io_utils
 from contrast_gan_3d_tpu_torch.utils.device import tf32_flags
@@ -5617,6 +5639,98 @@ def images_phase(device="cuda"):
     print(f"images: phase 50 {out['seconds']:.1f} s", flush=True)
     return out["launches"], out
 
+# --- the JAX repo's last tools (phases 51-52) ----------------------------------
+
+TOOLS_ITERATION = 900
+# phase 52's cut of the probe's 48 + 48 batch (the whole script's limit)
+B96_SMALL = 6
+
+
+def tools_phase(tmp: Path, gen_state=None):
+    """Phase 51 (``--only tools``). ``gen_state``: phase 3's generator
+    weights (rebuilt from their seed where None)."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    zero_counts()
+    host = bench_host_augment.main(["--patch", "128"])
+    parts = {"host": time.perf_counter() - t0}
+    print(f"tools: host ceiling at 128^3 (this host's CPU; the consumption figures: the card's, {smi}): "
+          f"{json.dumps(host)}", flush=True)
+    if gen_state is None:
+        gen_state = seeded(ResnetGenerator(), 0).state_dict()
+    critic = seeded(PatchGANDiscriminator(), 1)
+    pt, run = tmp / f"{TOOLS_ITERATION}.pt", tmp / "imported"
+    save_reference_checkpoint(pt, gen_state, critic.state_dict(), iteration=TOOLS_ITERATION)
+    import_torch_checkpoint.main([str(pt), str(run)])
+    parts["import"] = time.perf_counter() - t0 - sum(parts.values())
+    vol = ct_like(np.random.default_rng(89), REF_3D_SHAPE, 1.5)
+    kw = dict(inference_patch_size=FILES_PATCH, overlap=FILES_OVERLAP, batch_size=BATCH, device="cuda")
+    with deterministic_scope():
+        imported = CCTAContrastCorrector.from_checkpoint(run, **kw)
+        reference = CCTAContrastCorrector.from_reference_checkpoint(pt, **kw)
+        if not (imported.packed and imported.generator.tconv_placement == "torch"):
+            raise AssertionError("tools: from_checkpoint on the imported run built another generator")
+        got, want = (device_int16(c(vol)).cpu() for c in (imported, reference))
+    if not torch.equal(got, want):
+        raise AssertionError(f"tools: the imported run corrects {int((got != want).sum())} voxels otherwise than "
+                             "from_reference_checkpoint")
+    del imported, reference
+    parts["corrections"] = time.perf_counter() - t0 - sum(parts.values())
+    tx = partial(make_optimizer, "adam")
+    state = ckpt_lib.load_checkpoint(run, init_state(
+        ResnetGenerator(tconv_placement="torch", layout="packed", dtype=torch.bfloat16),
+        PatchGANDiscriminator(dtype=torch.bfloat16), tx, tx, device="cuda"))
+    steps = build_train_steps(StepConfig(weight_clip=0.01, dtype=torch.bfloat16))
+    _, metrics = steps.combined_step(state, *b96_probe.batches(6, 6, TRAIN_PATCH, state.device))
+    metrics = {k: v.float().item() for k, v in metrics.items()}
+    if state.step != TOOLS_ITERATION + 1 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"tools: the imported run's combined_step at step {state.step}: {metrics}")
+    parts["step"] = time.perf_counter() - t0 - sum(parts.values())
+    ckpt_lib.save_checkpoint(state, run, rng=False, meta={"generator": {"tconv_placement": "torch",
+                                                                        "norm": "batch"}})
+    out_pt = export_torch_checkpoint.main([str(run), str(tmp / "exported.pt")])
+    back = load_reference_checkpoint(out_pt)
+    for what, module in (("generator", state.generator), ("critic", state.critic)):
+        want_sd = {k: v.cpu() for k, v in module.state_dict().items()}
+        if back[what].keys() != want_sd.keys() or not all(torch.equal(back[what][k], want_sd[k]) for k in want_sd):
+            raise AssertionError(f"tools: the exported {what} does not read back bit-equal")
+    if back["iteration"] != TOOLS_ITERATION + 1:
+        raise AssertionError(f"tools: exported at iteration {back['iteration']}")
+    launches = no_block_conv(read_counts(), "tools")
+    seconds = time.perf_counter() - t0
+    parts["export"] = seconds - sum(parts.values())
+    print(f"tools: import_torch_checkpoint -> from_checkpoint corrects {REF_3D_SHAPE} as from_reference_checkpoint "
+          f"does (equal, cudnn.deterministic); bf16 combined_step at step {state.step}: {metrics}; "
+          f"export_torch_checkpoint reads back bit-equal; launches {launches}; phase 51 {seconds:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")", flush=True)
+    del state, steps
+    torch.cuda.empty_cache()
+    return launches, dict(host=host, card=smi, combined_step=metrics, seconds=seconds, parts=parts)
+
+
+def b96_phase(n: int = B96_SMALL, reps: int = 1):
+    """Phase 52 (``--only b96_small``; ``--only b96``: n=48, three reps)."""
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    zero_counts()
+    lines = b96_probe.main(["--n-opt", str(n), "--n-sub", str(n), "--reps", str(reps)])
+    launches = no_block_conv(read_counts(), f"b96 {n}+{n}")
+    stage_names = ResnetGenerator().stage_names()
+    want = [*b96_probe.ATTRIB_PROBES, *(f"prefix_through_{s}" for s in stage_names)]
+    if [r["probe"] for r in lines] != want or not all(math.isfinite(r["sec"]) and r["sec"] > 0 for r in lines):
+        raise AssertionError(f"b96 {n}+{n}: the probe printed {lines}")
+    seconds = time.perf_counter() - t0
+    gen_bwd = next(r["sec"] for r in lines if r["probe"] == f"prefix_through_{stage_names[-1]}")
+    shares = {r["probe"].removeprefix("prefix_through_"): r["delta_vs_prev"] / gen_bwd
+              for r in lines if "delta_vs_prev" in r}
+    print(f"b96 {n}+{n} ({smi}): " + ", ".join(f"{r['probe']} {r['sec']:.4f} s" for r in lines)
+          + "; stage shares of the prefix through last_conv: "
+          + ", ".join(f"{k} {v:.1%}" for k, v in shares.items())
+          + f"; launches {launches}; {seconds:.1f} s" + (" (cut from 48 + 48)" if n != 48 else ""), flush=True)
+    torch.cuda.empty_cache()
+    return launches, dict(lines=lines, shares=shares, card=smi, seconds=seconds)
+
+
 # ``--only`` (partial runs for debugging; they print no result lines)
 ONLY = {
     "serve": daemon_phases,
@@ -5651,6 +5765,9 @@ ONLY = {
     "sp": slice_15_phases,
     "sp_2d": slice_17_phases,
     "images": images_phase,
+    "tools": lambda: tools_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))),
+    "b96_small": b96_phase,
+    "b96": lambda: b96_phase(48, 3),
 }
 
 
@@ -5829,6 +5946,10 @@ def main(argv=None) -> int:
     print(f"sp_2d, hdf5: {time.perf_counter() - t_start:.1f} s", flush=True)
     images_launches, images_results = images_phase()
     print(f"images: {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tools_launches, tools_results = tools_phase(Path(tmp), state)
+    b96_launches, b96_results = b96_phase()
+    print(f"tools, b96_small: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
@@ -5884,7 +6005,10 @@ def main(argv=None) -> int:
                    "sp_2d": sp2d_launches[key],
                    # the image path runs basic_3d's packed bf16 fit: none
                    # (asserted)
-                   "images": images_launches[key]}
+                   "images": images_launches[key],
+                   # the tools' corrections are f32 packed, their step and
+                   # the probe bf16 packed: none (asserted)
+                   "tools": tools_launches[key], "b96_small": b96_launches[key]}
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path,
                             on_path=r["name"] != "block_conv3x3x3_v2"))
     print(json.dumps({
@@ -5903,7 +6027,7 @@ def main(argv=None) -> int:
         "dataset": s13["dataset"][1], "recall": s13["recall"][1], "overlap": s13["overlap"][1],
         "flops": s13["flops"][1], "instance": s14["instance"][1], "dropout": s14["dropout"],
         "remat": s14["remat"][1], "jax_ckpt": s14["jax_ckpt"][1], "sp": sp_results, "sp_2d": sp2d_results,
-        "images": images_results,
+        "images": images_results, "tools": tools_results, "b96_small": b96_results,
     }, default=str))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,9 @@ package's packed layout). Spatial dims must divide
 input is already f=2 packed, ``(B, X/2, Y/2, Z/2, 8)`` channels-last;
 ``packed_output``: the f=4 packed attenuation ``(B, X/4, Y/4, Z/4, 64)``
 comes out. ``forward_packed`` runs the packed layout on a generator of
-either layout (the corrector's packed sliding window).
+either layout (the corrector's packed sliding window); it and
+``packed_prefix`` (the layout up to one stage: ``b96_probe``'s stage
+gradients) share one stage loop, ``packed_stages``.
 
 ``dtype`` is the compute dtype of every block (``models/blocks.py``): the
 first block casts the input to it and the attenuation comes out in it;
@@ -196,19 +198,48 @@ class ResnetGenerator(nn.Module):
         rows = x.shape[2] * self.mesh.space if self.mesh.space > 1 else None
         if self.layout == "packed":
             return self.forward_packed(x, self.packed_input, self.packed_output)
-        blocks = (self.first, *(getattr(self, f"down_{i}") for i in range(self.n_updownsample_blocks)),
-                  *(getattr(self, f"resnet_{i}") for i in range(self.n_resnet_blocks)),
-                  *(getattr(self, f"up_{i - 1}") for i in range(self.n_updownsample_blocks, 0, -1)))
-        for block in blocks:
+        for name in self.stage_names()[:-1]:
+            block = getattr(self, name)
             x = self._run(block, x, rows)
             rows = block.out_rows(rows)
         return self._run(self.last_conv, x, rows)
+
+    def stage_names(self) -> tuple:
+        """The generator's stages in the order they run: ``first``,
+        ``down_<i>``, ``resnet_<i>``, ``up_<i>`` from wide to narrow,
+        ``last_conv`` (the JAX generator's module names)."""
+        n = self.n_updownsample_blocks
+        return ("first", *(f"down_{i}" for i in range(n)), *(f"resnet_{i}" for i in range(self.n_resnet_blocks)),
+                *(f"up_{i - 1}" for i in range(n, 0, -1)), "last_conv")
 
     def forward_packed(self, x: torch.Tensor, packed_input: bool = False, packed_output: bool = False) -> torch.Tensor:
         """The packed layout (``_packed_call`` of the JAX generator): x is
         ``(B, 1, X, Y, Z)``, or f2-packed channels-last with
         ``packed_input``; the output is ``(B, 1, X, Y, Z)``, or f4-packed
         channels-last with ``packed_output``."""
+        for _, yp in self.packed_stages(x, packed_input):
+            pass
+        if packed_output:
+            return yp
+        return depth_to_space(yp, 4).permute(0, 4, 1, 2, 3)
+
+    def packed_prefix(self, x: torch.Tensor, stage: str) -> torch.Tensor:
+        """The packed layout run only up to and including ``stage`` (one of
+        :meth:`stage_names`): that stage's output, in the layout the stage
+        leaves it (the JAX probe's ``capture_intermediates`` prefix; its
+        sum of squares does not depend on the layout)."""
+        for name, y in self.packed_stages(x):
+            if name == stage:
+                return y
+        raise ValueError(f"no stage {stage!r} in {self.stage_names()}")
+
+    def packed_stages(self, x: torch.Tensor, packed_input: bool = False):
+        """Run the packed layout stage by stage, yielding ``(name, output)``
+        after each (:meth:`stage_names`); a consumer that stops early runs
+        no later stage. The outputs: the stem, the downsamples and
+        ``up_0`` f2-packed channels-last (the last downsample's f1, that
+        is, direct channels-last), the ResNet blocks NCDHW, the inner
+        upsamples f2-packed, the projection f4-packed."""
         self.check_packed()
         n, dt, space = self.n_updownsample_blocks, self.dtype, self.mesh.space
         if packed_input:
@@ -232,6 +263,7 @@ class ResnetGenerator(nn.Module):
         # stem: reflect-padded 7^3, f2 -> f2
         xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d_padded(
             v, k, b, f_in=2, f_out=2, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 2))
+        yield "first", xp
         # downsamples f2 -> f2; the last one unpacks (f_out=1) into the
         # bottleneck
         for i in range(n):
@@ -240,10 +272,12 @@ class ResnetGenerator(nn.Module):
                            lambda v, k, b, fo=f_out: packed_conv3d_padded(
                                v, k, b, f_in=2, f_out=fo, stride=2, pad=1, mesh=mesh),
                            rows(dims[0] // 2 ** (i + 1) // f_out))
+            yield f"down_{i}", xp
         # bottleneck: the direct ResNet blocks on a channels-last view
         x = xp.permute(0, 4, 1, 2, 3)
         for i in range(self.n_resnet_blocks):
             x = self._run(getattr(self, f"resnet_{i}"), x, rows(dims[0] // 2**n))
+            yield f"resnet_{i}", x
         # upsamples: dense stride-1 convs whose s=2-packed output is the f2
         # layout of the full-resolution tensor (the JAX layout runs the
         # inner ones as direct transpose convs: the same products; a
@@ -253,11 +287,9 @@ class ResnetGenerator(nn.Module):
         for i in range(n, 0, -1):
             xp = self._run(_packed_stage, getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
                 v, k, b, stride=2, convention=self.tconv_placement, mesh=mesh), rows(dims[0] // 2**i))
+            yield f"up_{i - 1}", xp
             if i > 1:
                 x = depth_to_space(xp, 2)
         # the f2 -> f4 projection
-        yp = self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d_padded(
+        yield "last_conv", self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d_padded(
             v, k, b, f_in=2, f_out=4, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 4))
-        if packed_output:
-            return yp
-        return depth_to_space(yp, 4).permute(0, 4, 1, 2, 3)

@@ -16,7 +16,9 @@ The JAX package's ``<step>.msgpack`` checkpoints are read without JAX or
 tree, ``load_jax_generator`` what inference needs (JAX's
 ``load_generator``), and ``restore_jax_state`` carries the tree into a port
 train state (the ``import_jax_checkpoint`` command writes it as a
-``<step>.pt``). ``load_generator`` reads either kind of run directory.
+``<step>.pt``). ``load_generator`` (the generator) and ``load_networks``
+(both networks, the ``export_torch_checkpoint`` command's) read either
+kind of run directory.
 """
 
 import json
@@ -297,14 +299,29 @@ def load_generator(ckpt_dir_or_file, iteration: Optional[int] = None) -> Dict:
     included), the step and the meta sidecar, from a port run's
     ``<step>.pt`` or a JAX run's ``<step>.msgpack`` (its weights carried by
     ``utils/weights.py``)."""
+    nets = load_networks(ckpt_dir_or_file, iteration)
+    if nets["path"].suffix == ".msgpack":
+        logger.info("Read the JAX checkpoint '%s'", nets["path"])
+    return {"state_dict": nets["generator"], "step": nets["step"], "meta": nets["meta"]}
+
+
+def load_networks(ckpt_dir_or_file, iteration: Optional[int] = None) -> Dict:
+    """Both networks of a port run's ``<step>.pt`` or a JAX run's
+    ``<step>.msgpack``: ``generator`` and ``critic`` ``state_dict``s
+    (statistics included, the JAX weights carried by ``utils/weights.py``),
+    ``step``, ``meta`` and the file's ``path``: the file itself, or in a
+    directory ``iteration``'s (or the latest) ``<step>.pt``, else
+    ``<step>.msgpack``."""
     path = _checkpoint_file(ckpt_dir_or_file, iteration)
     if path.suffix == ".msgpack":
-        jax_gen = load_jax_generator(path)
-        state_dict = generator_state_dict_from_jax({"params": jax_gen["params"], "batch_stats": jax_gen["stats"] or {}})
-        logger.info("Read the JAX checkpoint '%s'", path)
-        return {"state_dict": state_dict, "step": jax_gen["step"], "meta": jax_gen["meta"]}
-    payload = _load(path)
-    return {"state_dict": payload["generator"], "step": int(payload["step"]), "meta": read_meta(path)}
+        tree = load_jax_state(path)
+        nets = {prefix: carry({"params": tree[f"{prefix}_params"], "batch_stats": tree.get(f"{prefix}_stats") or {}})
+                for prefix, carry in (("gen", generator_state_dict_from_jax), ("critic", critic_state_dict_from_jax))}
+        generator, critic, step = nets["gen"], nets["critic"], tree["step"]
+    else:
+        payload = _load(path)
+        generator, critic, step = payload["generator"], payload["critic"], payload["step"]
+    return {"generator": generator, "critic": critic, "step": int(step), "meta": read_meta(path), "path": path}
 
 
 def jax_checkpoint_file(ckpt_dir_or_file, iteration: Optional[int] = None) -> Path:

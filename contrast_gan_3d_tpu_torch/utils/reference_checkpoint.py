@@ -204,18 +204,24 @@ def load_reference_checkpoint(path, n_resnet_blocks: Optional[int] = None,
 
 def save_reference_checkpoint(path, generator_state_dict: Mapping[str, torch.Tensor],
                               critic_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                              iteration: int = 0) -> None:
+                              iteration: int = 0, n_resnet_blocks: Optional[int] = None,
+                              n_updownsample_blocks: Optional[int] = None,
+                              discriminator_depth: Optional[int] = None) -> None:
     """Write a reference-format ``<iteration>.pt`` from the port's state
     dicts (``module.state_dict()``), the critic, if given, under
-    ``critic_state_dict``. A generator trained with the "same" transpose
-    conv placement drives the reference model one voxel off: train with
-    ``tconv_placement="torch"`` for files the reference reproduces
-    exactly."""
+    ``critic_state_dict``. Block counts given explicitly are checked
+    against the state dicts (a mismatch raises; ``discriminator_depth``
+    only where a critic is written). A generator trained with the "same"
+    transpose conv placement drives the reference model one voxel off:
+    train with ``tconv_placement="torch"`` for files the reference
+    reproduces exactly."""
     ckpt = {
         "iteration": int(iteration),
         "generator": generator_state_dict_to_reference(generator_state_dict),
         "discriminator": None,
     }
+    generator_arch(ckpt["generator"], n_resnet_blocks, n_updownsample_blocks)
     if critic_state_dict is not None:
         ckpt["critic_state_dict"] = critic_state_dict_to_reference(critic_state_dict)
+        critic_arch(ckpt["critic_state_dict"], discriminator_depth)
     torch.save(ckpt, path)

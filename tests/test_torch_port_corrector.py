@@ -150,7 +150,10 @@ def test_port_imports_nothing_of_jax():
         # JAX checkpoints read without msgpack, and their import
         "utils.msgpack", "import_jax_checkpoint",
         # the figures, the batch viewer and its command (matplotlib at first use)
-        "utils.visualization", "utils.batch_viewer", "view_batches")} <= set(mods)
+        "utils.visualization", "utils.batch_viewer", "view_batches",
+        # reference .pt files both ways, the b96 probe, the host ceiling, their logging
+        "import_torch_checkpoint", "export_torch_checkpoint", "b96_probe", "bench_host_augment",
+        "utils.logging_utils")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
