@@ -1021,7 +1021,9 @@ def profile(fn, label, top=15):
     # seconds per window, and only the backward breakdown below needs it
     by_name, intervals, backward = collections.Counter(), [], False
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        # a span (utils/spans.py) also lies on the device's timeline as a
+        # user annotation: no device work
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
             by_name[e.name()] += e.duration_ns() / 1e3
             intervals.append((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
         elif e.name() == "aten::convolution_backward":
@@ -2581,11 +2583,8 @@ def fit_2d_phase(tmp: Path):
                     dispatch, rate = window(n, 10 + 2 * rep + (n == 1))
                     per_iteration[n].append(dispatch)
                     rates[n].append(rate)
-                    cycle = trainer._cycle_cache.get(trainer._cycle_pattern(0, FIT_K))
-                    last = "" if cycle is None else (f"; the last cycle's copy into its static buffers "
-                                                     f"{cycle.copy_s} s, replay() {cycle.replay_s} s")
                     print(f"fit 2D {conf}, {n} loader thread(s) per label, {FIT_WINDOW_ITERATIONS} iterations: "
-                          f"{rate:.1f} slices/s; {trainer.time_budget.summary()}{last}", flush=True)
+                          f"{rate:.1f} slices/s; {trainer.time_budget.summary()}", flush=True)
             out[conf]["window_slices_per_sec"] = rates
             out[conf]["dispatch_s_per_iteration_by_loader_threads"] = per_iteration
             print(f"fit 2D {conf}: slices/s and dispatch s per iteration by loader threads per label (one window "
@@ -2938,9 +2937,10 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
     losses); the 3rd and 4th cycle (same batches, two successive replays)
     drew different augmentations (the draws re-derived from each pre-cycle
     generator state). Then seconds per 5-iteration cycle, replayed
-    against eager dispatch (alternated, medians), the host seconds of the
-    ``replay()`` call, each one's busy share under the profiler, and the
-    peak memory (``timed=False``: none of these). A generator with dropout
+    against eager dispatch (alternated, medians), the host seconds of a
+    replayed cycle's ``train_step_cycle`` call, each one's busy share under
+    the profiler, and the peak memory (``timed=False``: none of these). A
+    generator with dropout
     (phase 45) draws its masks from the state's generator inside the
     graph: the replays' states are bit-equal to eager dispatch's, and the
     3rd and 4th cycle's last masks differ. Under remat (phase 46) B1 / B3
@@ -3000,7 +3000,6 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
             raise AssertionError(f"cycle {name} {c}: launches {launches}, expected {want_launches}")
         checks.append(dict(iteration=iteration, calls=calls, launches=launches, rng_before=rng_before,
                            want={k: v.float().item() for k, v in want.items()},
-                           replay_s=cycle.replay_s if c else None,
                            mask=drops[0].mask.clone() if drops else None))
         print(f"cycle {name} {c} (iterations {iteration}-{iteration + 4}, {'/'.join(cycle.pattern)}): calls "
               f"{calls}, launches {launches}; state bit-equal to eager dispatch", flush=True)
@@ -3052,7 +3051,7 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
 
     # seconds per cycle: the 4th cycle's batches, from iteration 0's
     # pattern, eager dispatch against a replay
-    batches, cycle = data[-CYCLE_K:], graph._cycle_cache[graph._cycle_pattern(0, CYCLE_K)]
+    batches = data[-CYCLE_K:]
 
     def eager_cycle():
         for k, patches in enumerate(batches):
@@ -3061,7 +3060,7 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
     def graph_cycle():
         graph.train_step_cycle(batches, 0)
 
-    times, replay_s, copy_s, host_s = {"eager": [], "graph": []}, [], [], []
+    times, host_s = {"eager": [], "graph": []}, []
     for _ in range(CYCLE_TIMED):
         for kind in ("eager", "graph", "graph", "eager"):
             t = time.perf_counter()
@@ -3070,16 +3069,12 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
             torch.cuda.synchronize()
             times[kind].append(time.perf_counter() - t)
             if kind == "graph":
-                replay_s.append(cycle.replay_s)
-                copy_s.append(cycle.copy_s)
                 host_s.append(host)
     busy = {kind: profile(fn, f"cycle {name} {kind}, 5 iterations", top=8)
             for kind, fn in (("eager", eager_cycle), ("graph", graph_cycle))}
     n = sum(mix)
-    kept = ("iteration", "calls", "launches", "replay_s")
+    kept = ("iteration", "calls", "launches")
     out = dict(eager_cycle_s=statistics.median(times["eager"]), graph_cycle_s=statistics.median(times["graph"]),
-               replay_call_s=statistics.median(replay_s) if None not in replay_s else None,
-               copy_s=statistics.median(copy_s) if None not in copy_s else None,
                graph_host_s=statistics.median(host_s), times=times,
                busy=busy, peak_memory_gib=peak, per_cycle=[{k: c[k] for k in kept} for c in checks])
     out["eager_per_sec"], out["graph_per_sec"] = (CYCLE_K * n / out[k] for k in ("eager_cycle_s", "graph_cycle_s"))
@@ -3088,10 +3083,9 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
           f"eager dispatch {out['eager_cycle_s']:.4f} s ({out['eager_per_sec']:.1f} {unit}/s), replayed graph "
           f"{out['graph_cycle_s']:.4f} s ({out['graph_per_sec']:.1f} {unit}/s), of which host "
           f"{out['graph_host_s']:.4f} s (train_step_cycle: assembling and stacking the batches, the copy into "
-          f"the static buffers {out['copy_s']} s, replay() {out['replay_call_s']} s); busy share eager "
-          f"{busy['eager']['busy_share']}, graph "
-          f"{busy['graph']['busy_share']}", flush=True)
-    del eager, graph, data, batches, checks, cycle
+          f"the static buffers, replay(): the spans train.assemble, train.stack, train.copy_in, train.replay); "
+          f"busy share eager {busy['eager']['busy_share']}, graph {busy['graph']['busy_share']}", flush=True)
+    del eager, graph, data, batches, checks
     torch.cuda.empty_cache()
     return out
 

@@ -26,12 +26,13 @@ from torch import nn
 from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.models.generator import LAYOUTS, ResnetGenerator
 from contrast_gan_3d_tpu_torch.models.utils import derive_generator_arch
-from contrast_gan_3d_tpu_torch.ops.sliding_window import make_volume_corrector
+from contrast_gan_3d_tpu_torch.ops.sliding_window import count_batch, make_volume_corrector
 from contrast_gan_3d_tpu_torch.parallel.inference import make_sharded_volume_corrector, replicas
 from contrast_gan_3d_tpu_torch.trainer import checkpoint as ckpt_lib
 from contrast_gan_3d_tpu_torch.utils import io_utils
 from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
 from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint
+from contrast_gan_3d_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -97,6 +98,16 @@ class CCTAContrastCorrector:
     is. ``dispatched_shapes`` records each distinct (W, H, z) dispatched
     after bucketing, once its correction has returned; read it under
     ``_shapes_lock`` from other threads.
+
+    ``counts`` counts the work as Python ints (no device sync):
+    ``volumes`` corrected, generator ``batches``, ``samples`` (windows or
+    slices the generator ran, padding included) and ``useful`` (those
+    whose output lands in the volume: a 2D batch's zero slices and a
+    bucket's padded slices are not; in 3D every window blends into the
+    volume). Under a running profiler a correction is the span
+    ``correct.volume`` over ``correct.h2d``, ``correct.prepare``, one
+    ``correct.batch`` per generator batch and ``correct.blend``
+    (``utils/spans.py``; ``ops/sliding_window.make_volume_corrector``).
     """
 
     def __init__(
@@ -134,6 +145,7 @@ class CCTAContrastCorrector:
         self.dtype = dtype
         self.dispatched_shapes: set = set()
         self._shapes_lock = threading.Lock()
+        self.counts = dict.fromkeys(("volumes", "batches", "samples", "useful"), 0)
         if batch_size is None:
             batch_size = (128 if self.device.type == "cuda" else 8) if self.is_2d else (24 if self.packed else 8)
         self.batch_size = batch_size
@@ -151,6 +163,7 @@ class CCTAContrastCorrector:
             device=self.device,
             dtype=dtype,
             packed_io=self.packed,
+            counts=self.counts,
         )
 
     @classmethod
@@ -231,7 +244,7 @@ class CCTAContrastCorrector:
             apply = lambda x, d: reps[d](x)
         self.correct_volume = make_sharded_volume_corrector(
             apply, devices, patch_size=self.inference_patch_size, overlap=self.overlap, batch_size=self.batch_size,
-            scaler=self.scaler, dtype=self.dtype, packed_io=self.packed)
+            scaler=self.scaler, dtype=self.dtype, packed_io=self.packed, counts=self.counts)
         self.device = devices[0]
         self.devices = devices
         return self
@@ -240,16 +253,24 @@ class CCTAContrastCorrector:
         """Axial-slice batched 2D correction: (W, H, D) -> (W, H, D) f32 HU."""
         volume = torch.as_tensor(volume)
         W, H, D = volume.shape
-        slices = self.scaler(volume.to(self.device, torch.float32)).permute(2, 0, 1).unsqueeze(1)
-        bs = min(self.batch_size, -(-D // 8) * 8)
-        pad = (-D) % bs
-        if pad:
-            slices = torch.cat([slices, slices.new_zeros((pad, 1, W, H))])
-        out = torch.empty_like(slices)
+        with span("correct.h2d"):
+            volume = volume.to(self.device, torch.float32)
+        with span("correct.prepare"):
+            slices = self.scaler(volume).permute(2, 0, 1).unsqueeze(1)
+            bs = min(self.batch_size, -(-D // 8) * 8)
+            pad = (-D) % bs
+            if pad:
+                slices = torch.cat([slices, slices.new_zeros((pad, 1, W, H))])
+            out = torch.empty_like(slices)
         for b0 in range(0, len(slices), bs):
-            batch = slices[b0 : b0 + bs]
-            out[b0 : b0 + bs] = batch - self.generator(batch).float()
-        return self.scaler.unscale(out[:D, 0].permute(1, 2, 0).contiguous())
+            with span("correct.batch"):
+                batch = slices[b0 : b0 + bs]
+                atten = self.generator(batch)
+                with span("correct.accumulate"):
+                    out[b0 : b0 + bs] = batch - atten.float()
+            count_batch(self.counts, bs, min(bs, D - b0))
+        with span("correct.blend"):
+            return self.scaler.unscale(out[:D, 0].permute(1, 2, 0).contiguous())
 
     @torch.inference_mode()
     def __call__(self, volume) -> torch.Tensor:
@@ -264,18 +285,23 @@ class CCTAContrastCorrector:
         (``eval/export.py`` traces this under ``torch.no_grad``; the
         artifact sets the scope when it runs). ``pad`` is the one source
         of both the padding and the recorded shape."""
-        volume = torch.as_tensor(volume)
-        d = volume.shape[2]
-        pad = self.z_bucket - d % self.z_bucket if self.z_bucket > 0 and d % self.z_bucket else 0
-        if pad:
-            volume = volume.to(self.device)
-            edge = volume[:, :, -1:].expand(-1, -1, pad)
-            corrected = self.correct_volume(torch.cat([volume, edge], dim=2))[:, :, :d]
-        else:
-            corrected = self.correct_volume(volume)
-        with self._shapes_lock:
-            self.dispatched_shapes.add((volume.shape[0], volume.shape[1], d + pad))
-        return corrected
+        with span("correct.volume"):
+            volume = torch.as_tensor(volume)
+            d = volume.shape[2]
+            pad = self.z_bucket - d % self.z_bucket if self.z_bucket > 0 and d % self.z_bucket else 0
+            if pad:
+                with span("correct.h2d"):
+                    volume = volume.to(self.device)
+                edge = volume[:, :, -1:].expand(-1, -1, pad)
+                corrected = self.correct_volume(torch.cat([volume, edge], dim=2))[:, :, :d]
+            else:
+                corrected = self.correct_volume(volume)
+            with self._shapes_lock:
+                self.dispatched_shapes.add((volume.shape[0], volume.shape[1], d + pad))
+            self.counts["volumes"] += 1
+            if self.is_2d:  # the bucket's padded slices are cropped
+                self.counts["useful"] -= pad
+            return corrected
 
     def correct_file(self, scan_path, out_path=None, meta=None) -> np.ndarray:
         """Load a scan file (``io_utils.load_scan``), correct it, and write

@@ -71,6 +71,7 @@ from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d_padded, packed_tc
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 from contrast_gan_3d_tpu_torch.parallel.spatial import bounds
+from contrast_gan_3d_tpu_torch.utils.spans import span
 
 LAYOUTS = ("direct", "packed")
 
@@ -200,14 +201,18 @@ class ResnetGenerator(nn.Module):
             return self.forward_packed(x, self.packed_input, self.packed_output)
         for name in self.stage_names()[:-1]:
             block = getattr(self, name)
-            x = self._run(block, x, rows)
+            with span(f"gen.{name}"):
+                x = self._run(block, x, rows)
             rows = block.out_rows(rows)
-        return self._run(self.last_conv, x, rows)
+        with span("gen.last_conv"):
+            return self._run(self.last_conv, x, rows)
 
     def stage_names(self) -> tuple:
         """The generator's stages in the order they run: ``first``,
         ``down_<i>``, ``resnet_<i>``, ``up_<i>`` from wide to narrow,
-        ``last_conv`` (the JAX generator's module names)."""
+        ``last_conv`` (the JAX generator's module names). Under a running
+        profiler each stage's forward, in either layout, is the span
+        ``gen.<stage>`` (``utils/spans.py``)."""
         n = self.n_updownsample_blocks
         return ("first", *(f"down_{i}" for i in range(n)), *(f"resnet_{i}" for i in range(self.n_resnet_blocks)),
                 *(f"up_{i - 1}" for i in range(n, 0, -1)), "last_conv")
@@ -261,22 +266,25 @@ class ResnetGenerator(nn.Module):
         rows = (lambda r: r) if space > 1 else (lambda r: None)
 
         # stem: reflect-padded 7^3, f2 -> f2
-        xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d_padded(
-            v, k, b, f_in=2, f_out=2, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 2))
+        with span("gen.first"):
+            xp = self._run(_packed_stage, self.first, xp, 8, lambda v, k, b: packed_conv3d_padded(
+                v, k, b, f_in=2, f_out=2, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 2))
         yield "first", xp
         # downsamples f2 -> f2; the last one unpacks (f_out=1) into the
         # bottleneck
         for i in range(n):
             f_out = 1 if i == n - 1 else 2
-            xp = self._run(_packed_stage, getattr(self, f"down_{i}"), xp, f_out**3,
-                           lambda v, k, b, fo=f_out: packed_conv3d_padded(
-                               v, k, b, f_in=2, f_out=fo, stride=2, pad=1, mesh=mesh),
-                           rows(dims[0] // 2 ** (i + 1) // f_out))
+            with span(f"gen.down_{i}"):
+                xp = self._run(_packed_stage, getattr(self, f"down_{i}"), xp, f_out**3,
+                               lambda v, k, b, fo=f_out: packed_conv3d_padded(
+                                   v, k, b, f_in=2, f_out=fo, stride=2, pad=1, mesh=mesh),
+                               rows(dims[0] // 2 ** (i + 1) // f_out))
             yield f"down_{i}", xp
         # bottleneck: the direct ResNet blocks on a channels-last view
         x = xp.permute(0, 4, 1, 2, 3)
         for i in range(self.n_resnet_blocks):
-            x = self._run(getattr(self, f"resnet_{i}"), x, rows(dims[0] // 2**n))
+            with span(f"gen.resnet_{i}"):
+                x = self._run(getattr(self, f"resnet_{i}"), x, rows(dims[0] // 2**n))
             yield f"resnet_{i}", x
         # upsamples: dense stride-1 convs whose s=2-packed output is the f2
         # layout of the full-resolution tensor (the JAX layout runs the
@@ -285,11 +293,14 @@ class ResnetGenerator(nn.Module):
         # cudnn.deterministic); the inner ones unpack for the next
         x = x.permute(0, 2, 3, 4, 1)
         for i in range(n, 0, -1):
-            xp = self._run(_packed_stage, getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
-                v, k, b, stride=2, convention=self.tconv_placement, mesh=mesh), rows(dims[0] // 2**i))
+            with span(f"gen.up_{i - 1}"):
+                xp = self._run(_packed_stage, getattr(self, f"up_{i - 1}"), x, 8, lambda v, k, b: packed_tconv3d(
+                    v, k, b, stride=2, convention=self.tconv_placement, mesh=mesh), rows(dims[0] // 2**i))
             yield f"up_{i - 1}", xp
             if i > 1:
                 x = depth_to_space(xp, 2)
         # the f2 -> f4 projection
-        yield "last_conv", self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d_padded(
-            v, k, b, f_in=2, f_out=4, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 4))
+        with span("gen.last_conv"):
+            yp = self._run(_packed_stage, self.last_conv, xp, 64, lambda v, k, b: packed_conv3d_padded(
+                v, k, b, f_in=2, f_out=4, pad=3, mode="reflect", mesh=mesh), rows(dims[0] // 4))
+        yield "last_conv", yp

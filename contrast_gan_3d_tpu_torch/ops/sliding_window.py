@@ -20,7 +20,7 @@ the JAX package.
 """
 
 from functools import lru_cache
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from contrast_gan_3d_tpu_torch.data.scaler import FactorZeroCenterScaler, Scaler
 from contrast_gan_3d_tpu_torch.ops.resample import resize_linear
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.spans import span
 
 
 @lru_cache(maxsize=32)
@@ -153,20 +154,22 @@ def make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype):
     sharded corrector)."""
 
     def run_batch(acc, starts, valid=None):
-        patches = torch.stack([
-            vol[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]]
-            for x, y, z in starts
-        ])
+        with span("correct.gather"):
+            patches = torch.stack([
+                vol[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]]
+                for x, y, z in starts
+            ])
         atten = generator_apply(patches[:, None].to(dtype))[:, 0]
         if tuple(atten.shape[1:]) != patch_size:
             # a patch the generator does not divide: its output is
             # ceil-rounded, resized back in the generator's dtype before the
             # f32 cast, as jax.image.resize(method="trilinear") does in JAX
             atten = resize_linear(atten[..., None], patch_size)[..., 0]
-        atten = atten.float()
-        for i, (x, y, z) in enumerate(starts):
-            w = gw if valid is None else gw * float(valid[i])
-            acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * w
+        with span("correct.accumulate"):
+            atten = atten.float()
+            for i, (x, y, z) in enumerate(starts):
+                w = gw if valid is None else gw * float(valid[i])
+                acc[x : x + patch_size[0], y : y + patch_size[1], z : z + patch_size[2]] += atten[i] * w
 
     return run_batch
 
@@ -182,16 +185,29 @@ def make_packed_patch_loop(vp, patch_size, gw_p, generator_apply):
     p4 = tuple(p // 4 for p in patch_size)
 
     def run_batch(acc, starts, valid=None):
-        patches = torch.stack([
-            vp[x // 2 : x // 2 + p2[0], y // 2 : y // 2 + p2[1], z // 2 : z // 2 + p2[2]]
-            for x, y, z in starts
-        ])
-        atten = generator_apply(patches).float()
-        for i, (x, y, z) in enumerate(starts):
-            w = gw_p if valid is None else gw_p * float(valid[i])
-            acc[x // 4 : x // 4 + p4[0], y // 4 : y // 4 + p4[1], z // 4 : z // 4 + p4[2]] += atten[i] * w
+        with span("correct.gather"):
+            patches = torch.stack([
+                vp[x // 2 : x // 2 + p2[0], y // 2 : y // 2 + p2[1], z // 2 : z // 2 + p2[2]]
+                for x, y, z in starts
+            ])
+        atten = generator_apply(patches)
+        with span("correct.accumulate"):
+            atten = atten.float()
+            for i, (x, y, z) in enumerate(starts):
+                w = gw_p if valid is None else gw_p * float(valid[i])
+                acc[x // 4 : x // 4 + p4[0], y // 4 : y // 4 + p4[1], z // 4 : z // 4 + p4[2]] += atten[i] * w
 
     return run_batch
+
+
+def count_batch(counts: Optional[dict], samples: int, useful: int) -> None:
+    """Add one generator batch of ``samples`` windows or slices, ``useful``
+    of which land in the volume (the rest: padding), to a corrector's
+    ``counts`` (``batches``, ``samples``, ``useful``); None counts nothing."""
+    if counts is not None:
+        counts["batches"] += 1
+        counts["samples"] += samples
+        counts["useful"] += useful
 
 
 def scan_patch_batches_masked(run_batch, acc, starts_b, valid_b):
@@ -219,6 +235,7 @@ def make_volume_corrector(
     device="cuda",
     dtype: torch.dtype = torch.float32,
     packed_io: bool = False,
+    counts: Optional[dict] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``correct(volume) -> corrected_volume`` on ``device``.
 
@@ -231,7 +248,13 @@ def make_volume_corrector(
     ``device``. Patch sizes must divide 4 with ``packed_io``. In the direct
     layout a patch size the generator does not divide gives a ceil-rounded
     attenuation, resized back to the patch (``resample.resize_linear``,
-    antialiased when it shrinks).
+    antialiased when it shrinks). ``counts``: a dict whose ``batches``,
+    ``samples`` and ``useful`` each batch adds to (:func:`count_batch`).
+    Spans under a running profiler (``utils/spans.py``): ``correct.h2d``
+    (the volume to the device in f32), ``correct.prepare`` (scale, pad,
+    pack, plan), ``correct.batch`` per batch (``correct.gather``, the
+    generator's ``gen.*``, ``correct.accumulate``), ``correct.blend``
+    (unpack, normalise, crop, unscale).
     """
     device = resolve_device(device)
     patch_size, stride = plan_stride(patch_size, overlap, packed_io)
@@ -243,39 +266,46 @@ def make_volume_corrector(
         """Correct one (W, H, D) HU volume; returns an f32 HU volume."""
         volume = torch.as_tensor(volume)
         shape = tuple(volume.shape)
-        # pad (centered, edge values) dims smaller than the patch; packed:
-        # also up to a multiple of 4
-        target = packed_padded_shape(shape, patch_size) if packed_io else \
-            tuple(max(s, p) for s, p in zip(shape, patch_size))
-        pad_cfg = [((t - s) // 2, (t - s) - (t - s) // 2) for s, t in zip(shape, target)]
-        vol = scaler(volume.to(device=device, dtype=torch.float32))
-        if any(p != (0, 0) for p in pad_cfg):
-            flat = [v for lo_hi in reversed(pad_cfg) for v in lo_hi]
-            vol = F.pad(vol[None, None], flat, mode="replicate")[0, 0]
-        padded_shape = tuple(vol.shape)
+        with span("correct.h2d"):
+            vol = volume.to(device=device, dtype=torch.float32)
+        with span("correct.prepare"):
+            # pad (centered, edge values) dims smaller than the patch;
+            # packed: also up to a multiple of 4
+            target = packed_padded_shape(shape, patch_size) if packed_io else \
+                tuple(max(s, p) for s, p in zip(shape, patch_size))
+            pad_cfg = [((t - s) // 2, (t - s) - (t - s) // 2) for s, t in zip(shape, target)]
+            vol = scaler(vol)
+            if any(p != (0, 0) for p in pad_cfg):
+                flat = [v for lo_hi in reversed(pad_cfg) for v in lo_hi]
+                vol = F.pad(vol[None, None], flat, mode="replicate")[0, 0]
+            padded_shape = tuple(vol.shape)
 
-        grid = _plan_grid(padded_shape, patch_size, stride).tolist()
-        if packed_io:
-            # the volume, the window and the accumulator all live packed
-            vp = space_to_depth(vol[None, ..., None].to(dtype), 2)[0]
-            run_batch = make_packed_patch_loop(vp, patch_size, gw_p, generator_apply)
-            acc = torch.zeros((*(d // 4 for d in padded_shape), 64), dtype=torch.float32, device=device)
-        else:
-            run_batch = make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype)
-            acc = torch.zeros(padded_shape, dtype=torch.float32, device=device)
+            grid = _plan_grid(padded_shape, patch_size, stride).tolist()
+            if packed_io:
+                # the volume, the window and the accumulator all live packed
+                vp = space_to_depth(vol[None, ..., None].to(dtype), 2)[0]
+                run_batch = make_packed_patch_loop(vp, patch_size, gw_p, generator_apply)
+                acc = torch.zeros((*(d // 4 for d in padded_shape), 64), dtype=torch.float32, device=device)
+            else:
+                run_batch = make_direct_patch_loop(vol, patch_size, gw, generator_apply, dtype)
+                acc = torch.zeros(padded_shape, dtype=torch.float32, device=device)
         # full batches, then the trailing n % batch_size patches as one
         # smaller batch (no zero-weighted padding patches)
         for b0 in range(0, len(grid), batch_size):
-            run_batch(acc, grid[b0 : b0 + batch_size])
-        if packed_io:
-            acc = depth_to_space(acc[None], 4)[0, ..., 0]
-        wvecs = weight_vectors(padded_shape, patch_size, stride, sigma_scale)
-        field = weight_field([torch.as_tensor(v, device=device) for v in wvecs])
-        corrected = vol - acc / field
-        lo = [p[0] for p in pad_cfg]
-        corrected = corrected[
-            lo[0] : lo[0] + shape[0], lo[1] : lo[1] + shape[1], lo[2] : lo[2] + shape[2]
-        ]
-        return scaler.unscale(corrected)
+            starts = grid[b0 : b0 + batch_size]
+            with span("correct.batch"):
+                run_batch(acc, starts)
+            count_batch(counts, len(starts), len(starts))
+        with span("correct.blend"):
+            if packed_io:
+                acc = depth_to_space(acc[None], 4)[0, ..., 0]
+            wvecs = weight_vectors(padded_shape, patch_size, stride, sigma_scale)
+            field = weight_field([torch.as_tensor(v, device=device) for v in wvecs])
+            corrected = vol - acc / field
+            lo = [p[0] for p in pad_cfg]
+            corrected = corrected[
+                lo[0] : lo[0] + shape[0], lo[1] : lo[1] + shape[1], lo[2] : lo[2] + shape[2]
+            ]
+            return scaler.unscale(corrected)
 
     return correct

@@ -67,7 +67,6 @@ corrected batch and the attenuation whole again (``gather_slab``).
 """
 
 import gc
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -85,6 +84,7 @@ from contrast_gan_3d_tpu_torch.parallel.mesh import LOCAL
 from contrast_gan_3d_tpu_torch.parallel.spatial import gather_slab, split_slab
 from contrast_gan_3d_tpu_torch.trainer.optim import ScheduledOptimizer, clip_params
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
+from contrast_gan_3d_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -391,9 +391,11 @@ class CycleStep:
 
     The block-conv wrappers' launch counts stay true: the capture's counts
     are taken back (nothing ran) and added at each replay. ``calls`` counts
-    the eager, capture and replay calls; ``copy_s`` and ``replay_s`` are
-    the host seconds of the last copy into the static buffers and of the
-    last ``replay()`` call."""
+    the eager, capture and replay calls. Under a running profiler each path
+    is a span (``utils/spans.py``): ``train.eager`` (the eager loop and the
+    warm-up), ``train.capture``, ``train.copy_in`` (the batches into the
+    static buffers) and ``train.replay`` (``graph.replay()``, whose kernels
+    carry its launch)."""
 
     def __init__(self, steps: TrainSteps, pattern: tuple, pool=None, stream=None):
         self.steps = steps
@@ -401,8 +403,6 @@ class CycleStep:
         self.pool = pool
         self.stream = stream
         self.calls = {"eager": 0, "capture": 0, "replay": 0}
-        self.copy_s: Optional[float] = None
-        self.replay_s: Optional[float] = None
         self._graph = None
         self._state = None
         self._inputs: Tuple[torch.Tensor, ...] = ()
@@ -431,11 +431,13 @@ class CycleStep:
             raise ValueError(f"{len(opt_c)} stacked batches for a cycle of {len(self.pattern)}")
         if not graphed(state) or all(b == "none" for b in self.pattern):
             self.calls["eager"] += 1
-            return self.run_eager(state, opt_c, subopt_c, mask_c)
+            with span("train.eager"):
+                return self.run_eager(state, opt_c, subopt_c, mask_c)
         if self.calls["eager"] == 0:
             return self._warm_up(state, opt_c, subopt_c, mask_c)
         if self._graph is None:
-            self._capture(state, opt_c, subopt_c, mask_c)
+            with span("train.capture"):
+                self._capture(state, opt_c, subopt_c, mask_c)
         else:
             self._copy_inputs(state, opt_c, subopt_c, mask_c)
         return self._replay(state)
@@ -443,7 +445,7 @@ class CycleStep:
     def _warm_up(self, state, opt_c, subopt_c, mask_c):
         side = torch.cuda.Stream(device=state.device)
         side.wait_stream(torch.cuda.current_stream(state.device))
-        with torch.cuda.stream(side):
+        with span("train.eager"), torch.cuda.stream(side):
             state, metrics = self.run_eager(state, opt_c, subopt_c, mask_c)
         torch.cuda.current_stream(state.device).wait_stream(side)
         self.calls["eager"] += 1
@@ -492,19 +494,17 @@ class CycleStep:
     def _copy_inputs(self, state, opt_c, subopt_c, mask_c):
         if state is not self._state:
             raise ValueError("a captured cycle runs only on the state it was captured with")
-        t = time.perf_counter()
-        for dst, src in zip(self._inputs, (opt_c, subopt_c, mask_c)):
-            src = torch.as_tensor(src)
-            if src.shape != dst.shape or src.dtype != dst.dtype:
-                raise ValueError(f"cycle batches {tuple(src.shape)} {src.dtype}: the graph was captured for "
-                                 f"{tuple(dst.shape)} {dst.dtype}")
-            dst.copy_(src, non_blocking=True)
-        self.copy_s = time.perf_counter() - t
+        with span("train.copy_in"):
+            for dst, src in zip(self._inputs, (opt_c, subopt_c, mask_c)):
+                src = torch.as_tensor(src)
+                if src.shape != dst.shape or src.dtype != dst.dtype:
+                    raise ValueError(f"cycle batches {tuple(src.shape)} {src.dtype}: the graph was captured for "
+                                     f"{tuple(dst.shape)} {dst.dtype}")
+                dst.copy_(src, non_blocking=True)
 
     def _replay(self, state):
-        t = time.perf_counter()
-        self._graph.replay()
-        self.replay_s = time.perf_counter() - t
+        with span("train.replay"):
+            self._graph.replay()
         add_launch_counts(self._launches)
         state.step += len(self.pattern)
         self.calls["replay"] += 1

@@ -56,6 +56,7 @@ from contrast_gan_3d_tpu_torch.trainer.steps import (
 )
 from contrast_gan_3d_tpu_torch.utils.debug import check_finite
 from contrast_gan_3d_tpu_torch.utils.signals import install_graceful_stop
+from contrast_gan_3d_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -289,20 +290,25 @@ class Trainer:
         on a leading cycle axis. Returns the cycle's metrics (on the card a
         replay's static outputs: clone to keep them) and the FIRST
         iteration's (subopt, mask, names), whose pre-cycle rng state is what
-        the image preview re-derives."""
-        assembled = [self._assemble(p) for p in patches_list]
-        stacked = [torch.stack([a[i] for a in assembled]) for i in range(3)]
-        if pattern is None:
-            pattern = self._cycle_pattern(iteration, len(patches_list))
-        cycle = self._cycle_cache.get(pattern)
-        if cycle is None:
-            if self._graph_pool is None and self.state.device.type == "cuda":
-                self._graph_pool = torch.cuda.graph_pool_handle()
-                self._capture_stream = torch.cuda.Stream(device=self.state.device)
-            cycle = self._cycle_cache[pattern] = build_cycle_step(self.steps, pattern, pool=self._graph_pool,
-                                                                  stream=self._capture_stream)
-        self.state, metrics = cycle(self.state, *stacked)
-        return dict(metrics), assembled[0][1:]
+        the image preview re-derives. Spans under a running profiler:
+        ``train.cycle`` (the call), ``train.assemble``, ``train.stack``, and
+        the cycle's own (``steps.CycleStep``)."""
+        with span("train.cycle"):
+            with span("train.assemble"):
+                assembled = [self._assemble(p) for p in patches_list]
+            with span("train.stack"):
+                stacked = [torch.stack([a[i] for a in assembled]) for i in range(3)]
+            if pattern is None:
+                pattern = self._cycle_pattern(iteration, len(patches_list))
+            cycle = self._cycle_cache.get(pattern)
+            if cycle is None:
+                if self._graph_pool is None and self.state.device.type == "cuda":
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                    self._capture_stream = torch.cuda.Stream(device=self.state.device)
+                cycle = self._cycle_cache[pattern] = build_cycle_step(self.steps, pattern, pool=self._graph_pool,
+                                                                      stream=self._capture_stream)
+            self.state, metrics = cycle(self.state, *stacked)
+            return dict(metrics), assembled[0][1:]
 
     # -- graceful stop --------------------------------------------------------
     def request_stop(self, reason: str = "") -> None:
