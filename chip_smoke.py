@@ -11,6 +11,10 @@ kernel against its plain PyTorch version.
     python3 chip_smoke.py --only sp
     python3 chip_smoke.py --only images
     python3 chip_smoke.py --only tools b96_small b96
+    python3 chip_smoke.py --only packed_conv kernels
+
+``--only packed_conv`` is phase 2's packed stage-conv rows alone,
+``--only kernels`` the rest of phase 2.
 
 Both of the port's compute dtypes are driven: f32 (the JAX package's
 strict-parity mode) and bf16 (its default: ``dtype=torch.bfloat16`` on the
@@ -36,7 +40,11 @@ failure raises and exits non-zero):
    (f32: 1e-4 of max|plain|; bf16, on the bf16 values with dy rounded to
    bf16: 2^-8 for dx, rounded once to bf16, and 2^-7 for dw, bf16 products
    summed by cuBLAS), with their times and bounds, dx's yardstick cuDNN's
-   dgrad in the same dtype;
+   dgrad in the same dtype; then the packed layout's f32 stage-conv kernel
+   (``conv3d_cl``, ``ops/packed_conv.py``) at each of the packed
+   generator's six stage convs on a batch of 24 windows of 128^3 against
+   cuDNN's f32 conv with TF32 off (1e-5 of max|cuDNN|), with both times,
+   its bound and rate (``packed_conv_phase``);
 3. serving path, f32, direct layout (``layout="direct"``; the default,
    packed, is phase 27): the default 1,035,297-parameter ``ResnetGenerator``
    with seeded random weights corrects three int16 512x512x128 volumes
@@ -198,7 +206,8 @@ failure raises and exits non-zero):
     and two identical gradient calls of the 3D and 2D generators (and the
     2D critic) under ``cudnn.deterministic`` alone: the generators'
     gradients bit-equal (``c3_phase``), the 3D one in both layouts;
-26. the packed layout's ops (``ops/packed.py``, cuDNN convs; ``--only
+26. the packed layout's ops (``ops/packed.py``: the f32 stage-conv kernel
+    where no gradient is wanted, cuDNN's convs otherwise; ``--only
     packed_ops``) at the default generator's shapes, f32 and bf16: the stem
     (f2 -> f2, 5^3 block kernel, 8 -> 128 channels), ``down_0`` (f2 -> f2,
     stride 2), ``down_1`` (f2 -> f1), the projection (f2 -> f4, 6^3, 128 ->
@@ -211,7 +220,9 @@ failure raises and exits non-zero):
     generator with phase 3's weights through ``CCTAContrastCorrector``'s
     default layout: 512x512x128 at 25% and 512x512x400 at 25% and 50%, at
     batch 24 (the default) and 8, s/volume beside phase 3-5's direct
-    figures and each batch's peak memory, no block-conv launch; then
+    figures and each batch's peak memory, no block-conv launch, the
+    packed stage-conv kernel's launches per volume (6 a batch in f32,
+    none in bf16); then
     96x96x64 and 96x96x66 (edge-padded to 68) on the card and on the CPU:
     f32 within 0.5 HU, bf16 by phase 5's rule; a profile of one packed bf16
     512x512x128 correction;
@@ -223,7 +234,8 @@ failure raises and exits non-zero):
     ``combined_step``; C3 on it (phase 25) and its cycles (phase 24);
 29. packed ``correct_scans`` and the packed training run are phases 14,
     11 and 12 above; the ``kernels`` line counts the packed paths (no
-    launch) beside the direct ones;
+    block-conv launch; ``conv3d_cl`` on the f32 paths without a gradient)
+    beside the direct ones;
 30. the serving daemon (``--only serve``, with 31): ``serve``'s
     ``build_server`` on a run directory holding phase 3's seeded weights,
     with the command's defaults (packed, bf16 patches, overlap 0.25, batch
@@ -500,6 +512,7 @@ from contrast_gan_3d_tpu_torch.ops.block_conv import (
     weight_grad,
 )
 from contrast_gan_3d_tpu_torch.ops.packed import packed_conv3d, packed_tconv3d, reflect_pad_packed
+from contrast_gan_3d_tpu_torch.ops.packed_conv import conv3d_cl_flops, conv3d_cl_op, conv3d_cl_reference, conv3d_cl_tc
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import depth_to_space, reflect_pad, s2d_conv3d, space_to_depth
 from contrast_gan_3d_tpu_torch.ops.resample import (
     bilinear_sample,
@@ -520,7 +533,7 @@ from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, build_train_steps, init_state, schedule_branches
 from contrast_gan_3d_tpu_torch.trainer.trainer import HIGH, LOW, OPT, SCAN_TYPES, Trainer, TrainerConfig
 from contrast_gan_3d_tpu_torch.utils import geometry, io_utils
-from contrast_gan_3d_tpu_torch.utils.device import tf32_flags
+from contrast_gan_3d_tpu_torch.utils.device import full_f32, tf32_flags
 from contrast_gan_3d_tpu_torch.utils.reference_checkpoint import load_reference_checkpoint, save_reference_checkpoint
 
 # H100 SXM dense peaks (NVIDIA data sheet): f32 FFMA outside the tensor
@@ -645,13 +658,13 @@ def compare(got, ref, tol, what):
 def zero_counts():
     """Every wrapper's launch counts to 0 (just before a path runs)."""
     block_conv3x3x3.launches = block_conv3x3x3.backward_launches = block_conv3x3x3_v2.launches = 0
-    s2d_conv3d_block.launches = 0
+    s2d_conv3d_block.launches = conv3d_cl_tc.launches = 0
 
 
 def read_counts() -> dict:
     return {"block_conv3x3x3": block_conv3x3x3.launches, "s2d_conv3d_block": s2d_conv3d_block.launches,
             "block_conv3x3x3_v2": block_conv3x3x3_v2.launches,
-            "block_conv3x3x3_backward": block_conv3x3x3.backward_launches}
+            "block_conv3x3x3_backward": block_conv3x3x3.backward_launches, "conv3d_cl": conv3d_cl_tc.launches}
 
 
 # (wrapper, plain, conv weight over x's spatial order (Z, ., .)); B2 runs
@@ -755,6 +768,53 @@ def kernel_phase(dev, g):
     for stage, (ci, co, has_bias) in B3_SHAPES.items():
         rows.append(b3_row(dev, gv, torch.bfloat16, f"{stage} (validation)", ci, co, has_bias, VAL_BATCH,
                            VAL_VOLUME, bf16_tol=B3_BF16_BIAS_REL_TOL if has_bias else B3_BF16_REL_TOL))
+    return rows
+
+
+# the packed basic_3d generator's stage convs on a batch of 24 windows of
+# 128^3, as ``forward_packed`` hands them to ``ops/s2d_conv.conv3d_cl``:
+# x (B, X, Y, Z, Ci), kernel (Kx, Ky, Kz, Ci, Co), block stride
+PACKED_CONV_STAGES = {
+    "first": ((24, 68, 68, 68, 8), (5, 5, 5, 8, 128), 1),
+    "down_0": ((24, 66, 66, 66, 128), (3, 3, 3, 128, 256), 2),
+    "down_1": ((24, 34, 34, 34, 256), (2, 2, 2, 256, 64), 1),
+    "up_0": ((24, 33, 33, 33, 64), (2, 2, 2, 64, 256), 1),
+    "up_1": ((24, 65, 65, 65, 32), (2, 2, 2, 32, 128), 1),
+    "last_conv": ((24, 68, 68, 68, 128), (6, 6, 6, 128, 64), 2),
+}
+# stage convs a packed generator forward hands to ``conv3d_cl``
+PACKED_STAGE_CONVS = len(PACKED_CONV_STAGES)
+
+
+def packed_conv_phase(dev, g):
+    """Phase 2's packed rows: per packed stage conv at batch 24, f32, the
+    3xTF32 kernel (``ops/packed_conv.py``) against cuDNN's f32 conv with
+    TF32 off (``conv3d_cl_reference``, what the packed layout ran before
+    the kernel), its time, bound and rate, and cuDNN's time; the whole
+    run's ``kernels`` line adds the launches measured on each path."""
+    rows = []
+    for stage, (x_shape, w_shape, stride) in PACKED_CONV_STAGES.items():
+        x = torch.randn(x_shape, generator=g).to(dev)
+        w = (torch.randn(w_shape, generator=g) / math.prod(w_shape[:4]) ** 0.5).to(dev)
+        with torch.no_grad(), full_f32():
+            before = conv3d_cl_tc.launches
+            got = conv3d_cl_op(x, w, stride)
+            ref = conv3d_cl_reference(x, w, stride)
+            torch.cuda.synchronize()
+            if conv3d_cl_tc.launches != before + 1:
+                raise AssertionError(f"packed conv {stage}: {conv3d_cl_tc.launches - before} launches, not 1")
+            err, rel = compare(got, ref, 1e-5, f"packed conv {stage} (kernel vs cuDNN f32)")
+            flops = conv3d_cl_flops(x.shape, w.shape, stride)
+            ms = median_ms(lambda: conv3d_cl_op(x, w, stride))
+            row = dict(name="conv3d_cl", stage=stage, dtype="float32", x_shape=list(x.shape),
+                       w_shape=list(w.shape), stride=stride, tensor_cores=TENSOR_CORES[torch.float32],
+                       max_abs_err=err, max_rel_err=rel, ms=ms, **bound(flops, nbytes(x, w, got), torch.float32),
+                       library_ms=median_ms(lambda: conv3d_cl_reference(x, w, stride)),
+                       gflop=flops / 1e9, tflops=flops / ms / 1e9)
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, w, got, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2170,8 +2230,9 @@ REF_3D_SHAPE, REF_2D_SHAPE = (256, 256, 128), (512, 512, 32)
 
 def no_block_conv(launches: dict, what: str) -> dict:
     """The 2D family and the packed layout have no block-conv stage: B1, B2
-    and B3 launch no time on their paths."""
-    if any(launches.values()):
+    and B3 launch no time on their paths (the packed layout's f32 stage
+    convs launch ``conv3d_cl``, counted beside them)."""
+    if any(n for k, n in launches.items() if k != "conv3d_cl"):
         raise AssertionError(f"{what}: block-conv launches on a path without them: {launches}")
     return launches
 
@@ -2777,8 +2838,8 @@ def flax_tconv_to_torch(w):
 
 
 def packed_ops_phase(dev, g, batch=BATCH):
-    """Phase 26: the packed layout's ops (``ops/packed.py``; cuDNN convs, no
-    hand-written kernel) at the default generator's shapes (128^3 patches),
+    """Phase 26: the packed layout's ops (``ops/packed.py``; f32 convs on
+    the packed stage-conv kernel, bf16 on cuDNN's) at the default generator's shapes (128^3 patches),
     f32 and bf16: each on the card against the CPU in f32 on the same
     values (one sample; f32 1e-4, bf16 2^-7 of max|CPU|: bf16 rounds the
     output once, the bias add twice), and against its direct-layout
@@ -2831,7 +2892,10 @@ def packed_serving_phase(gen, rng, dtype):
     in the packed layout, ``layout="auto"``'s answer for it: the
     ``PACKED_REQUESTS`` at batch 24 (JAX's packed default) and at 8, each
     batch's peak memory; no block-conv launch (the counts zeroed before,
-    read after). Returns (launches, results)."""
+    read after); the packed stage-conv kernel's launches per volume, read
+    around each request: one per stage conv of each batch in f32 (78 for
+    512x512x400 at 50%, 13 batches of 24), none in bf16. Returns
+    (launches, results)."""
     vols = {shape: rng.integers(-1024, 1500, shape).astype(np.int16) for shape, _ in PACKED_REQUESTS}
     results = []
     zero_counts()
@@ -2847,19 +2911,26 @@ def packed_serving_phase(gen, rng, dtype):
         for shape, overlap in PACKED_REQUESTS:
             vol = vols[shape]
             seconds = []
+            before = conv3d_cl_tc.launches
             for _ in range(2 if shape[2] == 128 else 1):
                 t0 = time.perf_counter()
                 out = correctors[overlap](vol)
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
+            per_volume = (conv3d_cl_tc.launches - before) / len(seconds)
             if tuple(out.shape) != vol.shape or not torch.isfinite(out).all():
                 raise AssertionError("packed: corrected volume has the wrong shape or non-finite values")
             delta = (out.cpu() - torch.from_numpy(vol).float()).abs().max().item()
             if not delta < 600.0 + 1e-2:
                 raise AssertionError(f"packed: correction of {delta} HU exceeds the 600 HU bound")
             patches = num_patches(shape, (128, 128, 128), overlap, packed_io=True)
+            forwards = -(-patches // batch)
+            want = PACKED_STAGE_CONVS * forwards if dtype == torch.float32 else 0
+            if per_volume != want:
+                raise AssertionError(f"packed serving {DTYPE_NAME[dtype]} {shape} at {overlap:.0%}, batch {batch}: "
+                                     f"{per_volume} stage-conv launches a volume, expected {want}")
             results.append(dict(shape=shape, overlap=overlap, batch=batch, seconds=seconds[-1], first_s=seconds[0],
-                                patches=patches, forwards=-(-patches // batch)))
+                                patches=patches, forwards=forwards, conv3d_cl_launches=want))
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in results[-len(PACKED_REQUESTS):]:
             r["peak_memory_gib"] = peak
@@ -2995,7 +3066,7 @@ def cycle_phase(name, device="cuda", label=None, timed=True, **overrides):
         b1 = sum(per_branch[b] for b in cycle.pattern) if direct else 0
         dx = sum(b != "critic" for b in cycle.pattern) if direct else 0
         want_launches = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - dx, "block_conv3x3x3_v2": 0,
-                         "block_conv3x3x3_backward": dx}
+                         "block_conv3x3x3_backward": dx, "conv3d_cl": 0}
         if launches != want_launches:
             raise AssertionError(f"cycle {name} {c}: launches {launches}, expected {want_launches}")
         checks.append(dict(iteration=iteration, calls=calls, launches=launches, rng_before=rng_before,
@@ -3695,7 +3766,7 @@ def resize_phase():
     launches_during(lambda: corr(vol), launches)
     first_s = time.perf_counter() - t0
     want = dict(block_conv3x3x3=forwards, s2d_conv3d_block=forwards, block_conv3x3x3_v2=0,
-                block_conv3x3x3_backward=0)
+                block_conv3x3x3_backward=0, conv3d_cl=0)
     if launches != want:
         raise AssertionError(f"resize: launches {launches}, expected {want} (the projection's route only)")
     times = []
@@ -4213,11 +4284,10 @@ def sharded_phase(tmp: Path):
             got = corrector(vol)
             seconds = warm_seconds(lambda: corrector(vol))
             counts = read_counts()
-            if layout == "direct":
-                for k, v in counts.items():
-                    launches[k] = launches.get(k, 0) + v
-            elif any(counts.values()):
-                raise AssertionError(f"sharded packed: block-conv launches {counts}")
+            if layout != "direct":
+                no_block_conv(counts, "sharded packed")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
             err = (got - want).abs().max().item()
             key = f"{layout} x{len(devices)}"
             out[key] = dict(seconds=seconds, unsharded_s=t_base, ratio=seconds / t_base, max_abs_err_hu=err,
@@ -4553,7 +4623,9 @@ def flops_phase():
     dev = torch.device("cuda")
     out = flops_accounting.main(["--json"])
     op_b1, op_b3 = "contrast_gan_3d_torch.block_conv3x3x3", "contrast_gan_3d_torch.s2d_conv3d_block"
-    launches = {"block_conv3x3x3": 0, "s2d_conv3d_block": 0, "block_conv3x3x3_v2": 0, "block_conv3x3x3_backward": 0}
+    # its programs are bf16: the packed stage-conv kernel launches in none
+    launches = {"block_conv3x3x3": 0, "s2d_conv3d_block": 0, "block_conv3x3x3_v2": 0, "block_conv3x3x3_backward": 0,
+                "conv3d_cl": 0}
     for name, r in out.items():
         n = r["launches"]
         if "direct" not in name:
@@ -4723,7 +4795,7 @@ def instance_phase(rng, device="cuda", volume=INSTANCE_VOLUME, patch=TRAIN_PATCH
             step_s = warm_seconds(lambda: trainer.steps.combined_step(trainer.state, opt, subopt, mask))
             values = {k: v.float().item() for k, v in metrics.items()}
             want = {"block_conv3x3x3": 3, "s2d_conv3d_block": 2, "block_conv3x3x3_v2": 0,
-                    "block_conv3x3x3_backward": 1}
+                    "block_conv3x3x3_backward": 1, "conv3d_cl": 0}
             print(f"instance {name} {mode} combined_step ({mix[0]}+{mix[1]}+{mix[2]} at {patch}): warm "
                   f"{step_s:.4f} s, launches {step}, {values}", flush=True)
             if step != want or not all(math.isfinite(v) for v in values.values()):
@@ -4811,7 +4883,7 @@ def remat_phase(device="cuda", runs=REMAT_RUNS, cycle=True, **overrides):
                 direct = trainer.state.generator.layout == "direct"
                 b1 = (5 if remat else 3) if direct else 0
                 want = {"block_conv3x3x3": b1, "s2d_conv3d_block": b1 - int(direct), "block_conv3x3x3_v2": 0,
-                        "block_conv3x3x3_backward": int(direct)}
+                        "block_conv3x3x3_backward": int(direct), "conv3d_cl": 0}
                 if counts != want:
                     raise AssertionError(f"remat {label} {mode} remat={remat}: launches {counts}, expected {want}")
                 for k, n in read_counts().items():  # the checked step's and the timed steps'
@@ -5160,7 +5232,7 @@ def sp_phase(tmp: Path):
             got = rank[label]
             if layout == "packed":
                 no_block_conv(got["counts"], f"sp rank {r} {label}")
-            elif got["counts"] != {**SP_PER_STEP, "block_conv3x3x3_v2": 0}:
+            elif got["counts"] != {**SP_PER_STEP, "block_conv3x3x3_v2": 0, "conv3d_cl": 0}:
                 raise AssertionError(f"sp {label} rank {r}: launches {got['counts']}, predicted {SP_PER_STEP}")
             rel = metrics_close(got["metrics"], want["metrics"], f"sp rank {r} {label}", dtype)
             if dtype == torch.float32:
@@ -5192,7 +5264,7 @@ def sp_phase(tmp: Path):
     predicted = {"s2d_conv3d_block": 2 * 5, "block_conv3x3x3": 3 + 4 * 2, "block_conv3x3x3_backward": 1}
     for r, rank in enumerate(ranks):
         got = rank["bf16 cycle"]
-        if got["counts"] != {**predicted, "block_conv3x3x3_v2": 0}:
+        if got["counts"] != {**predicted, "block_conv3x3x3_v2": 0, "conv3d_cl": 0}:
             raise AssertionError(f"sp cycle rank {r}: launches {got['counts']}, predicted {predicted}")
         if got["dispatch"] != "eager" or got["calls"] != {"eager": 3, "capture": 0, "replay": 0}:
             raise AssertionError(f"sp cycle rank {r}: dispatch {got['dispatch']}, calls {got['calls']}")
@@ -5752,6 +5824,8 @@ ONLY = {
     "overlap_trained": lambda: overlap_phase(Path(tempfile.mkdtemp(prefix="chip_smoke_overlap_")),
                                              iterations=OVERLAP_TRAINED_ITERATIONS),
     "flops": flops_phase,
+    "kernels": lambda: kernel_phase(torch.device("cuda"), torch.Generator().manual_seed(0)),
+    "packed_conv": lambda: packed_conv_phase(torch.device("cuda"), torch.Generator().manual_seed(0)),
     "instance": lambda: instance_phase(np.random.default_rng(44)),
     "dropout": dropout_phase,
     "remat": remat_phase,
@@ -5798,6 +5872,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(dev, g)
     dx_rows = [backward_phase(dev, g, dtype) for dtype in DTYPES]
     ragged_phase(dev, g)
+    conv_rows = packed_conv_phase(dev, g)
     print(f"kernels: {time.perf_counter() - t_start:.1f} s", flush=True)
     packed_ops = packed_ops_phase(dev, g)
     print(f"packed ops: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5947,53 +6022,61 @@ def main(argv=None) -> int:
 
     kernels = []
     dtype_of = {v: k for k, v in DTYPE_NAME.items()}
-    # the dx rows count B1's backward launches only
-    for r, key in [(r, r["name"]) for r in rows] + [(r, "block_conv3x3x3_backward") for r in dx_rows]:
+    # launches a 512x512x400 volume at 50% overlap, batch 24, f32 packed
+    conv_per_volume = next(r["conv3d_cl_launches"] for r in serve_p[torch.float32][1]
+                           if r["shape"] == (512, 512, 400) and r["overlap"] == 0.5 and r["batch"] == PACKED_BATCH)
+    # the dx rows count B1's backward launches only; the packed stage-conv
+    # rows count every path's launches of that kernel, whose counter only
+    # f32 calls move, so no path's count is held back by its dtype
+    for r, key in ([(r, r["name"]) for r in rows] + [(r, "block_conv3x3x3_backward") for r in dx_rows]
+                   + [(dict(r, launches_per_volume=conv_per_volume), "conv3d_cl") for r in conv_rows]):
         dtype = dtype_of[r["dtype"]]
+        f32 = dtype == torch.float32 or key == "conv3d_cl"
+        bf16 = dtype == torch.bfloat16 or key == "conv3d_cl"
         # the fit path is basic_3d, which trains in bf16; the correct_scans
         # command serves in f32, as the JAX command does
         # the reference-checkpoint corrections run in f32; the 2D paths,
         # in both dtypes, launch no block conv (each phase asserts it)
         by_path = {"serving": serve[dtype][0].get(key, 0), "train": train[dtype][0][key],
                    "serving_packed": serve_p[dtype][0][key], "train_packed": train_p[dtype][0][key],
-                   "fit": fit_launches[key] if dtype == torch.bfloat16 else 0,
-                   "serving_files": files_launches[key] if dtype == torch.float32 else 0,
-                   "reference_ckpt": reference["3d"]["launches"][key] if dtype == torch.float32 else 0,
+                   "fit": fit_launches[key] if bf16 else 0,
+                   "serving_files": files_launches[key] if f32 else 0,
+                   "reference_ckpt": reference["3d"]["launches"][key] if f32 else 0,
                    "models_2d": models_2d["launches"][key], "serving_2d": serving_2d["launches"][key],
                    "train_2d": train_2d[DTYPE_NAME[dtype]]["launches"][key], "fit_2d": fit_2d["launches"][key],
                    "cycles": sum(c["launches"][key] for r in cycles.values() for c in r["per_cycle"])
-                   if dtype == torch.bfloat16 else 0,
+                   if bf16 else 0,
                    "serve": serve_launches[dtype].get(key, 0), "export": export_launches[dtype].get(key, 0),
                    # C6's and the resize branch's correctors are f32 direct;
                    # preprocessing has no generator, the learning run is packed
-                   "c6": s11["c6"][0][key] if dtype == torch.float32 else 0,
-                   "resize": s11["resize"][0][key] if dtype == torch.float32 else 0,
-                   "learn": s11["learn"][0][key] if dtype == torch.bfloat16 else 0,
+                   "c6": s11["c6"][0][key] if f32 else 0,
+                   "resize": s11["resize"][0][key] if f32 else 0,
+                   "learn": s11["learn"][0][key] if bf16 else 0,
                    # the data-parallel steps and cycles at world size 1 are
                    # bf16 direct (the gloo ranks and the CLI run are packed);
                    # the sharded corrector is f32 direct (its packed runs,
                    # correct_scans and serve launch none)
-                   "dp": s12["dp"][0].get(key, 0) if dtype == torch.bfloat16 else 0,
-                   "sharded": s12["sharded"][0].get(key, 0) if dtype == torch.float32 else 0,
+                   "dp": s12["dp"][0].get(key, 0) if bf16 else 0,
+                   "sharded": s12["sharded"][0].get(key, 0) if f32 else 0,
                    # the study tools launch none (each phase asserts it) but
                    # flops_accounting's direct programs, all bf16
                    "dataset": s13["dataset"][0][key], "recall": s13["recall"][0][key],
                    "overlap": s13["overlap"][0][key],
-                   "flops": s13["flops"][0][key] if dtype == torch.bfloat16 else 0,
+                   "flops": s13["flops"][0][key] if bf16 else 0,
                    # instance norm: both dtypes, direct; dropout's cycles are
                    # packed (none); remat's direct runs and its captured
                    # cycle are bf16, recomputed forwards included; the JAX
                    # checkpoint's corrector is f32 direct
                    "instance": s14["instance"][0][dtype][key],
                    "dropout": sum(c["launches"][key] for c in s14["dropout"]["per_cycle"])
-                   if dtype == torch.bfloat16 else 0,
-                   "remat": s14["remat"][0][key] if dtype == torch.bfloat16 else 0,
-                   "jax_ckpt": s14["jax_ckpt"][0][key] if dtype == torch.float32 else 0,
+                   if bf16 else 0,
+                   "remat": s14["remat"][0][key] if bf16 else 0,
+                   "jax_ckpt": s14["jax_ckpt"][0][key] if f32 else 0,
                    # spatial partitioning: both gloo ranks' launches (f32 WC
                    # and GP steps; a bf16 WC step and cycle), direct; the
                    # packed bf16 WC and GP steps launch none (asserted)
                    "sp": sp_launches[DTYPE_NAME[dtype]][key],
-                   "sp_packed": sp_launches["packed"][key] if dtype == torch.bfloat16 else 0,
+                   "sp_packed": sp_launches["packed"][key] if bf16 else 0,
                    # the 2D family under sp launches none, f32 and bf16
                    # (asserted): both ranks' counters
                    "sp_2d": sp2d_launches[key],

@@ -7,8 +7,9 @@ is traced once with ``torch.export`` under ``torch.no_grad`` and saved with
 ``torch.export.save``, the generator's weights inside. A serving process
 loads it with :func:`load_exported_corrector` and calls it without the
 generator's class, a checkpoint or a new trace; it needs this package only
-for the block-conv operators of a direct-layout artifact
-(``ops/block_conv.py``), which it registers on import.
+for the operators an artifact holds: B1/B3 in a direct-layout artifact, the
+packed stage convs (``ops/packed_conv.py``) in a packed one, which
+importing ``ops/block_conv.py`` registers.
 
 Artifacts are shape-specialised: the window's Python loop unrolls for the
 exported shape (a 512x512x128 volume at overlap 0.25 is 25 patches, two
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 from torch.export.passes import move_to_device_pass
 
-from contrast_gan_3d_tpu_torch.ops import block_conv  # noqa: F401  (registers the block-conv operators)
+from contrast_gan_3d_tpu_torch.ops import block_conv  # noqa: F401  (registers the kernels' operators)
 from contrast_gan_3d_tpu_torch.utils.device import full_f32, resolve_device
 
 ARTIFACT_SUFFIX = ".pt2corr"

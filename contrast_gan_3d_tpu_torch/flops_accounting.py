@@ -37,7 +37,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from contrast_gan_3d_tpu_torch.models.discriminator import PatchGANDiscriminator
 from contrast_gan_3d_tpu_torch.models.generator import ResnetGenerator
-from contrast_gan_3d_tpu_torch.ops import block_conv
+from contrast_gan_3d_tpu_torch.ops import block_conv, tc_common
 from contrast_gan_3d_tpu_torch.trainer.optim import make_optimizer
 from contrast_gan_3d_tpu_torch.trainer.steps import StepConfig, build_train_steps, init_state
 from contrast_gan_3d_tpu_torch.utils.device import resolve_device
@@ -112,7 +112,7 @@ def count(fn, device) -> dict:
     all and by operator, the block-conv operators' executed and model
     FLOPs and calls (``FLOP_LOG``), the model FLOPs of the program, and on
     the card the kernels' launches in the call."""
-    block_conv.FLOP_LOG = []
+    tc_common.FLOP_LOG = []
     for f in block_conv.COUNTED:
         f.launches = 0
         if hasattr(f, "backward_launches"):
@@ -124,9 +124,9 @@ def count(fn, device) -> dict:
             fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        log = block_conv.FLOP_LOG
+        log = tc_common.FLOP_LOG
     finally:
-        block_conv.FLOP_LOG = None
+        tc_common.FLOP_LOG = None
     total = mode.get_total_flops()
     kernels = {}
     for name, executed, model in log:

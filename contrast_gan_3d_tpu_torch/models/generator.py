@@ -21,9 +21,11 @@ the stem, the downsamples, ``up_0`` and the projection keep their
 activations space-to-depth packed across stage boundaries, the reflect
 pads are built in packed space, every upsample is a forward stride-1 conv
 with packed output (the inner ones unpacked for the next), and the ResNet
-blocks run the direct modules on a channels-last view. No block-conv
-kernel runs there (its convs are cuDNN's, as XLA's are in the JAX
-package's packed layout). Spatial dims must divide
+blocks run the direct modules on a channels-last view. B1/B3 do not run
+there: the stage convs go through ``ops/s2d_conv.conv3d_cl``, the 3xTF32
+tensor-core kernel (``ops/packed_conv.py``) for f32 without a gradient
+(correction), cuDNN's otherwise (training, bf16), and the ResNet blocks'
+convs are cuDNN's. Spatial dims must divide
 ``max(4, 2**n_updownsample_blocks)``. ``packed_input``: the
 input is already f=2 packed, ``(B, X/2, Y/2, Z/2, 8)`` channels-last;
 ``packed_output``: the f=4 packed attenuation ``(B, X/4, Y/4, Z/4, 64)``

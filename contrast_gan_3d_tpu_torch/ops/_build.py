@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface under ``build/torch_kernels/`` at the root of the checkout, and
-loads with ``ctypes``. A library newer than every source in ``csrc/`` is
-reused; a stale one is compiled again. Builds and loads hold one lock, so
+loads with ``ctypes``; loading one builds that one alone. A library newer
+than its source and every shared header (``csrc/*.cuh``) is reused; a stale
+one is compiled again. Builds and loads hold one lock, so
 two threads that reach a kernel first at once (the serving daemon's
 handlers) build it once.
 Nothing but the repo's own sources goes into a build.
@@ -51,7 +52,7 @@ def _stale(name: str) -> bool:
     lib = library_path(name)
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    newest = max(p.stat().st_mtime for p in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
     return lib.stat().st_mtime < newest
 
 
@@ -68,20 +69,24 @@ def _compile(name: str) -> None:
     os.replace(tmp, library_path(name))  # atomic: no half-written lib
 
 
-def build_all() -> Dict[str, bool]:
-    """Compile every stale ``csrc/*.cu``; returns {name: rebuilt}."""
+def build(name: str) -> bool:
+    """Compile ``csrc/<name>.cu`` if its library is stale; returns whether
+    it did."""
     with _LOCK:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        rebuilt = {}
-        for name in sorted(p.stem for p in CSRC.glob("*.cu")):
-            rebuilt[name] = _stale(name)
-            if rebuilt[name]:
-                _compile(name)
-        return rebuilt
+        stale = _stale(name)
+        if stale:
+            _compile(name)
+        return stale
+
+
+def build_all() -> Dict[str, bool]:
+    """Compile every stale ``csrc/*.cu``; returns {name: rebuilt}."""
+    return {name: build(name) for name in sorted(p.stem for p in CSRC.glob("*.cu"))}
 
 
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built if stale)."""
-    build_all()
+    build(name)
     return ctypes.CDLL(str(library_path(name)))

@@ -56,7 +56,7 @@ Both operators have a flop formula (``torch.utils.flop_counter``), so
 its operator executes, ``block_conv_flops`` for B1 (the dx launch too) and
 B3's B1 launch on the f=4 block grid for B3 (``s2d_conv3d_block_flops``,
 about 5x the model FLOPs of the 7^3 conv, ``s2d_conv3d_model_flops``).
-While ``FLOP_LOG`` is a list, each counted launch (and each
+While ``tc_common.FLOP_LOG`` is a list, each counted launch (and each
 ``weight_grad``) also appends ``(name, executed, model)``: model is the
 7^3 conv's count where the launch serves a B3 stage (``flops_accounting``
 reports both totals).
@@ -74,6 +74,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 from contrast_gan_3d_tpu_torch.ops import _build
+from contrast_gan_3d_tpu_torch.ops.packed_conv import conv3d_cl_tc
 from contrast_gan_3d_tpu_torch.ops.s2d_conv import (
     _axis_map,
     check_padding_mode,
@@ -83,6 +84,10 @@ from contrast_gan_3d_tpu_torch.ops.s2d_conv import (
     space_to_depth,
     transform_kernel,
 )
+# TF32_DROP and tf32_round stay importable from here with tf32_split
+from contrast_gan_3d_tpu_torch.ops.tc_common import OP_NAMESPACE, TF32_DROP, tf32_round, tf32_split  # noqa: F401
+from contrast_gan_3d_tpu_torch.ops.tc_common import log_flops as _log_flops
+from contrast_gan_3d_tpu_torch.ops.tc_common import needs_grad as _needs_grad
 
 # keyed by x's spatial axes in memory order: B1 (Z, X, Y), B2 (Z, Y, X)
 _C_SYMBOLS = {
@@ -92,12 +97,8 @@ _C_SYMBOLS = {
     ("zyx", torch.bfloat16): "block_conv3x3x3_v2_bf16",
 }
 ROADMAP_NOTE = "not ported yet; see ROADMAP.md"
-# (name, executed FLOPs, model FLOPs) of each counted launch while a list
-FLOP_LOG: Optional[list] = None
 # the model FLOPs of the B3 stage whose B1 work runs now, per thread
 _stage = threading.local()
-OP_NAMESPACE = "contrast_gan_3d_torch"
-TF32_DROP = 0x1FFF  # the 13 low mantissa bits that TF32 does not keep
 
 
 @lru_cache(maxsize=None)
@@ -123,20 +124,6 @@ def dx_weight(w: torch.Tensor) -> torch.Tensor:
     dy padded by 2 with ``w.flip(0, 1, 2).transpose(3, 4)``, whose K-major
     form (27, Ci, Co) is the flipped weight without the transpose."""
     return w.flip(0, 1, 2).reshape(27, w.shape[3], w.shape[4])
-
-
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~TF32_DROP).view(torch.float32)
-
-
-def tf32_split(v: torch.Tensor):
-    """(big, small): ``big = tf32_round(v)``, ``small = tf32_round(v - big)``;
-    ``|v - big - small| <= 2^-22 |v|``."""
-    big = tf32_round(v)
-    return big, tf32_round(v - big)
 
 
 def pad_channels(x: torch.Tensor, w_km: torch.Tensor):
@@ -180,11 +167,6 @@ def s2d_conv3d_model_flops(x_shape, w_shape) -> int:
     """FLOPs of the stride-1 SAME conv B3 computes, counted as a plain
     conv: 2 B X Y Z kx ky kz Ci Co."""
     return 2 * math.prod(x_shape[:4]) * math.prod(w_shape)
-
-
-def _log_flops(name: str, executed: int, model: Optional[int] = None) -> None:
-    if FLOP_LOG is not None:
-        FLOP_LOG.append((name, executed, executed if model is None else model))
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
@@ -313,7 +295,7 @@ class BlockConv3x3x3Function(torch.autograd.Function):
 
 class _model_flops:
     """Within the scope, launches count ``model`` as their model FLOPs
-    (``FLOP_LOG``); None leaves the enclosing scope's."""
+    (``tc_common.FLOP_LOG``); None leaves the enclosing scope's."""
 
     def __init__(self, model: Optional[int]):
         self.model = model
@@ -358,10 +340,6 @@ def block_conv3x3x3_v2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _contract(x, w, "zyx")
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
 def _contract(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
     """Through ``BlockConv3x3x3Function`` where a gradient is wanted, else
     the operator alone: what ``torch.export`` records, under no_grad."""
@@ -377,7 +355,8 @@ for _fn in _WRAPPERS.values():
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch counts, keyed by (wrapper, attribute)."""
+    """Every wrapper's launch counts, keyed by (wrapper, attribute): B1's,
+    B2's and B3's, and ``ops/packed_conv``'s."""
     return {(fn, attr): getattr(fn, attr) for fn in COUNTED for attr in ("launches", "backward_launches")
             if hasattr(fn, attr)}
 
@@ -468,7 +447,7 @@ def _(x, w, bias, f, padding_mode, halo=False):
 
 
 s2d_conv3d_block.launches = 0
-COUNTED = (block_conv3x3x3, block_conv3x3x3_v2, s2d_conv3d_block)
+COUNTED = (block_conv3x3x3, block_conv3x3x3_v2, s2d_conv3d_block, conv3d_cl_tc)
 
 
 def _b1_flop(x_shape, w_km_shape, layout, *args, out_shape=None, **kwargs) -> int:

@@ -29,8 +29,9 @@ conv runs as a dense VALID block-space conv:
 
 Tensors are the JAX package's channels-last ``(B, X, Y, Z, f^3*C)`` with
 the ``(dx, dy, dz, c)`` d-major channel order; kernels ``(k, k, k, Ci,
-Co)`` in flax's layout. Convs are ``F.conv3d`` on permuted views
-(``ops/s2d_conv.conv3d_cl``), in x's dtype. The transformed kernels are 0/1
+Co)`` in flax's layout. Convs go through ``ops/s2d_conv.conv3d_cl``, in
+x's dtype: the 3xTF32 tensor-core kernel for f32 without a gradient,
+``F.conv3d`` on permuted views otherwise. The transformed kernels are 0/1
 scatters of the true weights, built every call from device aranges (no
 host copy inside a captured CUDA graph) with one contraction per axis, so
 autograd yields the true weights' gradients and the parameters keep their

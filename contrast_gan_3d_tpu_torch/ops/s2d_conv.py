@@ -25,6 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from contrast_gan_3d_tpu_torch.ops.packed_conv import conv3d_cl_op, conv3d_cl_reference
+from contrast_gan_3d_tpu_torch.ops.tc_common import needs_grad
+
 
 @lru_cache(maxsize=64)
 def _axis_map(k: int, f: int, s: int = 1) -> Tuple[np.ndarray, int]:
@@ -105,11 +108,15 @@ def _tconv_axis_map_tensor(k: int, s: int, dtype, device) -> torch.Tensor:
 
 def conv3d_cl(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """VALID 3D conv of a channels-last ``(B, X, Y, Z, Ci)`` tensor with a
-    ``(kx, ky, kz, Ci, Co)`` kernel, ``F.conv3d`` on the permuted views (the
-    input is then in ``channels_last_3d`` memory format, the output comes
-    back contiguous channels-last); x's dtype in and out."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), stride=stride)
-    return y.permute(0, 2, 3, 4, 1)
+    ``(kx, ky, kz, Ci, Co)`` kernel at ``stride``; x's dtype in and out,
+    channels-last out. f32 x where no gradient is wanted: the operator
+    ``ops/packed_conv.conv3d_cl_op`` (the 3xTF32 tensor-core kernel on the
+    card, ``F.conv3d`` on the CPU; either rejects a w of another dtype).
+    Otherwise (bf16, or autograd recording: training) ``F.conv3d`` on the
+    permuted views (``conv3d_cl_reference``)."""
+    if x.dtype == torch.float32 and not needs_grad(x, w):
+        return conv3d_cl_op(x, w, stride)
+    return conv3d_cl_reference(x, w, stride)
 
 
 def zero_pad_cl(x: torch.Tensor, pads) -> torch.Tensor:

@@ -50,7 +50,8 @@ def full_f32():
     the daemon, the train CLI) run inside this scope. Only the two TF32
     switches change; ``deterministic``, ``benchmark`` and every other flag
     are the caller's. On exit of the outermost scope the switches are as
-    it found them. bf16 work is not affected."""
+    it found them. bf16 work is not affected, nor is the packed stage
+    convs' kernel (``ops/packed_conv.py``), which is 3xTF32 either way."""
     global _f32_depth, _f32_saved
     with _F32_LOCK:
         if _f32_depth == 0:
